@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` source compiles into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+        -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so
+
+at first use, all sources at once in parallel processes. The file name
+carries a hash of the sources and flags, so an edited source rebuilds and
+a built library is reused. The build directory is ``build/
+repro_torch_kernels/`` under the checkout (listed in ``.gitignore``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# library name -> source; every launcher shares LAUNCH_ARGTYPES
+SOURCES = {
+    "ita_onepass": _PKG / "ita_attention" / "csrc" / "onepass.cu",
+    "ita_decode": _PKG / "ita_attention" / "csrc" / "decode.cu",
+}
+# q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv, kv_4d, kv_rep,
+# hq, g, causal, window, adaptive; stream
+LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
+    + [ctypes.c_void_p]
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the port's "
+                           "CUDA kernels build on the machine with the card")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(src.parent.glob("*.cu*")):
+        if f.suffix == ".cuh" or f == src:
+            h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Compile every missing library, all nvcc processes started together.
+    Returns ``{name: {"seconds": s, "log": ptxas output or ""}}`` for the
+    libraries built by this call. ``verbose`` asks ptxas for each
+    kernel's registers, shared memory and spills."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    t0 = time.perf_counter()
+    for name, src in SOURCES.items():
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+               "-o", str(tmp), str(src)]
+        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    report, failed = {}, []
+    for name, (proc, tmp, out) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first if missing)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = LAUNCH_ARGTYPES
+        fn.restype = ctypes.c_int
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,245 @@
+"""Fused ITA attention kernels for Hopper and their plain versions.
+
+``ita_attention_onepass`` and ``ita_attention_decode`` are the port's
+counterparts of the Pallas entry points of the same names
+(``repro/kernels/ita_attention/kernel.py:265-315, 388-448``; their
+bodies ``onepass_kernel`` and ``decode_kernel``). Each takes
+the same operands:
+
+- ``q`` (BH, Sq, D) int8 (decode: Sq <= 8);
+- ``k``/``v`` int8 in the kernel layout (BH/kv_rep, Skv, D) — GQA: q row
+  ``r`` reads kv row ``r // kv_rep`` — or the cache-native ring layout
+  (B, Skv, G, D) with ``hq`` q heads per batch row (``r = b·hq + h``
+  reads kv head ``h // kv_rep``), never broadcast or transposed;
+- per-row requant multipliers and ``[kv_len, q_offset, q_len]`` meta
+  (scalars broadcast; (BH,) vectors are the ragged batch).
+
+On a CPU tensor a wrapper computes its plain PyTorch version
+(``attention_plain``: the same KV tile schedule through
+``ref.stream_rows``, on any device — ``chip_smoke.py`` holds the kernels
+to it on the card). On a CUDA tensor it launches its kernel (``csrc/onepass.cu``,
+``csrc/decode.cu``) or raises — there is no fallback — checks the launch
+status, and adds one to ``LAUNCHES[name]``.
+
+The KV tile schedule is part of the arithmetic (the integer Σ shifts
+depend on tile boundaries): ``block_kv`` is the tile, ``skv`` must be a
+multiple of it, and a kernel never splits a row's KV across blocks. The
+q tiling is free (query rows are independent).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.common import device_tensor, tile_mask
+from repro_torch.kernels.ita_attention.ref import requant_logits, stream_rows
+
+# Launches of each CUDA kernel since the last reset (plain versions and
+# CPU calls do not count).
+LAUNCHES = {"ita_attention_onepass": 0, "ita_attention_decode": 0}
+
+MAX_DECODE_Q = 8
+_MAX_HEAD_DIM = 256
+_MAX_SMEM = 232448          # bytes of shared memory one block may use
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _row_mults(logit_mult, out_mult, bh, device):
+    """Scalar or per-row requant multipliers -> (bh,) float32."""
+    def rows(x):
+        x = device_tensor(x, torch.float32, device).reshape(-1)
+        return x.expand(bh).contiguous()
+    return rows(logit_mult), rows(out_mult)
+
+
+def _row_meta(kv_len, q_offset, q_len, bh, device):
+    """Per-row ``[kv_len, q_offset, q_len]`` (bh, 3) int32; scalars
+    broadcast to every row, (bh,) vectors pass through."""
+    cols = []
+    for x in (kv_len, q_offset, q_len):
+        x = device_tensor(x, torch.int32, device).reshape(-1)
+        if x.shape[0] not in (1, bh):
+            raise ValueError(f"meta column of {x.shape[0]} entries for "
+                             f"{bh} rows")
+        cols.append(x.expand(bh))
+    return torch.stack(cols, dim=1).contiguous()
+
+
+def _kv_rows(x, bh, kv_rep, hq):
+    """Per-row K or V (bh, skv, d) gathered from either layout."""
+    r = torch.arange(bh, device=x.device)
+    if x.ndim == 4:
+        return x[r // hq, :, (r % hq) // kv_rep]
+    return x[r // kv_rep]
+
+
+def _plain_rows(q, k, v, lmult, omult, meta, *, causal, window, adaptive,
+                block_kv, kv_rep, hq):
+    """The kernels' plain version: per-row logits, masks and values
+    through the same KV tile loop. Returns (BH, Sq, D) int8."""
+    bh, sq, _ = q.shape
+    k_rows = _kv_rows(k, bh, kv_rep, hq)
+    v_rows = _kv_rows(v, bh, kv_rep, hq)
+    skv = k_rows.shape[1]
+    logits = requant_logits(q, k_rows, lmult.view(bh, 1, 1))
+    col = [meta[:, i].view(bh, 1, 1) for i in range(3)]
+    valid = tile_mask(0, 0, sq, skv, causal, window, kv_len=col[0],
+                      q_offset=col[1], q_len=col[2], device=q.device)
+    return stream_rows(logits, valid, v_rows, omult.view(bh, 1, 1),
+                       adaptive=adaptive, block_kv=block_kv)
+
+
+def row_operands(q_q, k_q, v_q, logit_mult, out_mult, kv_len, q_offset,
+                 q_len, kv_rep, hq):
+    """Check a call's operands and resolve its per-row ``(lmult, omult,
+    meta)`` — the operands ``_plain_rows`` and the kernels take."""
+    bh, sq, d = q_q.shape
+    if q_q.dtype != torch.int8 or k_q.dtype != torch.int8 \
+            or v_q.dtype != torch.int8:
+        raise TypeError("q/k/v must be int8")
+    if k_q.shape != v_q.shape or k_q.shape[-1] != d:
+        raise ValueError(f"k/v shapes {tuple(k_q.shape)}/{tuple(v_q.shape)}"
+                         f" do not fit q {tuple(q_q.shape)}")
+    if k_q.ndim == 4:
+        if hq is None or bh % hq or k_q.shape[0] * hq != bh \
+                or hq != k_q.shape[2] * kv_rep:
+            raise ValueError(f"4D K/V {tuple(k_q.shape)} needs hq with "
+                             f"B·hq = {bh} and G·kv_rep = hq")
+    elif k_q.ndim == 3:
+        if k_q.shape[0] * kv_rep != bh:
+            raise ValueError(f"3D K/V {tuple(k_q.shape)} x kv_rep {kv_rep} "
+                             f"!= {bh} rows")
+    else:
+        raise ValueError(f"K/V must be 3D or 4D, got {k_q.ndim}D")
+    lmult, omult = _row_mults(logit_mult, out_mult, bh, q_q.device)
+    meta = _row_meta(kv_len, q_offset, sq if q_len is None else q_len, bh,
+                     q_q.device)
+    return lmult, omult, meta
+
+
+_LIBS = {"ita_attention_onepass": "ita_onepass",
+         "ita_attention_decode": "ita_decode"}
+
+
+def kernel_launcher(name, q, k, v, logit_mult, out_mult, kv_len, *,
+                    q_offset=0, q_len=None, causal=True, window=0,
+                    adaptive=True, block_q=None, block_kv=128, kv_rep=1,
+                    hq=None):
+    """Check a kernel call's operands and bind them: returns ``(launch,
+    out)``, where ``launch()`` enqueues kernel ``name`` on the current
+    stream writing ``out`` and raises if the launch fails. The wrappers
+    launch through it once per call; timing code can launch it again
+    without the wrapper's host work."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{name}: tensors on {q.device}; the kernel runs "
+                           f"on CUDA tensors, the plain version on CPU ones")
+    bkv, lmult, omult, meta = _prepare(q, k, v, logit_mult, out_mult, kv_len,
+                                       q_offset, q_len, block_kv, kv_rep, hq)
+    bh, sq, d = q.shape
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if d % 16 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 16 "
+                         f"and at most {_MAX_HEAD_DIM}")
+    if any(t.device != q.device for t in (k, v, lmult, omult, meta)):
+        raise ValueError(f"{name}: operands on different devices")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+    bq = 16 if name == "ita_attention_onepass" else sq
+    smem = (bq + bkv) * (d + 16) + bkv * d + bq * bkv * 4 + bq * 16
+    if smem > _MAX_SMEM:
+        raise ValueError(f"{name}: block_kv={bkv}, d={d} needs {smem} bytes "
+                         f"of shared memory (> {_MAX_SMEM})")
+    kv_4d = k.ndim == 4
+    out = torch.empty_like(q)
+    lib = _LIBS[name]
+    fn = getattr(build.library(lib), f"{lib}_launch")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lmult.data_ptr(),
+            omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq,
+            k.shape[1], d, bkv, int(kv_4d), kv_rep, hq or 1,
+            k.shape[2] if kv_4d else 1, int(causal), window, int(adaptive))
+    keep = (q, k, v, lmult, omult, meta)     # alive while launch() is
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream(keep[0].device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {err}")
+    return launch, out
+
+
+def _launch(name, *args, **kw):
+    """Launch kernel ``name`` once and count the launch."""
+    launch, out = kernel_launcher(name, *args, **kw)
+    launch()
+    LAUNCHES[name] += 1
+    return out
+
+
+def _prepare(q_q, k_q, v_q, logit_mult, out_mult, kv_len, q_offset, q_len,
+             block_kv, kv_rep, hq):
+    skv = k_q.shape[1]
+    bkv = min(block_kv, skv)
+    if skv % bkv:
+        raise ValueError(f"Skv={skv} is not a multiple of block_kv={bkv}")
+    return (bkv,) + row_operands(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
+                                 q_offset, q_len, kv_rep, hq)
+
+
+def attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
+                    q_offset=0, q_len=None, causal: bool = True,
+                    window: int = 0, adaptive: bool = True,
+                    block_q: int | None = None, block_kv: int = 128,
+                    kv_rep: int = 1, hq: int | None = None):
+    """The plain version of both kernels, on the tensors' device: what a
+    wrapper computes on the CPU and what the kernels are held to on the
+    card. Same operands as ``ita_attention_onepass``."""
+    bkv, lmult, omult, meta = _prepare(q_q, k_q, v_q, logit_mult, out_mult,
+                                       kv_len, q_offset, q_len, block_kv,
+                                       kv_rep, hq)
+    return _plain_rows(q_q, k_q, v_q, lmult, omult, meta, causal=causal,
+                       window=window, adaptive=adaptive, block_kv=bkv,
+                       kv_rep=kv_rep, hq=hq)
+
+
+def ita_attention_onepass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
+                          q_offset=0, q_len=None, causal: bool,
+                          window: int = 0, adaptive: bool = True,
+                          block_q: int = 128, block_kv: int = 128,
+                          kv_rep: int = 1, hq: int | None = None):
+    """Flash-style onepass ITA attention. q (BH, Sq, D) int8; k/v 3D
+    (BH/kv_rep, Skv, D) or 4D (B, Skv, G, D) with ``hq``; returns (BH, Sq,
+    D) int8. ``block_q`` is accepted for signature parity: query rows are
+    independent, and the CUDA kernel tiles them by 16."""
+    kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
+              adaptive=adaptive, block_kv=block_kv, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "cpu":
+        return attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
+                               **kw)
+    return _launch("ita_attention_onepass", q_q, k_q, v_q, logit_mult,
+                   out_mult, kv_len, **kw)
+
+
+def ita_attention_decode(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
+                         q_offset=0, q_len=None, causal: bool = True,
+                         window: int = 0, adaptive: bool = True,
+                         block_kv: int = 128, kv_rep: int = 1,
+                         hq: int | None = None):
+    """Fused decode step: q (BH, Sq <= 8, D) int8 against an int8 KV ring
+    of capacity Skv with per-row ``kv_len`` valid entries; KV tiles past a
+    row's ``kv_len`` are skipped. Bit-identical to the matching rows of
+    ``ita_attention_onepass`` at equal ``block_kv``."""
+    if q_q.shape[1] > MAX_DECODE_Q:
+        raise ValueError(f"decode kernel takes at most {MAX_DECODE_Q} "
+                         f"queries per row, got {q_q.shape[1]}")
+    kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
+              adaptive=adaptive, block_kv=block_kv, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "cpu":
+        return attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
+                               **kw)
+    return _launch("ita_attention_decode", q_q, k_q, v_q, logit_mult,
+                   out_mult, kv_len, **kw)

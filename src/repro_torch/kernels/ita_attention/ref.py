@@ -1,0 +1,128 @@
+"""Plain-PyTorch oracles of the fused ITA attention kernels
+(``repro.kernels.ita_attention.ref``).
+
+- ``ita_attention_fused_ref``  one-shot, fused semantics (u = 128>>k, u·V,
+                               Σ_inv folded into the output requant) — the
+                               onepass kernel's single-tile oracle.
+- ``ita_attention_stream_ref`` tile-by-tile mirror of the kernels'
+                               streaming DA and accumulator corrections,
+                               for exact equality at any tiling.
+
+``stream_rows`` is the tile loop itself over per-row logits, masks and
+values; the kernels' plain versions (``kernel.py``) feed it per-row
+GQA/ragged inputs. Integer products are exact float32 products
+(``int_matmul``); powers of two are built exactly (``pow2_neg``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quant import INT8_MAX, INT8_MIN, SOFTMAX_SHIFT
+from repro_torch.kernels.common import (MASK_K, NEG_SENTINEL,
+                                        adaptive_inverse, da_update,
+                                        int_matmul, paper_inverse, pow2_neg)
+
+
+def _full_mask(sq, skv, causal, window, kv_len, q_offset=0, device=None):
+    qi = q_offset + torch.arange(sq, dtype=torch.int32,
+                                 device=device)[:, None]
+    kj = torch.arange(skv, dtype=torch.int32, device=device)[None, :]
+    valid = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal or window > 0:
+        valid = valid & (qi >= kj)
+    if window > 0:
+        valid = valid & ((qi - kj) < window)
+    return valid & (kj < kv_len)
+
+
+def requant_logits(q_q, k_q, lmult):
+    """int8 Q (R,sq,d) x int8 K (R,skv,d)ᵀ -> int32 -> requant onto the
+    int8 logit grid (returned as int32). ``lmult`` broadcasts against
+    (R, sq, skv)."""
+    acc = int_matmul(q_q, k_q.transpose(-1, -2))
+    y = torch.round(acc * lmult)
+    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int32)
+
+
+def _inverse(sigma, adaptive):
+    if adaptive:
+        return adaptive_inverse(sigma)
+    inv = paper_inverse(sigma)
+    return inv, torch.full_like(inv, 8)
+
+
+def _requant_out(acc, inv, e_r, omult):
+    """``round(acc · ((2·inv)·2^-(e_r+8))·omult)`` clipped to int8 — the
+    multiply order of the kernels' finalize."""
+    scale = 2.0 * inv.float() * pow2_neg(e_r + 8) * omult
+    y = torch.round(acc * scale)
+    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def stream_rows(logits, valid, v_rows, omult, *, adaptive, block_kv,
+                kind="onepass"):
+    """The kernels' streaming dataflow over per-row inputs.
+
+    ``logits`` (R, sq, skv) int32 on the int8 grid; ``valid`` bool,
+    broadcastable to it; ``v_rows`` (R, skv, d) int8; ``omult``
+    broadcastable to (R, sq, 1). KV tiles of ``block_kv`` run in order
+    (the last one may be short). Returns (R, sq, d) int8."""
+    r, sq, skv = logits.shape
+    d = v_rows.shape[-1]
+    dev = logits.device
+    valid = valid.expand(r, sq, skv)
+    m = torch.full((r, sq, 1), NEG_SENTINEL, dtype=torch.int32, device=dev)
+    sigma = torch.zeros((r, sq, 1), dtype=torch.int32, device=dev)
+    acc = torch.zeros((r, sq, d), dtype=torch.float32, device=dev)
+    for j0 in range(0, skv, block_kv):
+        sl = slice(j0, min(j0 + block_kv, skv))
+        u, delta, m, sigma = da_update(m, sigma, logits[..., sl],
+                                       valid[..., sl])
+        if kind == "onepass":
+            pv = int_matmul(u, v_rows[:, sl])
+            acc = acc * pow2_neg(delta) + pv
+
+    inv, e_r = _inverse(sigma, adaptive)
+    if kind == "onepass":
+        return _requant_out(acc, inv, e_r, omult)
+
+    # twopass: EN with the final streamed stats (numerators exact)
+    k = torch.clamp((m - logits).clamp(min=0) >> SOFTMAX_SHIFT, max=31)
+    k = torch.where(valid, k, MASK_K)
+    p = inv >> k
+    acc2 = int_matmul(p, v_rows)
+    y = torch.round(acc2 * pow2_neg(e_r) * omult)
+    return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
+
+
+def ita_attention_fused_ref(q_q, k_q, v_q, lmult, omult, kv_len, *, causal,
+                            window=0, adaptive=True, q_offset=0):
+    """One-shot fused-EN reference (u = 128>>k numerators). q (BH,sq,d),
+    k/v (BH,skv,d) int8; scalar multipliers and positions."""
+    sq, skv = q_q.shape[1], k_q.shape[1]
+    valid = _full_mask(sq, skv, causal, window, kv_len, q_offset,
+                       q_q.device)[None]
+    logits = requant_logits(q_q, k_q, lmult)
+    x = torch.where(valid, logits, NEG_SENTINEL)
+    row_max = x.amax(dim=-1, keepdim=True)
+    k = torch.clamp((row_max - logits).clamp(min=0) >> SOFTMAX_SHIFT,
+                    max=31)
+    k = torch.where(valid, k, MASK_K)
+    u = torch.full_like(k, 128) >> k
+    sigma = (2 * u).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    inv, e_r = _inverse(sigma, adaptive)
+    acc = int_matmul(u, v_q)
+    return _requant_out(acc, inv, e_r, omult)
+
+
+def ita_attention_stream_ref(q_q, k_q, v_q, lmult, omult, kv_len, *, causal,
+                             window=0, adaptive=True, block_kv=128,
+                             kind="onepass", q_offset=0):
+    """Tile-by-tile mirror of the kernels (exact-match oracle)."""
+    sq, skv = q_q.shape[1], k_q.shape[1]
+    valid = _full_mask(sq, skv, causal, window, kv_len, q_offset,
+                       q_q.device)[None]
+    logits = requant_logits(q_q, k_q, lmult)
+    return stream_rows(logits, valid, v_q, omult, adaptive=adaptive,
+                       block_kv=block_kv, kind=kind)

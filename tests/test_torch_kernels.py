@@ -1,0 +1,276 @@
+"""The port's ITA attention kernels against the JAX package, on the CPU.
+
+Inputs are made with numpy from a seed and go through the JAX functions
+(the Pallas kernels in interpret mode, as the JAX package's own tests run
+them) and through ``repro_torch`` on ``device="cpu"``, where each kernel
+wrapper computes its plain version. The bar is bit-exact equality
+(``np.array_equal``) on the int8 output grid and on every integer helper.
+
+XLA:CPU computes ``exp2`` of integers approximately for exponents beyond
+12 (up to ~9 ulp off), while the reference's ``exp2`` calls all take
+integer arguments and mean exact powers of two — what the port and its
+CUDA kernels compute (ROADMAP §C). The reference therefore runs with an
+exact ``exp2`` (``jnp.ldexp``), so ties on the output grid round alike.
+
+The CUDA kernels are held to these plain versions on the card by
+``tests/test_torch_cuda.py``.
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.kernels import common as JC
+from repro.kernels.ita_attention import kernel as JK
+from repro.kernels.ita_attention import ref as JR
+from repro_torch.kernels import common as TC
+from repro_torch.kernels.ita_attention import kernel as TK
+from repro_torch.kernels.ita_attention import ref as TR
+
+
+@pytest.fixture(scope="module", autouse=True)
+def exact_exp2():
+    """Run the reference with exact powers of two (see module docstring)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnp, "exp2", lambda x: jnp.ldexp(
+            jnp.ones(jnp.shape(x), jnp.float32),
+            jnp.asarray(x).astype(jnp.int32)))
+        jax.clear_caches()
+        yield
+    jax.clear_caches()
+
+
+class _Ref:
+    """A mutable stand-in for a Pallas scratch ref."""
+
+    def __init__(self, a):
+        self.a = a
+
+    def __getitem__(self, idx):
+        return self.a
+
+    def __setitem__(self, idx, val):
+        self.a = val
+
+
+def _i8(rng, *shape):
+    return rng.integers(-128, 128, shape, dtype=np.int8)
+
+
+# --------------------------------------------------------------------------
+# Helpers: tile_mask, da_update, adaptive_inverse, paper_inverse
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("causal,window,kv_len,q_offset,q_len", [
+    (True, 0, 100, 37, None),
+    (False, 0, 20, 0, 5),
+    (True, 9, 200, 130, 12),
+    (False, 6, 64, 3, 16),
+])
+def test_tile_mask_matches_jax(causal, window, kv_len, q_offset, q_len):
+    for q_tile, kv_tile in ((0, 0), (1, 2), (3, 1)):
+        want = np.asarray(JC.tile_mask(q_tile, kv_tile, 16, 32, causal,
+                                       window, kv_len, q_offset, q_len))
+        got = TC.tile_mask(q_tile, kv_tile, 16, 32, causal, window, kv_len,
+                           q_offset, q_len).numpy()
+        assert np.array_equal(want, got), (q_tile, kv_tile)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_da_update_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    bq, bkv = 8, 64
+    m = rng.integers(-256, 128, (bq, 1)).astype(np.int32)
+    sigma = rng.integers(0, 1 << 20, (bq, 1)).astype(np.int32)
+    logits = rng.integers(-128, 128, (bq, bkv)).astype(np.int32)
+    valid = rng.random((bq, bkv)) < 0.7
+    valid[0] = False                       # an all-masked row
+    mr, sr = _Ref(jnp.asarray(m)), _Ref(jnp.asarray(sigma))
+    u, delta = JC.da_update(mr, sr, jnp.asarray(logits), jnp.asarray(valid))
+    tu, tdelta, tm, ts = TC.da_update(
+        torch.from_numpy(m), torch.from_numpy(sigma),
+        torch.from_numpy(logits), torch.from_numpy(valid))
+    for want, got in ((u, tu), (delta, tdelta), (mr.a, tm), (sr.a, ts)):
+        assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def _sigma_sweep():
+    vals = {1, 2, 3}
+    for e in range(1, 31):
+        p = 1 << e
+        vals |= {p - 1, p, p + 1, p + p // 3}
+    vals |= {(1 << 31) - 1}
+    return np.array(sorted(v for v in vals if v < 1 << 31), np.int32)
+
+
+def test_inverses_match_jax_across_powers_of_two():
+    sigma = np.concatenate([_sigma_sweep(), np.array([0, -5], np.int32)])
+    inv, e_r = JC.adaptive_inverse(jnp.asarray(sigma))
+    tinv, te_r = TC.adaptive_inverse(torch.from_numpy(sigma))
+    assert tinv.dtype == te_r.dtype == torch.int32
+    assert np.array_equal(np.asarray(inv), tinv.numpy())
+    assert np.array_equal(np.asarray(e_r), te_r.numpy())
+    assert np.array_equal(np.asarray(JC.paper_inverse(jnp.asarray(sigma))),
+                          TC.paper_inverse(torch.from_numpy(sigma)).numpy())
+
+
+def test_floor_log2_exact_where_float32_rounds():
+    x = _sigma_sweep()
+    want = np.floor(np.log2(x.astype(np.float64))).astype(np.int32)
+    assert np.array_equal(TC.floor_log2(torch.from_numpy(x)).numpy(), want)
+    n = torch.arange(0, 127, dtype=torch.int32)
+    assert torch.equal(TC.pow2_neg(n).double(),
+                       torch.ldexp(torch.ones(127, dtype=torch.float64),
+                                   -n.double()))
+
+
+# --------------------------------------------------------------------------
+# Oracles: stream_ref / fused_ref
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("block_kv,kind", [(64, "onepass"), (128, "onepass"),
+                                           (64, "twopass")])
+def test_stream_ref_matches_jax(adaptive, block_kv, kind):
+    rng = np.random.default_rng(7)
+    q, k, v = _i8(rng, 3, 24, 32), _i8(rng, 3, 256, 32), _i8(rng, 3, 256, 32)
+    lm, om = np.float32(0.011), np.float32(1.3)
+    want = JR.ita_attention_stream_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lm, om, 230,
+        causal=True, window=0, adaptive=adaptive, block_kv=block_kv,
+        kind=kind, q_offset=200)
+    got = TR.ita_attention_stream_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.tensor(lm), torch.tensor(om), 230, causal=True, window=0,
+        adaptive=adaptive, block_kv=block_kv, kind=kind, q_offset=200)
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_fused_ref_matches_jax():
+    rng = np.random.default_rng(8)
+    q, k, v = _i8(rng, 2, 16, 16), _i8(rng, 2, 48, 16), _i8(rng, 2, 48, 16)
+    lm, om = np.float32(0.02), np.float32(0.7)
+    for adaptive in (True, False):
+        want = JR.ita_attention_fused_ref(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), lm, om, 40,
+            causal=True, window=12, adaptive=adaptive, q_offset=24)
+        got = TR.ita_attention_fused_ref(
+            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+            torch.tensor(lm), torch.tensor(om), 40, causal=True, window=12,
+            adaptive=adaptive, q_offset=24)
+        assert np.array_equal(np.asarray(want), got.numpy())
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers (plain versions on the CPU) vs the Pallas kernels
+# --------------------------------------------------------------------------
+
+def _kernel_inputs(rng, *, b, hq, hkv, sq, skv, d, layout, ragged, decode):
+    bh, rep = b * hq, hq // hkv
+    q = _i8(rng, bh, sq, d)
+    if layout == "4d":
+        k, v = _i8(rng, b, skv, hkv, d), _i8(rng, b, skv, hkv, d)
+    else:
+        k, v = _i8(rng, b * hkv, skv, d), _i8(rng, b * hkv, skv, d)
+    lmult = rng.uniform(0.004, 0.03, bh).astype(np.float32)
+    omult = rng.uniform(0.5, 2.0, bh).astype(np.float32)
+    if ragged:
+        kv_len = rng.integers(sq, skv + 1, bh).astype(np.int32)
+        q_len = rng.integers(1, sq + 1, bh).astype(np.int32)
+        if decode:
+            q_len = np.full(bh, sq, np.int32)
+    else:
+        kv_len = np.full(bh, skv, np.int32)
+        q_len = np.full(bh, sq, np.int32)
+    q_offset = np.maximum(kv_len - sq, 0).astype(np.int32)
+    return dict(q=q, k=k, v=v, lmult=lmult, omult=omult, kv_len=kv_len,
+                q_offset=q_offset, q_len=q_len, rep=rep, hq=hq)
+
+
+def _run_both(kind, x, *, causal, window, adaptive, block_kv, layout):
+    hq = x["hq"] if layout == "4d" else None
+    jfn = JK.ita_attention_onepass if kind == "onepass" \
+        else JK.ita_attention_decode
+    tfn = TK.ita_attention_onepass if kind == "onepass" \
+        else TK.ita_attention_decode
+    kw = dict(q_offset=x["q_offset"], q_len=x["q_len"], causal=causal,
+              window=window, adaptive=adaptive, block_kv=block_kv,
+              kv_rep=x["rep"], hq=hq)
+    if kind == "onepass":
+        kw["block_q"] = min(16, x["q"].shape[1])
+    want = jfn(*(jnp.asarray(x[n]) for n in ("q", "k", "v", "lmult",
+                                             "omult", "kv_len")),
+               interpret=True, **{n: (jnp.asarray(a) if isinstance(
+                   a, np.ndarray) else a) for n, a in kw.items()})
+    got = tfn(*(torch.from_numpy(x[n]) for n in ("q", "k", "v", "lmult",
+                                                 "omult", "kv_len")),
+              **{n: (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                     else a) for n, a in kw.items()})
+    return np.asarray(want), got.numpy()
+
+
+ONEPASS_CASES = [
+    # id, b, hq, hkv, sq, skv, d, block_kv, causal, window, layout, ragged
+    ("mha-skv48-one-tile", 2, 2, 2, 16, 48, 16, 128, True, 0, "3d", False),
+    ("gqa-256-4d-ragged", 2, 4, 2, 16, 256, 16, 128, True, 0, "4d", True),
+    ("gqa-window-3d-ragged", 1, 4, 1, 32, 256, 32, 64, True, 40, "3d", True),
+    ("noncausal-4d", 1, 2, 1, 8, 128, 16, 64, False, 0, "4d", False),
+]
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("case", ONEPASS_CASES, ids=[c[0] for c in
+                                                     ONEPASS_CASES])
+def test_onepass_plain_matches_pallas(case, adaptive):
+    _, b, hq, hkv, sq, skv, d, bkv, causal, window, layout, ragged = case
+    rng = np.random.default_rng(zlib.crc32(case[0].encode()))
+    x = _kernel_inputs(rng, b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                       layout=layout, ragged=ragged, decode=False)
+    want, got = _run_both("onepass", x, causal=causal, window=window,
+                          adaptive=adaptive, block_kv=min(bkv, skv),
+                          layout=layout)
+    assert np.array_equal(want, got)
+
+
+DECODE_CASES = [
+    # id, b, hq, hkv, sq, skv, d, block_kv, window, layout
+    ("ring20-one-tile-3d", 2, 2, 1, 1, 20, 16, 128, 0, "3d"),
+    ("ring256-4d-gqa", 2, 4, 2, 1, 256, 16, 128, 0, "4d"),
+    ("ring256-window-4d", 1, 4, 2, 4, 256, 32, 64, 70, "4d"),
+    ("ring384-burst8-3d", 1, 4, 2, 8, 384, 16, 128, 0, "3d"),
+]
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+@pytest.mark.parametrize("case", DECODE_CASES, ids=[c[0] for c in
+                                                    DECODE_CASES])
+def test_decode_plain_matches_pallas(case, adaptive):
+    _, b, hq, hkv, sq, skv, d, bkv, window, layout = case
+    rng = np.random.default_rng(zlib.crc32(case[0].encode()))
+    x = _kernel_inputs(rng, b=b, hq=hq, hkv=hkv, sq=sq, skv=skv, d=d,
+                       layout=layout, ragged=True, decode=True)
+    want, got = _run_both("decode", x, causal=True, window=window,
+                          adaptive=adaptive, block_kv=min(bkv, skv),
+                          layout=layout)
+    assert np.array_equal(want, got)
+
+
+def test_wrappers_count_only_kernel_launches():
+    rng = np.random.default_rng(3)
+    x = _kernel_inputs(rng, b=1, hq=2, hkv=1, sq=1, skv=32, d=16,
+                       layout="3d", ragged=False, decode=True)
+    TK.reset_launches()
+    TK.ita_attention_decode(*(torch.from_numpy(x[n]) for n in (
+        "q", "k", "v", "lmult", "omult", "kv_len")), kv_rep=2)
+    assert TK.LAUNCHES == {"ita_attention_onepass": 0,
+                           "ita_attention_decode": 0}
+    with pytest.raises(ValueError, match="at most 8"):
+        TK.ita_attention_decode(torch.zeros((2, 9, 16), dtype=torch.int8),
+                                torch.zeros((1, 32, 16), dtype=torch.int8),
+                                torch.zeros((1, 32, 16), dtype=torch.int8),
+                                0.01, 1.0, 32, kv_rep=2)
