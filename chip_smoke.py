@@ -13,7 +13,12 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    head dim 128): decode over a ring of capacity 640 with ragged rows in
    both K/V layouts, causal and windowed, adaptive and paper DI; a
    512-token onepass prefill on the cache-native layout and a multi-tile
-   3D case.
+   3D case; the paged kernels over a pool of 128-token pages with
+   permuted, non-contiguous page tables, kv_len ending mid-page and, for
+   the paged onepass, q_len 0, 1 and 96 in one call — each also equal to
+   the ring kernel on the gathered pages. Check that the model's
+   projections (``models.layers.linear``) give a row the same bits
+   whatever the rows beside it, which serve-equals-solo rests on.
 3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
    seed, batch 4, prompt 512, 32 tokens): (a) unpinned — chunked prefill,
    then the decode kernel — twice, with identical tokens; (b) with the
@@ -23,9 +28,23 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    versions afterwards. The smoke-width config checks the card's logits
    against the CPU's plain versions.
 4. Profile one unpinned ``generate()`` (device time by kernel, busy
-   share). Time each kernel on the main path's inputs with CUDA events
-   (median): the bound kernel alone, its wrapper call and its plain
-   version, beside its bound.
+   share).
+5. Serve an arrival trace with ``serve_continuous(admission="chunked")``
+   on full-width qwen2-7b, unpinned: 4 slots, 12 requests (prompts of
+   128-1024 tokens, 16-48 generated, arrivals 0-6 steps apart, numpy
+   from a seed), 128-token pages, 96-token chunks, 16-step segments and
+   24 pages, fewer than the 37 of full provisioning, so admission waits
+   on released pages. The launch counters are zeroed before the serve
+   and read after it (both paged kernels must have run); the allocator
+   invariants are checked after every admission round and after the
+   serve; each request's tokens must equal ``generate()`` of the request
+   alone with the ``ita_onepass_pallas`` pin at the same ``max_len``.
+   Then profile a serve of the trace's first two requests (device busy
+   share, kernels launched).
+6. Time each kernel on the main path's inputs with CUDA events (median):
+   the bound kernel alone, its wrapper call and its plain version,
+   beside its bound (the paged kernels on layer-0 inputs of the serve:
+   its busiest mixed call and its busiest decode call).
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -42,6 +61,7 @@ import sys
 import time
 from pathlib import Path
 
+T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -59,7 +79,18 @@ SOURCES = {
     "ita_attention_decode": (
         "src/repro_torch/kernels/ita_attention/csrc/decode.cu",
         "src/repro/kernels/ita_attention/kernel.py:427"),
+    "ita_attention_onepass_paged": (
+        "src/repro_torch/kernels/ita_attention/csrc/onepass.cu",
+        "src/repro/kernels/ita_attention/kernel.py:559"),
+    "ita_attention_decode_paged": (
+        "src/repro_torch/kernels/ita_attention/csrc/decode.cu",
+        "src/repro/kernels/ita_attention/kernel.py:508"),
 }
+PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
+# phase 5: the served trace and the serve's geometry
+SERVE = dict(slots=4, requests=12, plen=(128, 1024), gen=(16, 48),
+             gap=(0, 6), page_size=128, chunk_size=96, segment=16,
+             num_pages=24)
 
 
 def log(msg):
@@ -156,12 +187,131 @@ def kernel_cases(rng_seed=0):
     return cases
 
 
+def paged_cases(rng_seed=1):
+    """(name, args, kwargs, label) of the paged kernels at qwen2-7b shapes:
+    a pool of 128-token pages, permuted page tables with spare pages
+    between a row's pages, kv_len ending mid-page, and for the paged
+    onepass a prefill chunk, a decode row and an idle row (q_len 96, 1,
+    0) in one call."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(rng_seed)
+    hq, hkv, d = 28, 4, 128
+    if WIDTH:
+        hq, hkv, d = WIDTH["n_heads"], WIDTH["n_kv_heads"], WIDTH["head_dim"]
+    page, n_pages, chunk = SERVE["page_size"], 9, SERVE["chunk_size"]
+    bh, rep, total = B * hq, hq // hkv, B * n_pages + 7
+    table = (torch.randperm(total - 1, generator=g, device=DEV)
+             [:B * n_pages] + 1).to(torch.int32).view(B, n_pages)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int8)
+
+    def f32(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=DEV)
+
+    k, v = i8(total, page, hkv, d), i8(total, page, hkv, d)
+    lm, om = f32(0.004, 0.03, bh), f32(0.5, 2.0, bh)
+
+    def rows(*x):
+        return torch.tensor(x, device=DEV, dtype=torch.int32)[:B] \
+            .repeat_interleave(hq)
+    kv_len = rows(1000, 515, chunk, 300)
+    q_len = rows(chunk, 1, chunk, 0)
+    cases = []
+    for window, adaptive in ((0, True), (0, False), (200, True)):
+        tail = f"window={window} adaptive={adaptive}"
+        common = dict(causal=True, window=window, adaptive=adaptive,
+                      kv_rep=rep, hq=hq)
+        cases.append(("ita_attention_onepass_paged",
+                      (i8(bh, chunk, d), k, v, table, lm, om, kv_len),
+                      dict(q_offset=torch.clamp(kv_len - q_len, min=0),
+                           q_len=q_len, **common),
+                      f"onepass paged q_len 96/1/96/0 {tail}"))
+        cases.append(("ita_attention_decode_paged",
+                      (i8(bh, 1, d), k, v, table, lm, om, kv_len),
+                      dict(q_offset=torch.clamp(kv_len - 1, min=0),
+                           **common),
+                      f"decode paged {tail}"))
+    return cases
+
+
+def plain_of(name):
+    from repro_torch.kernels.ita_attention import kernel as K
+    return K.paged_attention_plain if name in PAGED else K.attention_plain
+
+
 def check_kernels(checks):
     from repro_torch.kernels.ita_attention import kernel as K
     for name, args, kw, label in kernel_cases():
         got = getattr(K, name)(*args, **kw)
         checks.compare(name, got, K.attention_plain(*args, **kw), label)
+    for name, args, kw, label in paged_cases():
+        got = getattr(K, name)(*args, **kw)
+        checks.compare(name, got, K.paged_attention_plain(*args, **kw),
+                       label)
+        q, k, v, table = args[:4]
+        ring = getattr(K, name.removesuffix("_paged"))(
+            q, K.gather_pages(k, table), K.gather_pages(v, table),
+            *args[4:], block_kv=k.shape[1], **kw)
+        checks.compare(name, got, ring, label + " vs the ring kernel")
     log(f"[kernels] bit-exact vs plain at qwen2-7b shapes: {checks.n}")
+
+
+def check_row_invariance():
+    """The projections and the norm give each row the same bits whatever
+    rows share the call (``models.layers``: fixed blocks of 128 rows): a
+    served request's tokens can equal its solo ``generate()`` only if
+    this holds. Also reports where a plain ``x @ w`` or ``torch.mean``
+    over rows would not."""
+    import torch
+
+    from repro_torch.models.layers import linear, rmsnorm
+    g = torch.Generator(device=DEV).manual_seed(5)
+    counts = (1, 4, 16, 96, 384, 644)
+    notes = []
+
+    def same_rows(fn, x, what):
+        full = fn(x)
+        for m in counts:
+            part = fn(x[:m])
+            for r in {0, m // 2, m - 1}:
+                if not torch.equal(part[r], full[r]):
+                    raise AssertionError(f"{what}: row {r} of {m} rows "
+                                         f"differs from the same row of "
+                                         f"{x.shape[0]}")
+        alone = fn(x[200:201])
+        if not torch.equal(alone[0], full[200]):
+            raise AssertionError(f"{what}: row 200 alone differs")
+
+    def raw_differs(fn, x):
+        """For each row count m, how many of the first m rows differ
+        between the m-row call and the row computed alone."""
+        alone = [fn(x[r:r + 1])[0] for r in range(max(counts))]
+        found = {}
+        for m in counts[1:]:
+            full = fn(x[:m])
+            bad = sum(not torch.equal(full[r], alone[r]) for r in range(m))
+            if bad:
+                found[m] = bad
+        return found or "none"
+
+    for k, n in ((3584, 3584), (3584, 18944), (18944, 3584)):
+        x = torch.randn(700, k, generator=g, device=DEV).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=g, device=DEV) * k ** -0.5) \
+            .to(torch.bfloat16)
+        same_rows(lambda t: linear(t, w), x, f"linear K={k} N={n}")
+        notes.append(f"x @ w (K={k}, N={n}) rows differing from the row "
+                     f"alone, by row count: {raw_differs(lambda t: t @ w, x)}")
+    x = torch.randn(700, 3584, generator=g, device=DEV).to(torch.bfloat16)
+    scale = torch.randn(3584, generator=g, device=DEV)
+    same_rows(lambda t: rmsnorm(scale, t), x, "rmsnorm")
+    xf = x.float() * x.float()
+    notes.append(f"torch.mean over rows, rows differing from the row "
+                 f"alone, by row count: "
+                 f"{raw_differs(lambda t: torch.mean(t, dim=-1), xf)}")
+    log(f"[invariance] linear and rmsnorm: every checked row equal among "
+        f"{counts} and 700 rows; " + "; ".join(notes))
 
 
 # ---------------------------------------------------------------------------
@@ -250,20 +400,27 @@ def smoke_width_reference():
             f"logits max |d| {err:.3g}")
 
 
-def full_width(checks):
+def full_width_model():
     import torch
 
     from repro_torch.configs.registry import get_config
-    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.models import init_model
     cfg = get_config("qwen2-7b", attention_impl="ita", **WIDTH)
-    n_layers = cfg.n_layers
     t0 = time.perf_counter()
     model = init_model(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
-    log(f"[generate] {cfg.name} full width: {n_layers} layers, d="
+    log(f"[model] {cfg.name} full width: {cfg.n_layers} layers, d="
         f"{cfg.d_model}, weights "
         f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f}"
         f" GB {cfg.dtype}, init {time.perf_counter() - t0:.1f} s")
+    return model, cfg
+
+
+def full_width(model, cfg, checks):
+    import torch
+
+    from repro_torch.models import forward, init_caches
+    n_layers = cfg.n_layers
     prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
                             generator=torch.Generator().manual_seed(0))
 
@@ -271,8 +428,8 @@ def full_width(checks):
     res_a, la, rec_dec = run_generate(model, cfg, prompts,
                                       record="ita_attention_decode",
                                       keep=(0, n_layers - 1))
-    want = {"ita_attention_decode": n_layers * (GEN - 1),
-            "ita_attention_onepass": 0}
+    want = dict.fromkeys(SOURCES, 0)
+    want["ita_attention_decode"] = n_layers * (GEN - 1)
     if la != want:
         raise AssertionError(f"unpinned launches {la} != {want}")
     res_a2, la2, _ = run_generate(model, cfg, prompts)
@@ -284,8 +441,8 @@ def full_width(checks):
     res_b, lb, rec_one = run_generate(model, cfg_b, prompts,
                                       record="ita_attention_onepass",
                                       keep=(0, n_layers - 1))
-    want_b = {"ita_attention_onepass": n_layers * GEN,
-              "ita_attention_decode": 0}
+    want_b = dict.fromkeys(SOURCES, 0)
+    want_b["ita_attention_onepass"] = n_layers * GEN
     if lb != want_b:
         raise AssertionError(f"pinned launches {lb} != {want_b}")
     for res in (res_a, res_b):
@@ -329,7 +486,113 @@ def full_width(checks):
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: timings and bounds
+# Phase 5: full-width continuous-batching serve
+# ---------------------------------------------------------------------------
+
+def serve_trace(cfg, seed=7):
+    """The served trace: numpy from ``seed``."""
+    import numpy as np
+
+    from repro_torch.runtime.generate import ServeRequest
+    rng = np.random.default_rng(seed)
+    reqs, t = [], 0
+    for _ in range(SERVE["requests"]):
+        plen = int(rng.integers(SERVE["plen"][0], SERVE["plen"][1] + 1))
+        reqs.append(ServeRequest(
+            prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+            gen=int(rng.integers(SERVE["gen"][0], SERVE["gen"][1] + 1)),
+            arrival=t))
+        t += int(rng.integers(SERVE["gap"][0], SERVE["gap"][1] + 1))
+    return reqs
+
+
+def busiest(rec):
+    """The kept call with the most KV work (the largest summed kv_len)."""
+    def work(item):
+        args = item[1][0]
+        return int(args[6].sum().item())
+    return max(rec.kept.items(), key=work)
+
+
+def full_width_serve(model, cfg, checks):
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.ita_attention import kernel as K
+    from repro_torch.kernels.ita_attention import ops
+    from repro_torch.runtime.generate import generate, serve_continuous
+    reqs = serve_trace(cfg)
+    n_layers = cfg.n_layers
+    keep = range(0, n_layers * 512, n_layers)          # layer 0 of a step
+    recs = {name: Recorder(getattr(ops, name), keep) for name in PAGED}
+    for name, rec in recs.items():
+        setattr(ops, name, rec)
+    try:
+        K.reset_launches()
+        res = serve_continuous(
+            model, cfg, reqs, slots=SERVE["slots"],
+            segment=SERVE["segment"], page_size=SERVE["page_size"],
+            num_pages=SERVE["num_pages"], chunk_size=SERVE["chunk_size"],
+            debug_invariants=True, device=DEV)
+        torch.cuda.synchronize()
+        launches = dict(K.LAUNCHES)
+    finally:
+        for name, rec in recs.items():
+            setattr(ops, name, rec.fn)
+    if any(launches[name] <= 0 for name in PAGED):
+        raise AssertionError(f"a paged kernel did not run in the serve: "
+                             f"{launches}")
+    if len(res.completed) != len(reqs):
+        raise AssertionError(f"{len(res.completed)} of {len(reqs)} "
+                             f"requests completed")
+    peak = max(u for _, u in res.page_util)
+    log(f"[serve] {len(reqs)} requests (prompts "
+        f"{min(r.prompt.size for r in reqs)}-"
+        f"{max(r.prompt.size for r in reqs)}, gen "
+        f"{min(r.gen for r in reqs)}-{max(r.gen for r in reqs)}, last "
+        f"arrival step {reqs[-1].arrival}), {SERVE['slots']} slots, "
+        f"{SERVE['num_pages']} pages: {res.steps} steps, {res.segments} "
+        f"segments, {res.admission_rounds} admission rounds, peak page "
+        f"reservation {peak:.0%}; allocator invariants held in all "
+        f"{n_layers} layers after every round and after the serve")
+    log(f"[serve] launches {launches}")
+    log(f"[serve] {res.total_tokens} tokens in {res.wall_s:.3f} s: "
+        f"sustained {res.tok_s:.2f} tok/s; TTFT p50 "
+        f"{res.ttft_quantile(0.5):.3f} s p90 {res.ttft_quantile(0.9):.3f} "
+        f"s; latency p50 {res.latency_quantile(0.5):.3f} s; {card_line()}")
+
+    # each request alone, through the onepass pin, at the serve's max_len
+    cfg_pin = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    max_len = max(r.prompt.size + r.gen for r in reqs)
+    for c in sorted(res.completed, key=lambda c: c.index):
+        r = reqs[c.index]
+        solo = generate(model, cfg_pin, torch.as_tensor(r.prompt)[None],
+                        r.gen, max_len=max_len, device=DEV)
+        want = solo.tokens[0].cpu().numpy()
+        if not np.array_equal(c.tokens, want):
+            first = int(np.flatnonzero(c.tokens != want)[0])
+            raise AssertionError(
+                f"request {c.index} (prompt {r.prompt.size}, gen {r.gen}): "
+                f"served tokens differ from solo generate() at {first}: "
+                f"{c.tokens[first]} vs {want[first]}")
+    log(f"[serve] every request's tokens equal solo generate() "
+        f"(ita_onepass_pallas pin, max_len {max_len})")
+
+    captured = {}
+    for name, rec in recs.items():
+        idx, (args, kw, out) = busiest(rec)
+        checks.compare(name, out, K.paged_attention_plain(*args, **kw),
+                       f"serve, layer 0 of step {idx // n_layers}")
+        captured[name] = (args, kw, out)
+    log("[serve] captured layer-0 paged calls bit-exact vs plain")
+    profile_serve(model, cfg, reqs)
+    return {"tok_s": res.tok_s, "wall_s": res.wall_s,
+            "ttft_p50": res.ttft_quantile(0.5),
+            "ttft_p90": res.ttft_quantile(0.9)}, launches, captured
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: timings and bounds
 # ---------------------------------------------------------------------------
 
 def median_ms(fn, reps=30, warmup=3):
@@ -348,15 +611,22 @@ def median_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(args, kw):
+def bound_ms(name, args, kw):
     """The least time for the call's work on this card: each input read
-    once (only the K/V prefix the rows' masks can reach), the output
-    written once, against the integer ops of the visible (query, key)
-    pairs (Q·Kᵀ and u·V: 4 ops per pair and head-dim element)."""
+    once (only the K/V prefix the rows' masks can reach; for a paged
+    call also its page table), the output written once, against the
+    integer ops of the visible (query, key) pairs (Q·Kᵀ and u·V: 4 ops
+    per pair and head-dim element)."""
     import torch
 
     from repro_torch.kernels.common import tile_mask
     from repro_torch.kernels.ita_attention import kernel as K
+    table_bytes = 0
+    if name in PAGED:          # the same work as the ring of its pages
+        q, k, v, table = args[:4]
+        table_bytes = table.numel() * 4
+        args = (q, K.gather_pages(k, table), K.gather_pages(v, table)) \
+            + tuple(args[4:])
     q, k, v = args[:3]
     bh, sq, d = q.shape
     _, _, meta = K.row_operands(*args[:6], kw.get("q_offset", 0),
@@ -373,34 +643,57 @@ def bound_ms(args, kw):
                         -1).amax(1) + 1                      # (bh,)
     rep = kw.get("kv_rep", 1)
     kv_tokens = int(reach.view(-1, rep).amax(1).sum().item())
-    nbytes = q.numel() * 2 + 2 * kv_tokens * d + meta.numel() * 4 + bh * 8
+    nbytes = q.numel() * 2 + 2 * kv_tokens * d + meta.numel() * 4 + bh * 8 \
+        + table_bytes
     ops = 4 * pairs * d
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_generate(model, cfg, prompts):
-    """Device time by kernel over one unpinned ``generate()`` call
-    (``torch.profiler``), and the device's busy share of its wall time
-    (the profiler's own host cost inflates the wall time)."""
+def profile_run(label, fn):
+    """Device time by kernel over one call of ``fn`` (``torch.profiler``,
+    device activity only: host op records would cost more than the run),
+    the device's busy share of its wall time (the profiler's own host
+    cost inflates the wall time) and the kernels launched. Returns what
+    ``fn`` returned."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.runtime.generate import generate
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        generate(model, cfg, prompts, GEN, device=DEV)
+        out = fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] generate (a): wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}); top kernels by "
-        f"device time:")
+    n = sum(e.count for e in kernels)
+    log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), {n} kernel launches; "
+        f"top kernels by device time:")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    return out
+
+
+def profile_generate(model, cfg, prompts):
+    from repro_torch.runtime.generate import generate
+    profile_run("generate (a)",
+                lambda: generate(model, cfg, prompts, GEN, device=DEV))
+
+
+def profile_serve(model, cfg, reqs):
+    """The serve's first two requests under the profiler."""
+    from repro_torch.runtime.generate import serve_continuous
+    res = profile_run(
+        "serve of requests 0-1", lambda: serve_continuous(
+            model, cfg, reqs[:2], slots=SERVE["slots"],
+            segment=SERVE["segment"], page_size=SERVE["page_size"],
+            num_pages=SERVE["num_pages"], chunk_size=SERVE["chunk_size"],
+            device=DEV))
+    log(f"[profile] serve of requests 0-1: {res.steps} steps, "
+        f"{res.segments} segments, {res.total_tokens} tokens")
 
 
 def kernel_ms(name, args, kw, reps=30, inner=10):
@@ -430,11 +723,11 @@ def time_kernels(captured, launches, checks):
     from repro_torch.kernels.ita_attention import kernel as K
     rows = []
     for name, (args, kw, _) in captured.items():
-        fn = getattr(K, name)
+        fn, plain_fn = getattr(K, name), plain_of(name)
         ms = kernel_ms(name, args, kw)
         call = median_ms(lambda fn=fn: fn(*args, **kw))
-        plain = median_ms(lambda: K.attention_plain(*args, **kw), reps=10)
-        bms, by = bound_ms(args, kw)
+        plain = median_ms(lambda: plain_fn(*args, **kw), reps=10)
+        bms, by = bound_ms(name, args, kw)
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
@@ -472,13 +765,24 @@ def main():
 
     checks = Checks()
     check_kernels(checks)
+    check_row_invariance()
     smoke_width_reference()
-    metrics, captured = full_width(checks)
-    rows = time_kernels(captured, metrics["launches"], checks)
+    model, cfg = full_width_model()
+    metrics, captured = full_width(model, cfg, checks)
+    served, serve_launches, serve_captured = full_width_serve(model, cfg,
+                                                              checks)
+    captured.update(serve_captured)
+    # ring kernels: the generate() runs; paged kernels: the serve
+    rows = time_kernels(captured, {**serve_launches, **metrics["launches"]},
+                        checks)
     log(f"[result] prefill {metrics['prefill_s']:.4f} s, decode "
         f"{metrics['decode_tok_s']:.1f} tok/s (unpinned); pinned onepass "
         f"prefill {metrics['pinned_prefill_s']:.4f} s, decode "
-        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; {card}")
+        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; serve "
+        f"{served['tok_s']:.2f} tok/s sustained, TTFT p50 "
+        f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
+        f"{served['wall_s']:.3f} s; {card}")
+    log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

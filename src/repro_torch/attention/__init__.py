@@ -17,12 +17,13 @@ from repro_torch.attention.registry import (Backend,  # noqa: F401
                                             dispatch, get_backend,
                                             list_backends, register_backend)
 from repro_torch.attention.spec import AttentionSpec, QuantScales  # noqa: F401
-from repro_torch.attention.state import KVCacheState  # noqa: F401
+from repro_torch.attention.state import (KVCacheState,  # noqa: F401
+                                         PagedKVState)
 
 from repro_torch.attention import backends as _backends  # noqa: F401,E402
 
 __all__ = [
-    "AttentionSpec", "QuantScales", "KVCacheState",
+    "AttentionSpec", "QuantScales", "KVCacheState", "PagedKVState",
     "Backend", "BackendUnsupported", "dispatch", "list_backends",
     "backend_reasons", "register_backend", "get_backend", "all_backends",
 ]

@@ -170,7 +170,7 @@ def _fused_run(kind, q, k, v, spec, scales, q_offset, kv_len, opts):
         k8 = _quantize(k, scales.s_k, 2)
         v8 = _quantize(v, scales.s_v, 2)
         kv_native = True
-    else:             # bhsd / bhsd_bsgd: q already (B,H,S,D)
+    else:             # bhsd / bhsd_bsgd / bhsd_paged: q already (B,H,S,D)
         q8 = _quantize(q, scales.s_q, 1)
         kv_native = spec.layout == "bhsd_bsgd"
         kv_axis = 1 if spec.layout == "bhsd" else 2
@@ -183,7 +183,8 @@ def _fused_run(kind, q, k, v, spec, scales, q_offset, kv_len, opts):
         causal=spec.causal, window=spec.window, kind=kind,
         adaptive=spec.softmax == "adaptive",
         block_q=opts.get("block_q", dbq or 128),
-        block_kv=opts.get("block_kv", dbkv), kv_native=kv_native)
+        block_kv=opts.get("block_kv", dbkv), kv_native=kv_native,
+        page_table=opts.get("page_table"))
     if spec.layout == "bshd":
         out = out.transpose(1, 2)                        # back to (B,S,H,D)
     if spec.out_dtype == "int8":

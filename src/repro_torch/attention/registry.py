@@ -95,6 +95,9 @@ def _shapes(q, k, spec: AttentionSpec):
     elif spec.layout == "bhsd":
         hq, sq = q.shape[1], q.shape[2]
         hkv, skv = k.shape[1], k.shape[2]
+    elif spec.layout == "bhsd_paged":           # kv = (P, page, G, hd) pool
+        hq, sq = q.shape[1], q.shape[2]
+        skv, hkv = k.shape[1], k.shape[2]       # skv = one page here
     else:                                       # bhsd_bsgd: q bhsd, kv bsgd
         hq, sq = q.shape[1], q.shape[2]
         skv, hkv = k.shape[1], k.shape[2]
@@ -133,6 +136,8 @@ def dispatch(q, k, v, *, spec: AttentionSpec, scales=None,
     take float tensors (quantized onto the matching scale) or int8 ones
     (consumed as they are). ``q_offset``/``kv_len``: the logical position
     of query 0 and the valid KV prefix, scalars or (B,) vectors.
+    ``page_table`` (B, n_pages) int32: required by exactly the
+    ``bhsd_paged`` layout, where ``k``/``v`` are a shared paged pool.
     ``q_lens`` (B,): required by exactly ``spec.ragged_q``. ``backend``:
     explicit override by name, still capability-checked. ``opts``:
     tuning knobs (``block_q``, ``block_kv``, ``q_chunk``, ``kv_chunk``).
@@ -140,10 +145,6 @@ def dispatch(q, k, v, *, spec: AttentionSpec, scales=None,
     Returns the output in ``spec.layout``: float32, or int8 on the
     ``s_out`` grid per ``spec.out_dtype``.
     """
-    if page_table is not None or spec.layout == "bhsd_paged":
-        raise NotImplementedError(
-            "the paged KV pool (layout 'bhsd_paged') comes with the next "
-            "slice of the port (ROADMAP B3/B4-paged)")
     if backend is not None:
         b = get_backend(backend)
         ok = b.supports(spec)
@@ -160,12 +161,19 @@ def dispatch(q, k, v, *, spec: AttentionSpec, scales=None,
                 f"no ported backend supports {spec} (verdicts — {detail}); "
                 f"the JAX package's {sorted(UNPORTED)} come with later "
                 f"slices of the port")
+    if (spec.layout == "bhsd_paged") != (page_table is not None):
+        raise ValueError(
+            "page_table= is required by exactly the 'bhsd_paged' layout "
+            f"(layout={spec.layout!r}, page_table "
+            f"{'missing' if page_table is None else 'given'})")
     if spec.ragged_q != (q_lens is not None):
         raise ValueError(
             "q_lens= is required by exactly ragged_q specs "
             f"(ragged_q={spec.ragged_q}, q_lens "
             f"{'missing' if q_lens is None else 'given'})")
     _validate(q, k, v, spec, scales)
+    if page_table is not None:
+        opts["page_table"] = page_table
     if q_lens is not None:
         opts["q_lens"] = q_lens
     return b.run(q, k, v, spec, scales, q_offset=q_offset, kv_len=kv_len,

@@ -27,15 +27,27 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# library name -> source; every launcher shares LAUNCH_ARGTYPES
+# library name -> source
 SOURCES = {
     "ita_onepass": _PKG / "ita_attention" / "csrc" / "onepass.cu",
     "ita_decode": _PKG / "ita_attention" / "csrc" / "decode.cu",
 }
-# q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv, kv_4d, kv_rep,
-# hq, g, causal, window, adaptive; stream
+# Ring launchers: q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv,
+# kv_4d, kv_rep, hq, g, causal, window, adaptive; stream.
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
     + [ctypes.c_void_p]
+# Paged launchers: q, k_pool, v_pool, page_table, lmult, omult, meta, out;
+# bh, sq, n_pages, page, d, kv_rep, hq, g, causal, window, adaptive;
+# stream.
+PAGED_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
+    + [ctypes.c_void_p]
+# exported launcher -> (library, argtypes)
+FUNCTIONS = {
+    "ita_onepass_launch": ("ita_onepass", LAUNCH_ARGTYPES),
+    "ita_onepass_paged_launch": ("ita_onepass", PAGED_LAUNCH_ARGTYPES),
+    "ita_decode_launch": ("ita_decode", LAUNCH_ARGTYPES),
+    "ita_decode_paged_launch": ("ita_decode", PAGED_LAUNCH_ARGTYPES),
+}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -92,15 +104,23 @@ def build_all(verbose: bool = False) -> dict:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library ``name`` (built first if missing)."""
+    """The loaded library ``name`` (built first if missing), with the
+    argument types of its launchers set."""
     lib = _LOADED.get(name)
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build_all()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = LAUNCH_ARGTYPES
-        fn.restype = ctypes.c_int
+        for fn_name, (owner, argtypes) in FUNCTIONS.items():
+            if owner == name:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         _LOADED[name] = lib
     return lib
+
+
+def launcher(fn_name: str):
+    """The exported launch function ``fn_name`` of its library."""
+    return getattr(library(FUNCTIONS[fn_name][0]), fn_name)

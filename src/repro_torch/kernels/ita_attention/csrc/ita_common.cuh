@@ -38,22 +38,36 @@ constexpr int kThreads = 128;        // threads per block
 constexpr int kMaxHeadDim = 256;
 
 // K/V operand: a ring in the kernel layout (BH/kv_rep, S, D) or the
-// cache-native layout (B, S, G, D). Every K/V address goes through
-// kv_token_offset, the one place a page-table load will go.
+// cache-native layout (B, S, G, D), or a paged pool (P, page, G, D) read
+// through a per-sequence page table (B, n_pages). Every K/V address goes
+// through kv_token_offset, which holds the page-table load.
 struct KvOperand {
   const int8_t* k;
   const int8_t* v;
-  int skv;      // tokens per row of the buffer (ring capacity)
+  int skv;      // tokens per row of the buffer (ring capacity; paged:
+                // n_pages * page)
   int d;        // head dim
   int kv_rep;   // q heads sharing one kv head (GQA)
-  int hq;       // q heads per batch row (4D layout)
-  int g;        // kv heads (4D layout)
+  int hq;       // q heads per batch row (4D and paged layouts)
+  int g;        // kv heads (4D and paged layouts)
   int kv_4d;
+  const int* page_table = nullptr;  // (B, n_pages) int32; null: a ring
+  int n_pages = 0;                  // logical pages per sequence
+  int page = 0;                     // tokens per page (== the KV tile)
 };
 
 // Byte offset of token t's D-vector for kernel row r (r = batch*hq + head).
+// Paged: logical token t of sequence b lives in physical page
+// page_table[b, t / page] at slot t % page. The kernels only ask for
+// t < skv, so the load never leaves the row's table.
 __device__ __forceinline__ long long kv_token_offset(const KvOperand& kv,
                                                      int r, int t) {
+  if (kv.page_table != nullptr) {
+    const int b = r / kv.hq;
+    const int head = (r % kv.hq) / kv.kv_rep;
+    const long long phys = kv.page_table[b * kv.n_pages + t / kv.page];
+    return ((phys * kv.page + t % kv.page) * kv.g + head) * kv.d;
+  }
   if (kv.kv_4d) {
     const int b = r / kv.hq;
     const int head = (r % kv.hq) / kv.kv_rep;
@@ -177,6 +191,18 @@ __device__ void attend_rows(const int8_t* __restrict__ q, const KvOperand kv,
   const int q_len = meta[3 * r + 2];
   const float lm = lmult[r];
   const float om = omult[r];
+
+  // A tile whose query rows all lie past the row's q_len (the padding of
+  // a decode row in a ragged mixed call) sees no key: its output is 0,
+  // exactly what the tile loop would give, so skip the loop.
+  if (q0 >= q_len) {
+    for (int idx = tid; idx < BQ * d; idx += kThreads) {
+      const int i = idx / d, c = idx % d;
+      if (q0 + i < sq)
+        out[(static_cast<long long>(r) * sq + q0 + i) * d + c] = 0;
+    }
+    return;
+  }
 
   for (int idx = tid; idx < BQ * d16; idx += kThreads) {
     const int i = idx / d16, c = idx % d16;

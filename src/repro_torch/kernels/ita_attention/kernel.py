@@ -1,10 +1,11 @@
 """Fused ITA attention kernels for Hopper and their plain versions.
 
-``ita_attention_onepass`` and ``ita_attention_decode`` are the port's
-counterparts of the Pallas entry points of the same names
-(``repro/kernels/ita_attention/kernel.py:265-315, 388-448``; their
-bodies ``onepass_kernel`` and ``decode_kernel``). Each takes
-the same operands:
+``ita_attention_onepass``, ``ita_attention_decode`` and their paged
+variants ``ita_attention_onepass_paged`` and ``ita_attention_decode_paged``
+are the port's counterparts of the Pallas entry points of the same names
+(``repro/kernels/ita_attention/kernel.py:265-315, 388-448, 461-564``;
+their bodies ``onepass_kernel`` and ``decode_kernel``). The ring entries
+take the same operands:
 
 - ``q`` (BH, Sq, D) int8 (decode: Sq <= 8);
 - ``k``/``v`` int8 in the kernel layout (BH/kv_rep, Skv, D) — GQA: q row
@@ -14,12 +15,21 @@ the same operands:
 - per-row requant multipliers and ``[kv_len, q_offset, q_len]`` meta
   (scalars broadcast; (BH,) vectors are the ragged batch).
 
+The paged entries take K/V as a shared pool ``(P, page, G, D)`` and a
+``page_table`` (B, n_pages) int32: logical tile ``j`` of row ``r`` is
+pool page ``page_table[r // hq, j]``, the tile is the page, and the
+schedule is the ring's — paged equals ring on the gathered pages bit for
+bit. Their plain version gathers each row's pages into a contiguous
+(B, n_pages·page, G, D) ring and runs ``attention_plain`` at
+``block_kv = page``.
+
 On a CPU tensor a wrapper computes its plain PyTorch version
 (``attention_plain``: the same KV tile schedule through
 ``ref.stream_rows``, on any device — ``chip_smoke.py`` holds the kernels
-to it on the card). On a CUDA tensor it launches its kernel (``csrc/onepass.cu``,
-``csrc/decode.cu``) or raises — there is no fallback — checks the launch
-status, and adds one to ``LAUNCHES[name]``.
+to it on the card). On a CUDA tensor it launches its kernel
+(``csrc/onepass.cu``, ``csrc/decode.cu``, one launcher each for rings
+and pools) or raises — there is no fallback — checks the launch status,
+and adds one to ``LAUNCHES[name]``.
 
 The KV tile schedule is part of the arithmetic (the integer Σ shifts
 depend on tile boundaries): ``block_kv`` is the tile, ``skv`` must be a
@@ -37,7 +47,15 @@ from repro_torch.kernels.ita_attention.ref import requant_logits, stream_rows
 
 # Launches of each CUDA kernel since the last reset (plain versions and
 # CPU calls do not count).
-LAUNCHES = {"ita_attention_onepass": 0, "ita_attention_decode": 0}
+LAUNCHES = {"ita_attention_onepass": 0, "ita_attention_decode": 0,
+            "ita_attention_onepass_paged": 0,
+            "ita_attention_decode_paged": 0}
+# kernel -> exported launcher (``build.FUNCTIONS``)
+_LAUNCHERS = {"ita_attention_onepass": "ita_onepass_launch",
+              "ita_attention_decode": "ita_decode_launch",
+              "ita_attention_onepass_paged": "ita_onepass_paged_launch",
+              "ita_attention_decode_paged": "ita_decode_paged_launch"}
+PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
 
 MAX_DECODE_Q = 8
 _MAX_HEAD_DIM = 256
@@ -122,47 +140,95 @@ def row_operands(q_q, k_q, v_q, logit_mult, out_mult, kv_len, q_offset,
     return lmult, omult, meta
 
 
-_LIBS = {"ita_attention_onepass": "ita_onepass",
-         "ita_attention_decode": "ita_decode"}
+def gather_pages(pool, page_table):
+    """The contiguous ring ``(B, n_pages·page, G, D)`` that a paged pool
+    ``(P, page, G, D)`` holds for each row of ``page_table`` (B, n_pages)."""
+    b, n = page_table.shape
+    rows = pool[page_table.long()]                 # (B, n, page, G, D)
+    return rows.reshape(b, n * pool.shape[1], *pool.shape[2:])
 
 
-def kernel_launcher(name, q, k, v, logit_mult, out_mult, kv_len, *,
-                    q_offset=0, q_len=None, causal=True, window=0,
-                    adaptive=True, block_q=None, block_kv=128, kv_rep=1,
-                    hq=None):
+def paged_operands(q_q, k_pool, v_pool, page_table, logit_mult, out_mult,
+                   kv_len, q_offset, q_len, kv_rep, hq):
+    """Check a paged call's operands and resolve its per-row ``(lmult,
+    omult, meta)``."""
+    bh, sq, d = q_q.shape
+    if q_q.dtype != torch.int8 or k_pool.dtype != torch.int8 \
+            or v_pool.dtype != torch.int8:
+        raise TypeError("q/k/v must be int8")
+    if k_pool.ndim != 4 or k_pool.shape != v_pool.shape \
+            or k_pool.shape[-1] != d:
+        raise ValueError(f"pools {tuple(k_pool.shape)}/"
+                         f"{tuple(v_pool.shape)} must be (P, page, G, {d})")
+    if page_table.dtype != torch.int32 or page_table.ndim != 2:
+        raise TypeError("page_table must be a (B, n_pages) int32 tensor")
+    if bh % hq or page_table.shape[0] * hq != bh \
+            or hq != k_pool.shape[2] * kv_rep:
+        raise ValueError(f"page_table {tuple(page_table.shape)} and pool "
+                         f"{tuple(k_pool.shape)} need B·hq = {bh} and "
+                         f"G·kv_rep = hq (hq={hq}, kv_rep={kv_rep})")
+    lmult, omult = _row_mults(logit_mult, out_mult, bh, q_q.device)
+    meta = _row_meta(kv_len, q_offset, sq if q_len is None else q_len, bh,
+                     q_q.device)
+    return lmult, omult, meta
+
+
+def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
+                    causal=True, window=0, adaptive=True, block_q=None,
+                    block_kv=128, kv_rep=1, hq=None):
     """Check a kernel call's operands and bind them: returns ``(launch,
     out)``, where ``launch()`` enqueues kernel ``name`` on the current
-    stream writing ``out`` and raises if the launch fails. The wrappers
-    launch through it once per call; timing code can launch it again
-    without the wrapper's host work."""
+    stream writing ``out`` and raises if the launch fails. ``args`` are
+    the wrapper's positional operands after q, k, v: ``(logit_mult,
+    out_mult, kv_len)``, or for a paged kernel ``(page_table, logit_mult,
+    out_mult, kv_len)``. The wrappers launch through it once per call;
+    timing code can launch it again without the wrapper's host work."""
     if q.device.type != "cuda":
         raise RuntimeError(f"{name}: tensors on {q.device}; the kernel runs "
                            f"on CUDA tensors, the plain version on CPU ones")
-    bkv, lmult, omult, meta = _prepare(q, k, v, logit_mult, out_mult, kv_len,
-                                       q_offset, q_len, block_kv, kv_rep, hq)
     bh, sq, d = q.shape
+    paged = name in PAGED
+    if paged:
+        page_table, logit_mult, out_mult, kv_len = args
+        lmult, omult, meta = paged_operands(
+            q, k, v, page_table, logit_mult, out_mult, kv_len, q_offset,
+            q_len, kv_rep, hq)
+        page_table = page_table.contiguous()
+        bkv = k.shape[1]
+    else:
+        logit_mult, out_mult, kv_len = args
+        bkv, lmult, omult, meta = _prepare(q, k, v, logit_mult, out_mult,
+                                           kv_len, q_offset, q_len, block_kv,
+                                           kv_rep, hq)
     q, k, v = (t.contiguous() for t in (q, k, v))
     if d % 16 or d > _MAX_HEAD_DIM:
         raise ValueError(f"{name}: head dim {d} must be a multiple of 16 "
                          f"and at most {_MAX_HEAD_DIM}")
-    if any(t.device != q.device for t in (k, v, lmult, omult, meta)):
+    operands = (k, v, lmult, omult, meta) + ((page_table,) if paged else ())
+    if any(t.device != q.device for t in operands):
         raise ValueError(f"{name}: operands on different devices")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
-    bq = 16 if name == "ita_attention_onepass" else sq
+    bq = 16 if name.startswith("ita_attention_onepass") else sq
     smem = (bq + bkv) * (d + 16) + bkv * d + bq * bkv * 4 + bq * 16
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: block_kv={bkv}, d={d} needs {smem} bytes "
                          f"of shared memory (> {_MAX_SMEM})")
-    kv_4d = k.ndim == 4
     out = torch.empty_like(q)
-    lib = _LIBS[name]
-    fn = getattr(build.library(lib), f"{lib}_launch")
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lmult.data_ptr(),
-            omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq,
-            k.shape[1], d, bkv, int(kv_4d), kv_rep, hq or 1,
-            k.shape[2] if kv_4d else 1, int(causal), window, int(adaptive))
-    keep = (q, k, v, lmult, omult, meta)     # alive while launch() is
+    fn = build.launcher(_LAUNCHERS[name])
+    flags = (int(causal), window, int(adaptive))
+    if paged:
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                page_table.data_ptr(), lmult.data_ptr(), omult.data_ptr(),
+                meta.data_ptr(), out.data_ptr(), bh, sq,
+                page_table.shape[1], bkv, d, kv_rep, hq, k.shape[2]) + flags
+    else:
+        kv_4d = k.ndim == 4
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lmult.data_ptr(),
+                omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq,
+                k.shape[1], d, bkv, int(kv_4d), kv_rep, hq or 1,
+                k.shape[2] if kv_4d else 1) + flags
+    keep = (q,) + operands                   # alive while launch() is
 
     def launch():
         err = fn(*args, torch.cuda.current_stream(keep[0].device).cuda_stream)
@@ -243,3 +309,60 @@ def ita_attention_decode(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                                **kw)
     return _launch("ita_attention_decode", q_q, k_q, v_q, logit_mult,
                    out_mult, kv_len, **kw)
+
+
+def paged_attention_plain(q_q, k_pool, v_pool, page_table, logit_mult,
+                          out_mult, kv_len, *, q_offset=0, q_len=None,
+                          causal: bool = True, window: int = 0,
+                          adaptive: bool = True, block_q: int | None = None,
+                          kv_rep: int = 1, hq: int = 1):
+    """The plain version of both paged kernels, on the tensors' device:
+    each row's pages gathered into a ring, then ``attention_plain`` at
+    ``block_kv = page``. Same operands as ``ita_attention_onepass_paged``."""
+    paged_operands(q_q, k_pool, v_pool, page_table, logit_mult, out_mult,
+                   kv_len, q_offset, q_len, kv_rep, hq)
+    return attention_plain(
+        q_q, gather_pages(k_pool, page_table),
+        gather_pages(v_pool, page_table), logit_mult, out_mult, kv_len,
+        q_offset=q_offset, q_len=q_len, causal=causal, window=window,
+        adaptive=adaptive, block_kv=k_pool.shape[1], kv_rep=kv_rep, hq=hq)
+
+
+def ita_attention_onepass_paged(q_q, k_pool, v_pool, page_table, logit_mult,
+                                out_mult, kv_len, *, q_offset=0, q_len=None,
+                                causal: bool, window: int = 0,
+                                adaptive: bool = True, block_q: int = 128,
+                                kv_rep: int = 1, hq: int = 1):
+    """Onepass ITA attention over a paged KV pool: the mixed chunked-
+    prefill/decode serve step. q (BH, Sq, D) int8; pools (P, page, G, D)
+    int8; ``page_table`` (BH/hq, n_pages) int32; ``q_len`` per row marks
+    the valid query rows (pad rows output 0). Returns (BH, Sq, D) int8,
+    equal to ``ita_attention_onepass`` on the gathered ring at
+    ``block_kv = page``."""
+    kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
+              adaptive=adaptive, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "cpu":
+        return paged_attention_plain(q_q, k_pool, v_pool, page_table,
+                                     logit_mult, out_mult, kv_len, **kw)
+    return _launch("ita_attention_onepass_paged", q_q, k_pool, v_pool,
+                   page_table, logit_mult, out_mult, kv_len, **kw)
+
+
+def ita_attention_decode_paged(q_q, k_pool, v_pool, page_table, logit_mult,
+                               out_mult, kv_len, *, q_offset=0, q_len=None,
+                               causal: bool = True, window: int = 0,
+                               adaptive: bool = True, kv_rep: int = 1,
+                               hq: int = 1):
+    """Fused decode step over a paged KV pool: q (BH, Sq <= 8, D) int8;
+    otherwise as ``ita_attention_onepass_paged``. Pages past a row's
+    ``kv_len`` are skipped."""
+    if q_q.shape[1] > MAX_DECODE_Q:
+        raise ValueError(f"decode kernel takes at most {MAX_DECODE_Q} "
+                         f"queries per row, got {q_q.shape[1]}")
+    kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
+              adaptive=adaptive, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "cpu":
+        return paged_attention_plain(q_q, k_pool, v_pool, page_table,
+                                     logit_mult, out_mult, kv_len, **kw)
+    return _launch("ita_attention_decode_paged", q_q, k_pool, v_pool,
+                   page_table, logit_mult, out_mult, kv_len, **kw)

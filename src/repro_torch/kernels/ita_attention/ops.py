@@ -11,8 +11,9 @@ JAX package does. Scales are scalars (per-tensor) or per-head vectors —
 per (batch·head) kernel row (rows are batch-major, head-minor).
 
 Kinds: ``onepass`` (flash-style) and ``decode`` (a single query tile
-against a KV ring, tiles past the valid prefix skipped). The paged pool
-and the twopass kernel come with later slices of the port.
+against a KV ring, tiles past the valid prefix skipped), each over a
+ring or, with ``page_table=``, over the paged pool (the tile is the
+page). The twopass kernel comes with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import torch
 
 from repro_torch.core.quant import EPS_MAX
 from repro_torch.kernels.common import device_tensor
-from repro_torch.kernels.ita_attention.kernel import (ita_attention_decode,
-                                                      ita_attention_onepass)
+from repro_torch.kernels.ita_attention.kernel import (
+    ita_attention_decode, ita_attention_decode_paged, ita_attention_onepass,
+    ita_attention_onepass_paged)
 
 KINDS = ("onepass", "decode")
 
@@ -93,21 +95,22 @@ def fused_attention(q_q, k_q, v_q, s_q, s_k, s_v, s_out, *, q_offset=0,
 
     ``q_q``: (B, Hq, Sq, D) int8; ``k_q``/``v_q``: (B, Hkv, Skv, D) int8
     or, with ``kv_native=True``, cache-native (B, Skv, Hkv, D) rings
-    (read in place by the kernels). GQA: Hkv divides Hq. ``q_offset`` /
-    ``kv_len`` / ``q_lens`` accept (B,) per-sequence vectors (the ragged
-    batch). The KV tile is ``bkv = min(block_kv, max(128, Skv))`` for
-    Skv >= 128, else Skv. Returns (B, Hq, Sq, D) int8 at scale ``s_out``.
+    (read in place by the kernels), or with ``page_table`` (B, n_pages)
+    int32 a shared paged pool (P, page, Hkv, D). GQA: Hkv divides Hq.
+    ``q_offset`` / ``kv_len`` / ``q_lens`` accept (B,) per-sequence
+    vectors (the ragged batch). The KV tile is ``bkv = min(block_kv,
+    max(128, Skv))`` for Skv >= 128, else Skv; over a paged pool it is
+    the page. Returns (B, Hq, Sq, D) int8 at scale ``s_out``.
     """
     if kind not in KINDS:
         raise NotImplementedError(
             f"kind={kind!r}: the port has {KINDS}; the twopass kernel comes "
             f"with a later slice (ROADMAP B5)")
-    if page_table is not None:
-        raise NotImplementedError(
-            "the paged KV pool comes with the next slice of the port "
-            "(ROADMAP B3/B4-paged, PagedKVState)")
     b, hq, sq, d = q_q.shape
-    if kv_native:
+    if page_table is not None:              # paged pool (P, page, G, hd)
+        hkv = k_q.shape[2]
+        skv = page_table.shape[1] * k_q.shape[1]
+    elif kv_native:
         skv, hkv = k_q.shape[1], k_q.shape[2]
     else:
         hkv, skv = k_q.shape[1], k_q.shape[2]
@@ -116,22 +119,33 @@ def fused_attention(q_q, k_q, v_q, s_q, s_k, s_v, s_out, *, q_offset=0,
     rep = hq // hkv
     lmult, omult = row_multipliers(s_q, s_k, s_v, s_out, b=b, hq=hq,
                                    hkv=hkv, d=d, device=q_q.device)
+    kv_len = _per_row(skv if kv_len is None else kv_len, b, hq, q_q.device)
+    q_offset = _per_row(q_offset, b, hq, q_q.device)
+    q_len = None if q_lens is None else _per_row(q_lens, b, hq, q_q.device)
+    common = dict(q_offset=q_offset, q_len=q_len, causal=causal,
+                  window=window, adaptive=adaptive, kv_rep=rep)
+    qf = q_q.reshape(b * hq, sq, d)
+
+    if page_table is not None:
+        # pages are the KV tiles (block_kv == page size), read in place
+        # through the page table: the pool is never padded or copied
+        if kind == "decode":
+            out = ita_attention_decode_paged(qf, k_q, v_q, page_table, lmult,
+                                             omult, kv_len, hq=hq, **common)
+        else:
+            out = ita_attention_onepass_paged(
+                qf, k_q, v_q, page_table, lmult, omult, kv_len,
+                block_q=min(block_q, max(8, sq)), hq=hq, **common)
+        return out.reshape(b, hq, sq, d)
 
     bkv = min(block_kv, max(128, skv)) if skv >= 128 else skv
     hot = kind == "decode"
-    qf = q_q.reshape(b * hq, sq, d)
     if kv_native:
         kf, vf = _pad_seq(k_q, bkv, hot), _pad_seq(v_q, bkv, hot)
     else:
         kf = _pad_seq(k_q.reshape(b * hkv, skv, d), bkv, hot)
         vf = _pad_seq(v_q.reshape(b * hkv, skv, d), bkv, hot)
-
-    kv_len = _per_row(skv if kv_len is None else kv_len, b, hq, q_q.device)
-    q_offset = _per_row(q_offset, b, hq, q_q.device)
-    q_len = None if q_lens is None else _per_row(q_lens, b, hq, q_q.device)
-    common = dict(q_offset=q_offset, q_len=q_len, causal=causal,
-                  window=window, adaptive=adaptive, block_kv=bkv,
-                  kv_rep=rep, hq=hq if kv_native else None)
+    common.update(block_kv=bkv, hq=hq if kv_native else None)
     if kind == "decode":
         out = ita_attention_decode(qf, kf, vf, lmult, omult, kv_len,
                                    **common)

@@ -1,23 +1,36 @@
-"""Serving launcher of the port: batched prefill, then the decode loop,
-with ITA integer attention over int8 KV rings (``repro.launch.serve``
-without ``--continuous``).
+"""Serving launcher of the port (``repro.launch.serve``): batched
+prefill, then the decode loop, with ITA integer attention over int8 KV
+rings — or, with ``--continuous``, the continuous-batching server over
+the paged int8 pool.
 
     python -m repro_torch.launch.serve --arch qwen2-7b --batch 4 \
         --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch qwen2-7b --continuous \
+        --batch 4 --requests 16 --prompt-len 512 --gen 32
 
 Weights are random from ``--seed`` at the full width of the config (bf16
 on the card, about 15.2 GB for qwen2-7b); ``--smoke`` takes the narrow
 config. Attention is ITA's int8 pipeline (the float and I-BERT impls
-come with their backends). Runs on the card; ``--device cpu`` runs the plain versions on the
-CPU. ``--ragged`` serves right-padded prompts of random lengths in
-[prompt_len/2, prompt_len]. Continuous batching (``--continuous``) comes
-with the next slice of the port.
+come with their backends). Runs on the card; ``--device cpu`` runs the
+plain versions on the CPU. ``--ragged`` serves right-padded prompts of
+random lengths in [prompt_len/2, prompt_len]; ``--paged`` swaps the
+rings for the shared paged pool (equal tokens).
+
+``--continuous`` serves an arrival trace built as the JAX CLI builds it
+(Poisson arrivals at ``--rate`` per decode step, prompt lengths in
+[prompt_len/2, prompt_len], ``gen`` in [gen/4, gen]; numpy from
+``--seed``) through ``--batch`` slots over the paged pool, admitting by
+chunked prefill (``--chunk-size``, ``--token-budget``) between
+``--segment``-step segments, and reports sustained tok/s, latency and
+TTFT. The JAX CLI's prefix-sharing, preemption, journal and stall
+options come with later slices of the port.
 """
 
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch import attention as ATT
@@ -25,7 +38,8 @@ from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import init_model
 from repro_torch.models.attention import make_spec
-from repro_torch.runtime.generate import generate
+from repro_torch.runtime.generate import (ServeRequest, generate,
+                                          serve_continuous)
 
 
 def main(argv=None):
@@ -49,6 +63,27 @@ def main(argv=None):
                     help="pin sequences to pad after this token, stop "
                          "counting them toward tok/s, and stop once all "
                          "finished")
+    ap.add_argument("--paged", action="store_true",
+                    help="allocate the KV caches as shared paged pools "
+                         "(PagedKVState) instead of per-sequence rings")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching over a Poisson arrival "
+                         "trace: --batch slots, paged pool, admission "
+                         "between --segment-step segments")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="trace length for --continuous")
+    ap.add_argument("--rate", type=float, default=0.25,
+                    help="mean arrivals per decode step for --continuous")
+    ap.add_argument("--segment", type=int, default=16,
+                    help="decode steps per segment (admission "
+                         "granularity) for --continuous")
+    ap.add_argument("--page-size", type=int, default=128,
+                    help="KV pool page size (tokens per page)")
+    ap.add_argument("--chunk-size", type=int, default=32,
+                    help="prompt tokens prefilling per slot per step")
+    ap.add_argument("--token-budget", type=int, default=None,
+                    help="per-step token budget of the decode-maximal "
+                         "scheduler (default slots - 1 + chunk_size)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -65,6 +100,8 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     model = init_model(cfg, seed=args.seed, device=dev)
+    if args.continuous:
+        return _continuous(args, cfg, model, dev)
     gen = torch.Generator(device="cpu")
     gen.manual_seed(args.seed)
     prompts = torch.randint(0, cfg.vocab_size,
@@ -79,10 +116,12 @@ def main(argv=None):
     res = generate(model, cfg, prompts, args.gen,
                    temperature=args.temperature, generator=sampler,
                    prompt_lengths=lengths, eos_id=args.eos_id,
-                   early_exit=args.eos_id is not None, device=dev)
+                   early_exit=args.eos_id is not None, paged=args.paged,
+                   page_size=args.page_size, device=dev)
 
     print(f"[serve] arch={cfg.name} impl={cfg.attention_impl} device={dev}"
-          + (" ragged" if args.ragged else ""))
+          + (" ragged" if args.ragged else "")
+          + (" paged" if args.paged else ""))
     if lengths is not None:
         print(f"[serve] prompt lengths: {lengths.tolist()}")
     print(f"[serve] prefill {args.batch}x{args.prompt_len} tokens in "
@@ -91,6 +130,41 @@ def main(argv=None):
           f"({res.n_decode_tokens} live tokens) in "
           f"{res.decode_s * 1e3:.1f} ms ({res.decode_tok_s:.1f} tok/s)")
     print("[serve] sample:", res.tokens[0, :12].tolist())
+    return res
+
+
+def _continuous(args, cfg, model, dev):
+    rng = np.random.default_rng(args.seed)
+    rate = max(args.rate, 1e-6)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate,
+                                         args.requests)).astype(int)
+    reqs = [ServeRequest(
+        prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(
+            max(1, args.prompt_len // 2), args.prompt_len + 1))
+        ).astype(np.int32),
+        gen=int(rng.integers(max(2, args.gen // 4), args.gen + 1)),
+        arrival=int(t)) for t in arrivals]
+    res = serve_continuous(
+        model, cfg, reqs, slots=args.batch, segment=args.segment,
+        max_len=args.prompt_len + args.gen, page_size=args.page_size,
+        temperature=args.temperature,
+        seed=args.seed if args.temperature > 0 else None,
+        eos_id=args.eos_id, chunk_size=args.chunk_size,
+        token_budget=args.token_budget, device=dev)
+    util = max((u for _, u in res.page_util), default=0.0)
+    print(f"[serve] arch={cfg.name} continuous slots={args.batch} "
+          f"segment={args.segment} page_size={args.page_size} "
+          f"admission=chunked chunk={args.chunk_size} device={dev}")
+    print(f"[serve] {len(res.completed)}/{args.requests} requests, "
+          f"{res.steps} steps / {res.segments} segments / "
+          f"{res.admission_rounds} admission rounds")
+    print(f"[serve] {res.total_tokens} tokens in {res.wall_s:.2f} s "
+          f"-> sustained {res.tok_s:.1f} tok/s; latency p50 "
+          f"{res.latency_quantile(0.5) * 1e3:.0f} ms p95 "
+          f"{res.latency_quantile(0.95) * 1e3:.0f} ms; TTFT p50 "
+          f"{res.ttft_quantile(0.5) * 1e3:.0f} ms p95 "
+          f"{res.ttft_quantile(0.95) * 1e3:.0f} ms; prefill-stall "
+          f"{res.prefill_stall_frac:.0%}; peak page util {util:.0%}")
     return res
 
 

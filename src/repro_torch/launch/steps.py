@@ -1,19 +1,27 @@
-"""Prefill / decode steps, sampling and the decode loop
-(``repro.launch.steps``).
+"""Prefill / decode steps, sampling, the decode loop and the
+continuous-batching serve segments (``repro.launch.steps``).
 
 The JAX package jits the steps and scans every decode step in one
-dispatch; the port runs them eagerly, the decode loop a Python loop over
-steps (each step: the decode forward through every layer, then sampling
-on the card). Sampling uses a ``torch.Generator``; the JAX package's
-threefry keys give other numbers, so sampled streams are compared within
-the port only (greedy tokens are compared across the two).
+dispatch; the port runs them eagerly, the decode loop and a serve
+segment's steps a Python loop (each step: the forward through every
+layer, then sampling on the card). A greedy segment never reads back to
+the host between its steps. Sampling uses a ``torch.Generator`` — one
+per served request, seeded from ``(seed, request index)``
+(``request_generator``); the JAX package's threefry keys give other
+numbers, so sampled streams are compared within the port only (greedy
+tokens are compared across the two).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
+from repro_torch.attention.state import scatter_drop
 from repro_torch.models import forward
+from repro_torch.models.layers import unembed
 
 
 def make_prefill_step(cfg):
@@ -31,9 +39,9 @@ def make_prefill_step(cfg):
 
 
 def make_decode_step(cfg):
-    def decode_step(model, tokens, caches, pos0):
+    def decode_step(model, tokens, caches, pos0, live=None):
         return forward(model, tokens, cfg, mode="decode", caches=caches,
-                       pos0=pos0)
+                       pos0=pos0, live=live)
     return decode_step
 
 
@@ -93,3 +101,254 @@ def make_generate_loop(cfg, *, gen: int, sample: bool, eos_id: int | None,
         return out, n, steps_run, caches
 
     return loop
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching serve segments (pure decode + mixed chunked prefill)
+# ---------------------------------------------------------------------------
+
+def request_generator(seed: int, index: int, device) -> torch.Generator:
+    """The sampling stream of served request ``index``: a generator on
+    ``device`` seeded from ``(seed, index)``, so a request draws the same
+    numbers whatever else is served beside it (and solo ``generate()``
+    given this generator draws them too)."""
+    mixed = np.random.SeedSequence([seed, index]).generate_state(
+        1, np.uint64)[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(mixed) & ((1 << 63) - 1))
+    return gen
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSlotState:
+    """Per-slot state of the continuous-batching serve loop
+    (``repro.launch.steps.ServeSlotState``): fixed-width tensors on the
+    card that the segments carry and the admission write updates.
+    Prompt token ids wait in ``prompt_buf`` and are prefilled chunk by
+    chunk inside the segments (``cursor`` < ``plen`` marks the prefill
+    phase). ``prio`` is the slot's SLO class: it orders the mixed body's
+    prompt-chunk grants. ``pgen`` is the preemption generation (kept for
+    the preemption slice). ``gens`` holds each slot's sampling generator
+    (host objects; ``None`` when serving greedily) in place of the JAX
+    package's per-slot PRNG keys."""
+
+    tok: torch.Tensor           # (B, 1) int32 — last sampled token
+    pos: torch.Tensor           # (B,) int32 — stream position (cache pos)
+    done: torch.Tensor          # (B,) bool — finished / empty slots
+    rem: torch.Tensor           # (B,) int32 — tokens left to emit
+    cursor: torch.Tensor        # (B,) int32 — prompt tokens prefilled
+    plen: torch.Tensor          # (B,) int32 — prompt length
+    prompt_buf: torch.Tensor    # (B, prompt_pad) int32 — queued prompt ids
+    prio: torch.Tensor          # (B,) int32 — SLO class (higher = urgent)
+    pgen: torch.Tensor          # (B,) int32 — preemption generation
+    gens: tuple = ()            # per-slot torch.Generator or None
+
+    @classmethod
+    def init(cls, slots: int, prompt_pad: int,
+             device="cpu") -> "ServeSlotState":
+        i32 = dict(dtype=torch.int32, device=device)
+        return cls(tok=torch.zeros((slots, 1), **i32),
+                   pos=torch.zeros((slots,), **i32),
+                   done=torch.ones((slots,), dtype=torch.bool,
+                                   device=device),
+                   rem=torch.zeros((slots,), **i32),
+                   cursor=torch.zeros((slots,), **i32),
+                   plen=torch.zeros((slots,), **i32),
+                   prompt_buf=torch.zeros((slots, max(prompt_pad, 1)),
+                                          **i32),
+                   prio=torch.zeros((slots,), **i32),
+                   pgen=torch.zeros((slots,), **i32),
+                   gens=(None,) * slots)
+
+
+def admit_rows(state, slot_ids):
+    """Sink row indices for a fixed-width admission batch (padding rows
+    carry slot id -1 and drop out of every scatter)."""
+    return torch.where(slot_ids >= 0, slot_ids, state.done.shape[0])
+
+
+def admit_chunked(state, slot_ids, prompts, lengths, gens, req_gens=None,
+                  prios=None):
+    """Chunked admission is only this state write (plus the host's page
+    reservation): enqueue the prompt ids and arm the slots' phase state
+    (``cursor`` and ``pos`` at 0); the segments prefill page-native.
+    ``slot_ids`` (n,) (-1 = padding), ``prompts`` (n, prompt_pad),
+    ``lengths``/``gens`` (n,); ``req_gens`` the n rows' sampling
+    generators (or None); ``prios`` (n,) the SLO classes (None = class
+    0)."""
+    dev = state.pos.device
+
+    def col(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+    slot_ids = col(slot_ids)
+    rows = admit_rows(state, slot_ids)
+    lengths = col(lengths)
+    prio = torch.zeros_like(lengths) if prios is None else col(prios)
+
+    def put(t, v):
+        return scatter_drop(t, (rows,), v)
+    gen_list = list(state.gens)
+    if req_gens is not None:
+        for slot, g in zip(np.asarray(slot_ids.cpu()).tolist(), req_gens,
+                           strict=True):
+            if slot >= 0:
+                gen_list[slot] = g
+    return dataclasses.replace(
+        state, prompt_buf=put(state.prompt_buf, col(prompts)),
+        plen=put(state.plen, lengths), cursor=put(state.cursor, 0),
+        pos=put(state.pos, 0), tok=put(state.tok, 0),
+        done=put(state.done, False), rem=put(state.rem, col(gens)),
+        prio=put(state.prio, prio), gens=tuple(gen_list))
+
+
+def sample_token_rows(logits, gens, temperature, *, sample: bool,
+                      advance=None):
+    """Per-row ``sample_token``: row ``b`` draws from its own generator
+    ``gens[b]`` exactly as solo ``generate()`` draws from its generator
+    (one ``multinomial`` per sampled token), so a request served through
+    any admission interleaving consumes the same stream as generating it
+    alone. ``advance`` (B,) masks the rows that draw this step (rows mid-
+    prompt draw nothing); sampling reads it back to the host, one small
+    copy per step. Greedy (``sample=False``) is a plain argmax and never
+    leaves the card."""
+    if not sample:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    b = logits.shape[0]
+    rows = range(b) if advance is None else \
+        [i for i, a in enumerate(advance.tolist()) if a]
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=logits.device)
+    for i in rows:
+        tok[i] = sample_token(logits[i:i + 1], gens[i], temperature,
+                              sample=True)[0]
+    return tok
+
+
+def advance_step_rows(logits, gens, temperature, done, rem, n, active, *,
+                      sample: bool, eos_id: int | None, pad_id: int):
+    """Per-row serve-step tail shared by the pure-decode and mixed
+    segment bodies: sample each ``active`` row from its own stream, pad
+    everything else, count active emissions into ``n``, charge them
+    against ``rem`` and fold budget exhaustion / EOS into ``done``.
+    Returns ``(tok (B, 1), done, rem, n)``."""
+    nxt = sample_token_rows(logits, gens, temperature, sample=sample,
+                            advance=active)
+    nxt = torch.where(active[:, None], nxt, pad_id)
+    n = n + active.sum(dtype=torch.int32)
+    rem = rem - active.to(torch.int32)
+    done = done | (active & (rem <= 0))
+    if eos_id is not None:
+        done = done | (active & (nxt[:, 0] == eos_id))
+    return nxt, done, rem, n
+
+
+def make_serve_segment(cfg, *, segment: int, sample: bool,
+                       eos_id: int | None, pad_id: int,
+                       chunk: int | None = None, budget: int | None = None,
+                       mixed_steps: int | None = None):
+    """One continuous-batching segment: ``segment`` steps over a
+    fixed-slot ``ServeSlotState`` between two host admission points.
+
+    ``chunk=None`` — pure decode: every live slot advances one token per
+    step through the paged decode kernel (``live`` masks finished, empty
+    and mid-prompt slots out of cache writes and position advances).
+
+    ``chunk=N`` — mixed chunked prefill + decode: each step every live
+    slot processes one decode token or one prompt chunk of up to ``N``
+    tokens written straight into pool pages (``append_chunk`` and the
+    ragged-q paged onepass kernel). The per-step token budget is
+    decode-maximal: every decoding slot gets its token first, then prompt
+    chunks fill the leftover ``budget - n_decode`` in priority order
+    (stable, so equal classes keep slot order). A slot whose chunk
+    completes its prompt samples its first token that step.
+
+    ``mixed_steps=k`` runs a two-phase segment: ``k`` mixed steps, then
+    ``segment - k`` 1-token decode steps (``None`` = all mixed).
+
+    Returns ``seg(model, state, caches, temperature) -> (tokens (B,
+    segment), emitted (B, segment), grants (B, segment), state, caches,
+    n_live)`` — ``emitted`` marks the real step-tokens, ``grants`` the
+    per-slot token counts (``sum(grants[:, t]) <= budget``). The steps
+    run as a Python loop on the card; the outputs stay there until the
+    caller reads them back, once per segment.
+    """
+    decode = make_decode_step(cfg)
+    if chunk is not None:
+        if chunk < 1:
+            raise ValueError(f"chunk={chunk} must be >= 1")
+        if budget is None or budget < 1:
+            raise ValueError(f"budget={budget} must be >= 1")
+
+    def decode_body(model, temperature, caches, st, n):
+        # slots still mid-prompt (a two-phase segment whose mixed steps
+        # underestimated budget contention) pause rather than decode from
+        # a token they never sampled
+        live = ~st.done & (st.cursor >= st.plen)
+        logits, caches = decode(model, st.tok, caches, st.pos, live)
+        nxt, done, rem, n = advance_step_rows(
+            logits, st.gens, temperature, st.done, st.rem, n, live,
+            sample=sample, eos_id=eos_id, pad_id=pad_id)
+        st = dataclasses.replace(
+            st, tok=torch.where(live[:, None], nxt, st.tok),
+            pos=st.pos + live.to(torch.int32), done=done, rem=rem)
+        return caches, st, n, (nxt[:, 0], live, live.to(torch.int32))
+
+    def mixed_body(model, temperature, caches, st, n):
+        live = ~st.done
+        prefilling = live & (st.cursor < st.plen)
+        decoding = live & (st.cursor >= st.plen)
+        # decode-maximal budget: decode slots first, prompt chunks fill
+        # the leftover greedily in priority order
+        want = torch.where(prefilling,
+                           torch.clamp(st.plen - st.cursor, max=chunk), 0)
+        order = torch.argsort(-st.prio, stable=True)
+        want_o = want[order]
+        cum_o = torch.cumsum(want_o, 0, dtype=torch.int32) - want_o
+        left = budget - decoding.sum(dtype=torch.int32)
+        grant = torch.zeros_like(want)
+        grant[order] = torch.minimum(torch.clamp(left - cum_o, min=0),
+                                     want_o)
+        n_new = grant + decoding.to(torch.int32)
+        # token block: prompt chunk at the cursor, or [tok, pad...]
+        ar = torch.arange(chunk, dtype=torch.int32, device=st.pos.device)
+        cols = st.cursor[:, None] + ar
+        ptoks = torch.gather(
+            st.prompt_buf, 1,
+            torch.clamp(cols, 0, st.prompt_buf.shape[1] - 1).long())
+        first = ar[None, :] == 0
+        tokens = torch.where(prefilling[:, None], ptoks,
+                             torch.where(first, st.tok, pad_id))
+        x, caches = forward(model, tokens, cfg, mode="decode",
+                            caches=caches, pos0=st.pos, q_lens=n_new,
+                            skip_unembed=True)
+        # next-token logits sit at each row's last granted column; only
+        # that (B, 1, d) slice is unembedded
+        idx = torch.clamp(n_new - 1, min=0).long()[:, None, None]
+        sel = torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+        logits = unembed(model.unembed_weight(), sel, cfg.logit_softcap)
+        completes = prefilling & (st.cursor + n_new >= st.plen)
+        emits = decoding | completes
+        nxt, done, rem, n = advance_step_rows(
+            logits, st.gens, temperature, st.done, st.rem, n, emits,
+            sample=sample, eos_id=eos_id, pad_id=pad_id)
+        st = dataclasses.replace(
+            st, tok=torch.where(emits[:, None], nxt, st.tok),
+            pos=st.pos + n_new, done=done, rem=rem,
+            cursor=st.cursor + torch.where(prefilling, n_new, 0))
+        return caches, st, n, (nxt[:, 0], emits, n_new)
+
+    k = 0 if chunk is None else \
+        (segment if mixed_steps is None else min(mixed_steps, segment))
+
+    def seg(model, state, caches, temperature):
+        n = torch.zeros((), dtype=torch.int32, device=state.pos.device)
+        outs = []
+        for i in range(segment):
+            body = mixed_body if i < k else decode_body
+            caches, state, n, out = body(model, temperature, caches, state,
+                                         n)
+            outs.append(out)
+        toks, emits, grants = (torch.stack(parts, dim=1)
+                               for parts in zip(*outs, strict=True))
+        return toks, emits, grants, state, caches, n
+
+    return seg

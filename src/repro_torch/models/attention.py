@@ -5,9 +5,12 @@ With ``attention_impl="ita"`` Q/K/V are quantized to int8 and attention is
 ITA's integer pipeline; the KV cache stores int8. Which backend serves a
 call is the registry's decision (``cfg.attention_backend`` pins one where
 it is capable). Branches: no cache (a plain forward), prefill (attend the
-prompt, then write the ring) and ring decode (append, then attend the
-ring). Cross-attention and the paged/mixed-chunk branches come with the
-slices that need them.
+prompt, then write the ring), the mixed chunk of the serve step
+(``q_lens``: append per-row ragged widths into the paged pool, then
+attend through the ragged-q paged kernel) and decode (append, then
+attend the ring or, for a ``PagedKVState``, the pool through its page
+table; ``live`` masks dead slots). Cross-attention comes with the slice
+that needs it.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from torch import nn
 
 from repro_torch import attention as ATT
 from repro_torch.attention.xla import quantize_to_int8
-from repro_torch.models.layers import const_param, normal_param, rope
+from repro_torch.models.layers import const_param, linear, normal_param, rope
 
 
 def make_spec(cfg, *, mode, causal, window, q_len=None, has_s_out=True,
@@ -63,11 +66,15 @@ class Attention(nn.Module):
                                s_out=getattr(self, "s_out", None))
 
     def forward(self, x, *, cfg, kind="global", positions=None, cache=None,
-                mode="train", lengths=None):
+                mode="train", lengths=None, live=None, q_lens=None):
         """Returns ``(y, new_cache)``. ``cfg`` is the call's config (its
         ``attention_backend`` pin applies per call, as in the JAX
-        package). ``cache``: a ``KVCacheState`` ring (int8 for quantized
-        impls). ``lengths`` (B,): ragged prefill of right-padded prompts."""
+        package). ``cache``: a ``KVCacheState`` ring or a ``PagedKVState``
+        pool (int8 for quantized impls). ``lengths`` (B,): ragged prefill
+        of right-padded prompts. ``live`` (B,) bool: decode-time slot mask
+        (dead slots write nothing and keep their position). ``q_lens``
+        (B,): the mixed chunked-prefill step over a paged pool — row ``b``
+        carries ``q_lens[b]`` real tokens of the presented width."""
         h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         if kind not in ("global", "local", "swa"):
             raise NotImplementedError(
@@ -77,7 +84,7 @@ class Attention(nn.Module):
         causal = cfg.causal
         dt = x.dtype
 
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
+        q, k, v = linear(x, self.wq), linear(x, self.wk), linear(x, self.wv)
         if cfg.qkv_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q = q.view(*q.shape[:-1], h, hd)
@@ -90,10 +97,12 @@ class Attention(nn.Module):
         scales = self.scales()
         quant_cache = cfg.attention_impl != "float"
 
-        def run(qq, kk, vv, *, mode, q_offset=0, kv_len=None):
+        def run(qq, kk, vv, *, mode, q_offset=0, kv_len=None, layout="bshd",
+                page_table=None, q_lens=None):
+            q_len = qq.shape[2] if layout == "bhsd_paged" else qq.shape[1]
             spec = make_spec(cfg, mode=mode, causal=causal, window=window,
-                             q_len=qq.shape[1],
-                             has_s_out=scales.s_out is not None)
+                             q_len=q_len, has_s_out=scales.s_out is not None,
+                             layout=layout, ragged_q=q_lens is not None)
             # a preference: pinned where capable, dispatch fills the rest
             backend = cfg.attention_backend or None
             if backend is not None \
@@ -101,6 +110,7 @@ class Attention(nn.Module):
                 backend = None
             out = ATT.dispatch(qq, kk, vv, spec=spec, scales=scales,
                                q_offset=q_offset, kv_len=kv_len,
+                               page_table=page_table, q_lens=q_lens,
                                backend=backend, q_chunk=cfg.attn_q_chunk,
                                kv_chunk=cfg.attn_kv_chunk)
             return out.to(dt)
@@ -116,11 +126,33 @@ class Attention(nn.Module):
             y = run(q, k, v, mode=mode)
             new_cache = cache.prefill_write(_q(k, "s_k"), _q(v, "s_v"),
                                             lengths=lengths)
-        else:                                           # ring decode
+        elif q_lens is not None:                        # mixed chunk append
+            if not isinstance(cache, ATT.PagedKVState):
+                raise ValueError(
+                    "q_lens= (mixed chunked prefill) requires paged KV "
+                    "caches; ring caches serve uniform decode/prefill only")
+            n_new = q_lens.to(torch.int32)
+            new_cache = cache.append_chunk(_q(k, "s_k"), _q(v, "s_v"), n_new)
+            y = run(q.transpose(1, 2), new_cache.k, new_cache.v, mode=mode,
+                    q_offset=new_cache.q_offset(n_new),
+                    kv_len=new_cache.valid_len(), layout="bhsd_paged",
+                    page_table=new_cache.page_table, q_lens=n_new)
+            y = y.transpose(1, 2)
+        else:                                           # decode append
             s_new = q.shape[1]
-            new_cache = cache.decode_append(_q(k, "s_k"), _q(v, "s_v"))
-            y = run(q, new_cache.k, new_cache.v, mode=mode,
-                    q_offset=new_cache.q_offset(s_new),
-                    kv_len=new_cache.valid_len())
-        y = y.reshape(*y.shape[:-2], h * hd) @ self.wo
+            new_cache = cache.decode_append(_q(k, "s_k"), _q(v, "s_v"),
+                                            live=live)
+            if isinstance(new_cache, ATT.PagedKVState):
+                # q in kernel layout, K/V the shared arena read through
+                # this layer's page table
+                y = run(q.transpose(1, 2), new_cache.k, new_cache.v,
+                        mode=mode, q_offset=new_cache.q_offset(s_new),
+                        kv_len=new_cache.valid_len(), layout="bhsd_paged",
+                        page_table=new_cache.page_table)
+                y = y.transpose(1, 2)
+            else:
+                y = run(q, new_cache.k, new_cache.v, mode=mode,
+                        q_offset=new_cache.q_offset(s_new),
+                        kv_len=new_cache.valid_len())
+        y = linear(y.reshape(*y.shape[:-2], h * hd), self.wo)
         return y, new_cache

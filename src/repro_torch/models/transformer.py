@@ -4,6 +4,7 @@ the JAX package scans period-stacked parameters.
 
     model = init_model(cfg, seed=0)                  # on the card
     caches = init_caches(cfg, batch, max_len)        # one ring per layer
+                                                     # (paged=True: pools)
     logits, caches = forward(model, tokens, cfg, mode="prefill",
                              caches=caches)
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.attention import KVCacheState
+from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import device_tensor
 from repro_torch.models.attention import Attention
@@ -56,12 +57,14 @@ class Block(nn.Module):
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
                           device=device, generator=generator)
 
-    def forward(self, x, *, cfg, positions, cache, mode, lengths=None):
+    def forward(self, x, *, cfg, positions, cache, mode, lengths=None,
+                live=None, q_lens=None):
         h = rmsnorm(self.norm1, x)
         y, new_mix = self.attn(h, cfg=cfg, kind="global",
                                positions=positions,
                                cache=None if cache is None else cache["mix"],
-                               mode=mode, lengths=lengths)
+                               mode=mode, lengths=lengths, live=live,
+                               q_lens=q_lens)
         x = x + y
         x = x + self.mlp(rmsnorm(self.norm2, x))
         return x, (None if cache is None else dict(cache, mix=new_mix))
@@ -146,25 +149,43 @@ def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
     return model
 
 
-def init_caches(cfg, batch: int, max_len: int, *, device="cuda"):
-    """One ``{"mix": KVCacheState}`` ring per layer, in execution order
-    (int8 for the quantized impls, the compute dtype for float)."""
+def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
+                page_size: int = 128, num_pages: int | None = None,
+                device="cuda"):
+    """One ``{"mix": cache}`` per layer, in execution order: a
+    ``KVCacheState`` ring, or with ``paged=True`` a ``PagedKVState`` pool
+    (one arena and page table per layer, ``num_pages`` pages each; None
+    provisions fully) — int8 for the quantized impls, the compute dtype
+    for float."""
     dev = resolve_device(device)
     _check_ported(cfg)
     kv_dt = torch.int8 if cfg.attention_impl != "float" \
         else cfg.compute_dtype()
-    return [{"mix": KVCacheState.init(batch, max_len, cfg.n_kv_heads,
-                                      cfg.head_dim, dtype=kv_dt,
-                                      device=dev)}
-            for _ in range(cfg.n_layers)]
+
+    def kv_cache():
+        if paged:
+            return PagedKVState.init(batch, max_len, cfg.n_kv_heads,
+                                     cfg.head_dim, dtype=kv_dt, device=dev,
+                                     page_size=page_size,
+                                     num_pages=num_pages)
+        return KVCacheState.init(batch, max_len, cfg.n_kv_heads,
+                                 cfg.head_dim, dtype=kv_dt, device=dev)
+    return [{"mix": kv_cache()} for _ in range(cfg.n_layers)]
 
 
 def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
-            pos0=None, lengths=None):
+            pos0=None, lengths=None, live=None, q_lens=None,
+            skip_unembed=False):
     """tokens (B, S) int. Returns ``(logits (B, S, V) float32,
     new_caches)``. ``pos0``: the first token's position, a scalar or a
     (B,) per-sequence vector (ragged decode). ``lengths`` (B,): ragged
-    prefill of right-padded prompts."""
+    prefill of right-padded prompts. ``live`` (B,) bool: decode-time
+    slot mask of continuous batching (dead slots neither write their
+    caches nor advance). ``q_lens`` (B,) int32: the mixed chunked-prefill
+    step over paged caches (row ``b`` holds ``q_lens[b]`` real tokens).
+    ``skip_unembed`` returns the final-norm hidden states (B, S, d) in
+    place of the logits (the mixed step unembeds one row per sequence,
+    ``unembed(model.unembed_weight(), x)``)."""
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     x = embed(model.embed, tokens)
@@ -179,8 +200,10 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     for i, blk in enumerate(model.blocks):
         x, nc = blk(x, cfg=cfg, positions=positions,
                     cache=None if caches is None else caches[i], mode=mode,
-                    lengths=lengths)
+                    lengths=lengths, live=live, q_lens=q_lens)
         if new_caches is not None:
             new_caches.append(nc)
     x = rmsnorm(model.final_norm, x)
+    if skip_unembed:
+        return x, new_caches
     return unembed(model.unembed_weight(), x, cfg.logit_softcap), new_caches

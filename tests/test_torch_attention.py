@@ -254,10 +254,22 @@ def test_kv_cache_state_writes_match_jax(capacity, prompt, lengths, bursts):
 
 
 def test_decode_append_live_is_refused():
-    ts = TA.KVCacheState.init(1, 8, 1, 16)
-    x = torch.zeros((1, 1, 1, 16), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        ts.decode_append(x, x, live=torch.ones(1, dtype=torch.bool))
+    """``decode_append(live=)`` refuses the writes of dead rows: their
+    ring bytes and ``pos`` stay as they were, as in the JAX package,
+    while live rows append."""
+    rng = np.random.default_rng(9)
+    js = JA.KVCacheState.init(2, 8, 1, 16)
+    ts = TA.KVCacheState.init(2, 8, 1, 16)
+    for live in ([True, False], [False, True], [True, True]):
+        k, v = _i8(rng, 2, 1, 1, 16), _i8(rng, 2, 1, 1, 16)
+        before = ts.k.clone()
+        js = js.decode_append(jnp.asarray(k), jnp.asarray(v),
+                              live=jnp.asarray(live))
+        ts = ts.decode_append(_t(k), _t(v), live=torch.tensor(live))
+        _assert_same_state(js, ts)
+        for row, alive in enumerate(live):
+            if not alive:
+                assert torch.equal(ts.k[row], before[row])
 
 
 # --------------------------------------------------------------------------

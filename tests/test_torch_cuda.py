@@ -4,8 +4,9 @@ Marked ``cuda``: without a card the test skips. It imports neither JAX
 nor ``repro``, so it runs where only torch and the CUDA toolkit are
 installed: ``python -m pytest -m cuda tests/test_torch_cuda.py``. Each kernel
 must equal its plain version on the same CUDA tensors bit for bit: 3D
-and 4D rings, GQA, ragged rows and query counts, causal and windowed,
-adaptive and paper DI, short rings (one tile of 20) and multi-tile ones.
+and 4D rings and paged pools, GQA, ragged rows and query counts, causal
+and windowed, adaptive and paper DI, short rings (one tile of 20) and
+multi-tile ones.
 """
 
 import numpy as np
@@ -64,3 +65,67 @@ def test_cuda_kernel_matches_plain(case):
         want = K.attention_plain(q, k, v, lmult, omult, t(kv_len), **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, want), adaptive
+
+
+PAGED_CASES = [
+    # kind, b, hq, hkv, sq, page, n_pages, d, window
+    ("onepass", 2, 4, 2, 40, 32, 6, 16, 0),
+    ("onepass", 3, 28, 4, 96, 128, 4, 128, 0),
+    ("onepass", 2, 4, 4, 16, 64, 5, 32, 90),
+    ("decode", 3, 4, 2, 1, 32, 6, 16, 0),
+    ("decode", 2, 28, 4, 1, 128, 9, 128, 0),
+    ("decode", 2, 4, 2, 4, 64, 5, 32, 70),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[
+    f"{c[0]}_paged-sq{c[4]}-page{c[5]}-d{c[7]}-w{c[8]}"
+    for c in PAGED_CASES])
+def test_cuda_paged_kernel_matches_plain(case):
+    """The paged kernels against their plain version (pages gathered into
+    a ring) and against the ring kernel on the gathered pages: permuted
+    tables with spare pages, kv_len ending mid-page, empty rows, ragged
+    q_len (onepass: 0, 1 and full rows in one call)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    kind, b, hq, hkv, sq, page, n_pages, d, window = case
+    rng = np.random.default_rng(b * 100 + page + sq)
+    bh, rep = b * hq, hq // hkv
+    total = b * n_pages + 4
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    pt = rng.permutation(np.arange(1, total))[:b * n_pages]
+    pt = t(pt.reshape(b, n_pages).astype(np.int32))
+    k = t(rng.integers(-128, 128, (total, page, hkv, d), dtype=np.int8))
+    v = t(rng.integers(-128, 128, (total, page, hkv, d), dtype=np.int8))
+    q = t(rng.integers(-128, 128, (bh, sq, d), dtype=np.int8))
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    kv_b = rng.integers(1, n_pages * page + 1, b).astype(np.int32)
+    kv_b[-1] = 0                                   # an empty row
+    kv_len = np.repeat(kv_b, hq)
+    if kind == "onepass":
+        q_b = rng.choice([0, 1, sq], b).astype(np.int32)
+        q_b[0] = sq
+    else:
+        q_b = np.full(b, sq, np.int32)
+    q_len = np.repeat(q_b, hq)
+    fn = getattr(K, f"ita_attention_{kind}_paged")
+    ring_fn = getattr(K, f"ita_attention_{kind}")
+    ring_k, ring_v = K.gather_pages(k, pt), K.gather_pages(v, pt)
+    for adaptive in (True, False):
+        kw = dict(q_offset=t(np.maximum(kv_len - q_len, 0)), q_len=t(q_len),
+                  causal=True, window=window, adaptive=adaptive,
+                  kv_rep=rep, hq=hq)
+        got = fn(q, k, v, pt, lmult, omult, t(kv_len), **kw)
+        want = K.paged_attention_plain(q, k, v, pt, lmult, omult,
+                                       t(kv_len), **kw)
+        ring = ring_fn(q, ring_k, ring_v, lmult, omult, t(kv_len),
+                       block_kv=page, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), adaptive
+        assert torch.equal(got, ring), adaptive

@@ -268,7 +268,9 @@ def test_wrappers_count_only_kernel_launches():
     TK.ita_attention_decode(*(torch.from_numpy(x[n]) for n in (
         "q", "k", "v", "lmult", "omult", "kv_len")), kv_rep=2)
     assert TK.LAUNCHES == {"ita_attention_onepass": 0,
-                           "ita_attention_decode": 0}
+                           "ita_attention_decode": 0,
+                           "ita_attention_onepass_paged": 0,
+                           "ita_attention_decode_paged": 0}
     with pytest.raises(ValueError, match="at most 8"):
         TK.ita_attention_decode(torch.zeros((2, 9, 16), dtype=torch.int8),
                                 torch.zeros((1, 32, 16), dtype=torch.int8),
