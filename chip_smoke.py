@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each fatal on failure:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/
-   ita_attention/csrc`` (nvcc, all sources in parallel).
+   ita_attention/csrc`` and ``.../ita_softmax/csrc`` (nvcc, all sources
+   in parallel).
 2. Hold each kernel to its plain PyTorch version on the card, bit for bit
    (``torch.equal``), at qwen2-7b shapes (B=4, 28 heads, 4 KV heads,
    head dim 128): decode over a ring of capacity 640 with ragged rows in
@@ -16,19 +17,32 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    3D case; the paged kernels over a pool of 128-token pages with
    permuted, non-contiguous page tables, kv_len ending mid-page and, for
    the paged onepass, q_len 0, 1 and 96 in one call — each also equal to
-   the ring kernel on the gathered pages. Check that the model's
-   projections (``models.layers.linear``) give a row the same bits
-   whatever the rows beside it, which serve-equals-solo rests on.
+   the ring kernel on the gathered pages; the twopass kernels (both
+   passes through the wrapper and each alone: out, A and pass 1's
+   statistics) in kernel layout on the 512-token causal prefill, a
+   window, ragged kv_len tails and Skv 200 padded to 256, paper and
+   adaptive DI, and a single-tile call equal to the one-shot paper
+   oracle ``ita_attention_ref``. Check that the model's projections
+   (``models.layers.linear``) give a row the same bits whatever the rows
+   beside it, which serve-equals-solo rests on.
 3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
    seed, batch 4, prompt 512, 32 tokens): (a) unpinned — chunked prefill,
    then the decode kernel — twice, with identical tokens; (b) with the
-   ``ita_onepass_pallas`` pin. The launch counters are zeroed before each
-   run and read after it; the inputs and outputs of layers 0 and 27 of
-   one prefill call and one decode step are kept and held to the plain
-   versions afterwards. The smoke-width config checks the card's logits
-   against the CPU's plain versions.
-4. Profile one unpinned ``generate()`` (device time by kernel, busy
+   ``ita_onepass_pallas`` pin; (c) with the ``ita_twopass_pallas`` pin
+   and the paper DI (``softmax_impl="ita_paper"``) — twopass prefill,
+   then the decode kernel — twice, with identical tokens. The launch
+   counters are zeroed before each run and read after it; the inputs and
+   outputs of layers 0 and 27 of one prefill call and one decode step
+   are kept and held to the plain versions afterwards. The smoke-width
+   config (unpinned and with each pin) checks the card's logits against
+   the CPU's plain versions.
+   Profile one unpinned ``generate()`` (device time by kernel, busy
    share).
+4. Drive the standalone softmax (``kernels.ita_softmax.ops.ita_softmax``)
+   on layer 0's attention matrix A of run (c) (57,344 rows of 512 int8
+   logits, the causal mask, ``block_c`` 128), paper and adaptive, with
+   the counters zeroed before and read after; hold it to its plain
+   version.
 5. Serve an arrival trace with ``serve_continuous(admission="chunked")``
    on full-width qwen2-7b, unpinned: 4 slots, 12 requests (prompts of
    128-1024 tokens, 16-48 generated, arrivals 0-6 steps apart, numpy
@@ -44,7 +58,8 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
 6. Time each kernel on the main path's inputs with CUDA events (median):
    the bound kernel alone, its wrapper call and its plain version,
    beside its bound (the paged kernels on layer-0 inputs of the serve:
-   its busiest mixed call and its busiest decode call).
+   its busiest mixed call and its busiest decode call; the twopass
+   passes on layer 0 of run (c); the softmax on that call's A).
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -85,8 +100,18 @@ SOURCES = {
     "ita_attention_decode_paged": (
         "src/repro_torch/kernels/ita_attention/csrc/decode.cu",
         "src/repro/kernels/ita_attention/kernel.py:508"),
+    "ita_attention_twopass_qk_da": (
+        "src/repro_torch/kernels/ita_attention/csrc/twopass.cu",
+        "src/repro/kernels/ita_attention/kernel.py:336"),
+    "ita_attention_twopass_av_en": (
+        "src/repro_torch/kernels/ita_attention/csrc/twopass.cu",
+        "src/repro/kernels/ita_attention/kernel.py:368"),
+    "ita_softmax": (
+        "src/repro_torch/kernels/ita_softmax/csrc/softmax.cu",
+        "src/repro/kernels/ita_softmax/kernel.py:74"),
 }
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
+TWOPASS = ("ita_attention_twopass_qk_da", "ita_attention_twopass_av_en")
 # phase 5: the served trace and the serve's geometry
 SERVE = dict(slots=4, requests=12, plen=(128, 1024), gen=(16, 48),
              gap=(0, 6), page_size=128, chunk_size=96, segment=16,
@@ -105,6 +130,25 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def reset_launches():
+    """Zero every kernel wrapper's launch counter."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    K.reset_launches()
+    SK.reset_launches()
+
+
+def read_launches():
+    """Every kernel's launches since the last reset, after the stream has
+    drained."""
+    import torch
+
+    from repro_torch.kernels.ita_attention import kernel as K
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    torch.cuda.synchronize()
+    return {**K.LAUNCHES, **SK.LAUNCHES}
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -119,8 +163,8 @@ class Checks:
     def compare(self, name, got, want, label):
         import torch
         torch.cuda.synchronize()
-        err = (got.int() - want.int()).abs().max().item() if got.numel() \
-            else 0
+        err = (got.double() - want.double()).abs().max().item() \
+            if got.numel() else 0
         self.max_err[name] = max(self.max_err[name], float(err))
         self.n[name] += 1
         if not torch.equal(got, want):
@@ -236,6 +280,104 @@ def paged_cases(rng_seed=1):
     return cases
 
 
+def twopass_cases(rng_seed=2):
+    """(args, kwargs, label) of ``ita_attention_twopass`` at qwen2-7b
+    shapes (kernel-layout K/V, GQA 28/4): the 512-token causal prefill,
+    a window, ragged kv_len tails with query offsets, and Skv = 200 padded
+    to the 256 of two 128-key tiles, as ``fused_attention`` pads it; each
+    paper and adaptive."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(rng_seed)
+    hq, hkv, d = 28, 4, 128
+    if WIDTH:
+        hq, hkv, d = WIDTH["n_heads"], WIDTH["n_kv_heads"], WIDTH["head_dim"]
+    bh, rep = B * hq, hq // hkv
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int8)
+
+    lm = 0.004 + 0.026 * torch.rand(bh, generator=g, device=DEV)
+    om = 0.5 + 1.5 * torch.rand(bh, generator=g, device=DEV)
+    kv = torch.tensor([PROMPT, 300, 129, 40], device=DEV,
+                      dtype=torch.int32)[:B].repeat_interleave(hq)
+    short = torch.tensor([200, 150, 97, 1], device=DEV,
+                         dtype=torch.int32)[:B].repeat_interleave(hq)
+    inputs = {
+        "prefill 512": ((i8(bh, PROMPT, d), i8(B * hkv, PROMPT, d),
+                         i8(B * hkv, PROMPT, d), lm, om, PROMPT),
+                        dict(causal=True)),
+        "window 300": ((i8(bh, 256, d), i8(B * hkv, PROMPT, d),
+                        i8(B * hkv, PROMPT, d), lm, om, PROMPT),
+                       dict(q_offset=PROMPT - 256, causal=True, window=300)),
+        "kv_len tail": ((i8(bh, 64, d), i8(B * hkv, PROMPT, d),
+                         i8(B * hkv, PROMPT, d), lm, om, kv),
+                        dict(q_offset=torch.clamp(kv - 64, min=0),
+                             causal=True)),
+        "Skv 200 padded to 256": ((i8(bh, 200, d), i8(B * hkv, 256, d),
+                                   i8(B * hkv, 256, d), lm, om, short),
+                                  dict(causal=True)),
+    }
+    cases = []
+    for label, (args, kw) in inputs.items():
+        for adaptive in (False, True):
+            cases.append((args, dict(kw, adaptive=adaptive, kv_rep=rep,
+                                     block_kv=128),
+                          f"twopass {label} adaptive={adaptive}"))
+    return cases
+
+
+def check_twopass(checks, args, kw, label):
+    """Both twopass kernels against their plain versions: out and A through
+    the wrapper, then each pass alone on the plain version's inputs (pass
+    1's statistics too)."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    qk, av = TWOPASS
+    out, a = K.ita_attention_twopass(*args, **kw)
+    want_out, want_a = K.twopass_plain(*args, **kw)
+    checks.compare(qk, a, want_a, label + " (A)")
+    checks.compare(av, out, want_out, label + " (out)")
+    q, k, v, lm, om, kv_len = args
+    pass_kw = {n: x for n, x in kw.items() if n not in ("adaptive",
+                                                        "block_q")}
+    launch, got = K.twopass_qk_launcher(q, k, lm, kv_len,
+                                        adaptive=kw["adaptive"], **pass_kw)
+    launch()
+    want = K.twopass_qk_plain(q, k, lm, kv_len, adaptive=kw["adaptive"],
+                              **pass_kw)
+    for g_, w_, what in zip(got, want, ("A", "row max", "Σ_inv", "e_r"),
+                            strict=True):
+        checks.compare(qk, g_, w_, f"{label} pass 1 alone ({what})")
+    launch, got = K.twopass_av_launcher(*want, v, om, kv_len, **pass_kw)
+    launch()
+    checks.compare(av, got, K.twopass_av_plain(*want, v, om, kv_len,
+                                               **pass_kw),
+                   label + " pass 2 alone")
+
+
+def check_twopass_oneshot(checks):
+    """A single-tile twopass call (MHA, scalar multipliers, 128 queries
+    and keys) equals the one-shot paper-EN oracle ``ita_attention_ref``."""
+    import torch
+
+    from repro_torch.kernels.ita_attention import kernel as K
+    from repro_torch.kernels.ita_attention.ref import ita_attention_ref
+    g = torch.Generator(device=DEV).manual_seed(3)
+    bh, s, d = B * 28, 128, 128
+    q, k, v = (torch.randint(-128, 128, (bh, s, d), generator=g, device=DEV,
+                             dtype=torch.int8) for _ in range(3))
+    lm = torch.tensor(0.011, device=DEV)
+    om = torch.tensor(1.7, device=DEV)
+    for adaptive in (False, True):
+        out, a = K.ita_attention_twopass(q, k, v, lm, om, s, causal=True,
+                                         adaptive=adaptive, block_kv=s)
+        ref_out, ref_a = ita_attention_ref(q, k, v, lm, om, s, causal=True,
+                                           adaptive=adaptive)
+        label = f"twopass single tile vs ita_attention_ref adaptive={adaptive}"
+        checks.compare(TWOPASS[0], a, ref_a, label + " (A)")
+        checks.compare(TWOPASS[1], out, ref_out, label + " (out)")
+
+
 def plain_of(name):
     from repro_torch.kernels.ita_attention import kernel as K
     return K.paged_attention_plain if name in PAGED else K.attention_plain
@@ -255,6 +397,9 @@ def check_kernels(checks):
             q, K.gather_pages(k, table), K.gather_pages(v, table),
             *args[4:], block_kv=k.shape[1], **kw)
         checks.compare(name, got, ring, label + " vs the ring kernel")
+    for args, kw, label in twopass_cases():
+        check_twopass(checks, args, kw, label)
+    check_twopass_oneshot(checks)
     log(f"[kernels] bit-exact vs plain at qwen2-7b shapes: {checks.n}")
 
 
@@ -332,10 +477,12 @@ class Recorder:
             import torch
 
             def clone(x):
+                if isinstance(x, tuple):
+                    return tuple(clone(y) for y in x)
                 return x.clone() if torch.is_tensor(x) else x
             self.kept[self.calls] = ([clone(a) for a in args],
                                      {k: clone(x) for k, x in kw.items()},
-                                     out.clone())
+                                     clone(out))
         self.calls += 1
         return out
 
@@ -343,9 +490,6 @@ class Recorder:
 def run_generate(model, cfg, prompts, *, record=None, keep=()):
     """One ``generate()`` with the launch counters zeroed just before and
     read just after; ``record`` names the ops wrapper to record."""
-    import torch
-
-    from repro_torch.kernels.ita_attention import kernel as K
     from repro_torch.kernels.ita_attention import ops
     from repro_torch.runtime.generate import generate
     rec = None
@@ -353,10 +497,9 @@ def run_generate(model, cfg, prompts, *, record=None, keep=()):
         rec = Recorder(getattr(ops, record), keep)
         setattr(ops, record, rec)
     try:
-        K.reset_launches()
+        reset_launches()
         res = generate(model, cfg, prompts, GEN, device=DEV)
-        torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        launches = read_launches()
     finally:
         if rec is not None:
             setattr(ops, record, rec.fn)
@@ -371,7 +514,7 @@ def smoke_width_reference():
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_model
-    for backend in ("", "ita_onepass_pallas"):
+    for backend in ("", "ita_onepass_pallas", "ita_twopass_pallas"):
         cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita",
                          attention_backend=backend)
         tokens = torch.randint(0, cfg.vocab_size, (2, 20),
@@ -465,6 +608,32 @@ def full_width(model, cfg, checks):
         f"(b) {res_b.tokens[0, :8].tolist()}; (a) and (b) agree on "
         f"{(res_a.tokens == res_b.tokens).float().mean().item():.3f} of "
         f"tokens")
+    # (c) the paper's dataflow: twopass prefill with the paper DI, then
+    # the ring decode kernel (twopass serves prefill only)
+    cfg_c = dataclasses.replace(cfg, attention_backend="ita_twopass_pallas",
+                                softmax_impl="ita_paper")
+    res_c, lc, rec_two = run_generate(model, cfg_c, prompts,
+                                      record="ita_attention_twopass",
+                                      keep=(0, n_layers - 1))
+    want_c = dict.fromkeys(SOURCES, 0)
+    want_c.update({TWOPASS[0]: n_layers, TWOPASS[1]: n_layers,
+                   "ita_attention_decode": n_layers * (GEN - 1)})
+    if lc != want_c:
+        raise AssertionError(f"twopass-pinned launches {lc} != {want_c}")
+    res_c2, lc2, _ = run_generate(model, cfg_c, prompts)
+    if lc2 != want_c or not torch.equal(res_c.tokens, res_c2.tokens):
+        raise AssertionError("a second twopass-pinned run gave other tokens "
+                             "or launches")
+    tok = res_c.tokens
+    if tok.shape != (B, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+        raise AssertionError(f"bad tokens {tuple(tok.shape)}")
+    log(f"[generate] (c) twopass-pinned, paper DI: launches {lc}; prefill "
+        f"{res_c2.prefill_s:.3f} s, decode {res_c2.decode_tok_s:.1f} tok/s "
+        f"(first call: prefill {res_c.prefill_s:.3f} s); tokens "
+        f"{tok[0, :8].tolist()}; agree with (b) on "
+        f"{(tok == res_b.tokens).float().mean().item():.3f} of tokens "
+        f"(information: twopass/paper and onepass/adaptive are different "
+        f"exactness families)")
 
     from repro_torch.kernels.ita_attention import kernel as K
     captured = {}
@@ -474,15 +643,66 @@ def full_width(model, cfg, checks):
             checks.compare(name, out, K.attention_plain(*args, **kw),
                            f"main path {what}, layer {idx}")
         captured[name] = rec.kept[0]
+    for idx, (args, kw, (out, a)) in sorted(rec_two.kept.items()):
+        want_out, want_a = K.twopass_plain(*args, **kw)
+        checks.compare(TWOPASS[0], a, want_a,
+                       f"main path (c) prefill, layer {idx} (A)")
+        checks.compare(TWOPASS[1], out, want_out,
+                       f"main path (c) prefill, layer {idx} (out)")
+    captured["twopass"] = rec_two.kept[0]
     log(f"[generate] main-path inputs of layers 0 and {n_layers - 1} "
-        f"bit-exact vs plain")
+        f"bit-exact vs plain (runs (a), (b), (c))")
     profile_generate(model, cfg, prompts)
     return {"prefill_s": res_a2.prefill_s, "decode_tok_s":
             res_a2.decode_tok_s, "pinned_prefill_s": res_b.prefill_s,
             "pinned_decode_tok_s": res_b.decode_tok_s,
+            "twopass_prefill_s": res_c2.prefill_s,
+            "twopass_decode_tok_s": res_c2.decode_tok_s,
             "launches": {"ita_attention_decode": la["ita_attention_decode"],
                          "ita_attention_onepass":
-                             lb["ita_attention_onepass"]}}, captured
+                             lb["ita_attention_onepass"],
+                         TWOPASS[0]: lc[TWOPASS[0]],
+                         TWOPASS[1]: lc[TWOPASS[1]]}}, captured
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the standalone softmax on the full-width attention matrix
+# ---------------------------------------------------------------------------
+
+def full_width_softmax(a, checks):
+    """B6 through its entry point (``ops.ita_softmax``) on layer 0's A of
+    run (c): BH·Sq rows of Skv int8 logits, the causal mask as int8,
+    ``block_c`` 128, paper and adaptive DI. The launch counters are zeroed
+    just before and read just after; each output is held to the plain
+    version and must be finite probabilities (rows sum to at most 1)."""
+    import torch
+
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    from repro_torch.kernels.ita_softmax.ops import ita_softmax
+    bh, sq, skv = a.shape
+    x = a.reshape(bh * sq, skv)
+    mask = torch.ones(sq, skv, dtype=torch.int8, device=DEV).tril() \
+        .repeat(bh, 1)
+    reset_launches()
+    outs = {ad: ita_softmax(x, mask, block_c=128, adaptive=ad)
+            for ad in (False, True)}
+    launches = read_launches()
+    want = dict.fromkeys(SOURCES, 0)
+    want["ita_softmax"] = 2
+    if launches != want:
+        raise AssertionError(f"softmax launches {launches} != {want}")
+    for ad, out in outs.items():
+        checks.compare("ita_softmax", out,
+                       SK.softmax_plain(x, mask, block_c=128, adaptive=ad),
+                       f"layer 0 A of (c), {tuple(x.shape)}, adaptive={ad}")
+        rows = out.double().sum(-1)
+        if out.shape != x.shape or not torch.isfinite(out).all() \
+                or rows.max() > 1.0 or (out * (mask == 0)).any():
+            raise AssertionError(f"softmax adaptive={ad}: not probabilities")
+    log(f"[softmax] B6 on layer 0's A ({tuple(x.shape)} int8, causal mask, "
+        f"block_c 128): launches {launches['ita_softmax']}, bit-exact vs "
+        f"plain, paper and adaptive")
+    return (x, mask), launches["ita_softmax"]
 
 
 # ---------------------------------------------------------------------------
@@ -528,14 +748,13 @@ def full_width_serve(model, cfg, checks):
     for name, rec in recs.items():
         setattr(ops, name, rec)
     try:
-        K.reset_launches()
+        reset_launches()
         res = serve_continuous(
             model, cfg, reqs, slots=SERVE["slots"],
             segment=SERVE["segment"], page_size=SERVE["page_size"],
             num_pages=SERVE["num_pages"], chunk_size=SERVE["chunk_size"],
             debug_invariants=True, device=DEV)
-        torch.cuda.synchronize()
-        launches = dict(K.LAUNCHES)
+        launches = read_launches()
     finally:
         for name, rec in recs.items():
             setattr(ops, name, rec.fn)
@@ -611,24 +830,23 @@ def median_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(name, args, kw):
-    """The least time for the call's work on this card: each input read
-    once (only the K/V prefix the rows' masks can reach; for a paged
-    call also its page table), the output written once, against the
-    integer ops of the visible (query, key) pairs (Q·Kᵀ and u·V: 4 ops
-    per pair and head-dim element)."""
+def roofline(nbytes, ops):
+    """The least time for ``nbytes`` moved and ``ops`` integer operations
+    on this card: ``(ms, "bytes" or "operations")``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def visible_work(args, kw):
+    """``(pairs, kv_tokens, meta)`` of a ring call: the visible (query,
+    key) pairs and the K/V tokens the rows' masks reach (per kv row, the
+    largest visible key + 1)."""
     import torch
 
     from repro_torch.kernels.common import tile_mask
     from repro_torch.kernels.ita_attention import kernel as K
-    table_bytes = 0
-    if name in PAGED:          # the same work as the ring of its pages
-        q, k, v, table = args[:4]
-        table_bytes = table.numel() * 4
-        args = (q, K.gather_pages(k, table), K.gather_pages(v, table)) \
-            + tuple(args[4:])
-    q, k, v = args[:3]
-    bh, sq, d = q.shape
+    q, k = args[:2]
+    bh, sq, _ = q.shape
     _, _, meta = K.row_operands(*args[:6], kw.get("q_offset", 0),
                                 kw.get("q_len"), kw.get("kv_rep", 1),
                                 kw.get("hq"))
@@ -637,17 +855,52 @@ def bound_ms(name, args, kw):
     valid = tile_mask(0, 0, sq, skv, kw.get("causal", True),
                       kw.get("window", 0), kv_len=col[0], q_offset=col[1],
                       q_len=col[2], device=q.device)
-    pairs = int(valid.sum().item())
-    # K/V rows reached: per kv row, the largest visible key + 1
     reach = torch.where(valid.any(1), torch.arange(skv, device=q.device),
                         -1).amax(1) + 1                      # (bh,)
     rep = kw.get("kv_rep", 1)
     kv_tokens = int(reach.view(-1, rep).amax(1).sum().item())
+    return int(valid.sum().item()), kv_tokens, meta
+
+
+def bound_ms(name, args, kw):
+    """The least time for a ring or paged call's work on this card: each
+    input read once (only the K/V prefix the rows' masks can reach; for a
+    paged call also its page table), the output written once, against the
+    integer ops of the visible (query, key) pairs (Q·Kᵀ and u·V: 4 ops
+    per pair and head-dim element)."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    table_bytes = 0
+    if name in PAGED:          # the same work as the ring of its pages
+        q, k, v, table = args[:4]
+        table_bytes = table.numel() * 4
+        args = (q, K.gather_pages(k, table), K.gather_pages(v, table)) \
+            + tuple(args[4:])
+    q = args[0]
+    bh, _, d = q.shape
+    pairs, kv_tokens, meta = visible_work(args, kw)
     nbytes = q.numel() * 2 + 2 * kv_tokens * d + meta.numel() * 4 + bh * 8 \
         + table_bytes
-    ops = 4 * pairs * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return roofline(nbytes, 4 * pairs * d)
+
+
+def twopass_bounds(args, kw):
+    """Least times of the two passes of a twopass call. Pass 1 reads Q and
+    all of K (A holds the logit of every pair, masked ones included), the
+    multipliers and meta, and writes A and three int32 statistics per
+    query row; its ops are Q·Kᵀ at every pair (2 per head-dim element).
+    Pass 2 reads A, the statistics, the V prefix the masks reach, the
+    multipliers and meta, and writes out; its ops are p·V at the visible
+    pairs (2 per pair and head-dim element)."""
+    q, k = args[:2]
+    bh, sq, d = q.shape
+    skv = k.shape[1]
+    pairs, kv_tokens, meta = visible_work(args, kw)
+    a_bytes, stats, small = bh * sq * skv, 3 * bh * sq * 4, \
+        meta.numel() * 4 + bh * 4
+    return (roofline(q.numel() + k.numel() + a_bytes + stats + small,
+                     2 * bh * sq * skv * d),
+            roofline(a_bytes + stats + kv_tokens * d + small + bh * sq * d,
+                     2 * pairs * d))
 
 
 def profile_run(label, fn):
@@ -696,14 +949,12 @@ def profile_serve(model, cfg, reqs):
         f"{res.segments} segments, {res.total_tokens} tokens")
 
 
-def kernel_ms(name, args, kw, reps=30, inner=10):
+def kernel_ms(bind, reps=30, inner=10):
     """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    launches of the bound kernel (CUDA events): the kernel alone, without
-    its wrapper's host work, which is longer than a decode call."""
+    launches of a bound kernel (CUDA events): the kernel alone, without
+    its wrapper's host work. ``bind()`` returns ``(launch, out)``."""
     import torch
-
-    from repro_torch.kernels.ita_attention import kernel as K
-    launch, _ = K.kernel_launcher(name, *args, **kw)
+    launch, _ = bind()
     for _ in range(3):
         launch()
     times = []
@@ -719,26 +970,77 @@ def kernel_ms(name, args, kw, reps=30, inner=10):
     return statistics.median(times)
 
 
-def time_kernels(captured, launches, checks):
+def timing_entries(captured, softmax_inputs):
+    """``(name, shape, bind, call, plain, (bound_ms, bound_by))`` of every
+    kernel on the main path's inputs: the ring kernels on layer 0 of
+    ``generate()``, the paged ones on layer 0 of the serve, the twopass
+    passes on layer 0 of run (c), the softmax on that call's A."""
     from repro_torch.kernels.ita_attention import kernel as K
-    rows = []
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    from repro_torch.kernels.ita_softmax.ops import ita_softmax
+    entries = []
     for name, (args, kw, _) in captured.items():
+        if name == "twopass":
+            continue
         fn, plain_fn = getattr(K, name), plain_of(name)
-        ms = kernel_ms(name, args, kw)
-        call = median_ms(lambda fn=fn: fn(*args, **kw))
-        plain = median_ms(lambda: plain_fn(*args, **kw), reps=10)
-        bms, by = bound_ms(name, args, kw)
+        entries.append((
+            name, f"q{tuple(args[0].shape)} k{tuple(args[1].shape)}",
+            lambda name=name, args=args, kw=kw: K.kernel_launcher(
+                name, *args, **kw),
+            lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
+            lambda f=plain_fn, args=args, kw=kw: f(*args, **kw),
+            bound_ms(name, args, kw)))
+    args, kw, _ = captured["twopass"]
+    q, k, v, lm, om, kv_len = args
+    pass_kw = {n: x for n, x in kw.items() if n not in ("adaptive",
+                                                        "block_q")}
+    stats = K.twopass_qk_plain(q, k, lm, kv_len, adaptive=kw["adaptive"],
+                               **pass_kw)
+    b_qk, b_av = twopass_bounds(args, kw)
+    whole = (lambda: K.ita_attention_twopass(*args, **kw))
+    entries += [
+        (TWOPASS[0], f"q{tuple(q.shape)} k{tuple(k.shape)}",
+         lambda: K.twopass_qk_launcher(q, k, lm, kv_len,
+                                       adaptive=kw["adaptive"], **pass_kw),
+         whole,
+         lambda: K.twopass_qk_plain(q, k, lm, kv_len,
+                                    adaptive=kw["adaptive"], **pass_kw),
+         b_qk),
+        (TWOPASS[1], f"a{tuple(stats[0].shape)} v{tuple(v.shape)}",
+         lambda: K.twopass_av_launcher(*stats, v, om, kv_len, **pass_kw),
+         whole,
+         lambda: K.twopass_av_plain(*stats, v, om, kv_len, **pass_kw),
+         b_av)]
+    x, mask = softmax_inputs
+    entries.append((
+        "ita_softmax", f"x{tuple(x.shape)} block_c 128 paper",
+        lambda: SK.kernel_launcher(x, mask, block_c=128),
+        lambda: ita_softmax(x, mask, block_c=128),
+        lambda: SK.softmax_plain(x, mask, block_c=128),
+        # x and mask read once, f32 out written once; ~10 integer ops per
+        # element (DA and EN)
+        roofline(x.numel() * 2 + x.numel() * 4, 10 * x.numel())))
+    return entries
+
+
+def time_kernels(captured, softmax_inputs, launches, checks):
+    rows = []
+    for name, shape, bind, call_fn, plain_fn, (bms, by) in timing_entries(
+            captured, softmax_inputs):
+        ms = kernel_ms(bind)
+        call = median_ms(call_fn)
+        plain = median_ms(plain_fn, reps=10)
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": checks.max_err[name], "ms": ms,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                      "library_ms": None})
-        log(f"[timing] {name} at main-path shape q{tuple(args[0].shape)} "
-            f"k{tuple(args[1].shape)}: kernel {ms:.4f} ms (wrapper call "
-            f"{call:.4f} ms), plain {plain:.4f} ms, bound "
-            f"{bms:.5f} ms ({by}); library call: none (no PyTorch call "
-            f"computes ITA's integer attention)")
+        whose = "both passes" if name in TWOPASS else "one call"
+        log(f"[timing] {name} at main-path shape {shape}: kernel {ms:.4f} "
+            f"ms (wrapper call, {whose}: {call:.4f} ms), plain {plain:.4f} "
+            f"ms, bound {bms:.5f} ms ({by}); library call: none (no "
+            f"PyTorch call computes ITA's integer attention or softmax)")
     return rows
 
 
@@ -769,16 +1071,22 @@ def main():
     smoke_width_reference()
     model, cfg = full_width_model()
     metrics, captured = full_width(model, cfg, checks)
+    softmax_inputs, softmax_launches = full_width_softmax(
+        captured["twopass"][2][1], checks)
     served, serve_launches, serve_captured = full_width_serve(model, cfg,
                                                               checks)
     captured.update(serve_captured)
-    # ring kernels: the generate() runs; paged kernels: the serve
-    rows = time_kernels(captured, {**serve_launches, **metrics["launches"]},
-                        checks)
+    # ring and twopass kernels: the generate() runs; paged kernels: the
+    # serve; the softmax: its run on run (c)'s A
+    rows = time_kernels(captured, softmax_inputs,
+                        {**serve_launches, **metrics["launches"],
+                         "ita_softmax": softmax_launches}, checks)
     log(f"[result] prefill {metrics['prefill_s']:.4f} s, decode "
         f"{metrics['decode_tok_s']:.1f} tok/s (unpinned); pinned onepass "
         f"prefill {metrics['pinned_prefill_s']:.4f} s, decode "
-        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; serve "
+        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; pinned twopass (paper "
+        f"DI) prefill {metrics['twopass_prefill_s']:.4f} s, decode "
+        f"{metrics['twopass_decode_tok_s']:.1f} tok/s; serve "
         f"{served['tok_s']:.2f} tok/s sustained, TTFT p50 "
         f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
         f"{served['wall_s']:.3f} s; {card}")

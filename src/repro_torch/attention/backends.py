@@ -1,7 +1,7 @@
 """The registered attention backends of this slice of the port
 (``repro.attention.backends``).
 
-Three implementations of the ITA pipeline (Q·Kᵀ → shift-only softmax →
+Four implementations of the ITA pipeline (Q·Kᵀ → shift-only softmax →
 A·V), registered under the JAX package's names, in its priority order and
 with its ``supports(spec)`` verdicts:
 
@@ -11,6 +11,8 @@ with its ``supports(spec)`` verdicts:
   unpinned integer prefill; the S×S matrix never materializes).
 - ``ita_onepass_pallas`` — the fused flash-style kernel, bit-identical to
   ``ita_decode_pallas`` row for row at equal block_kv.
+- ``ita_twopass_pallas`` — the paper's two-pass dataflow (the int8 A
+  matrix written once and read once), prefill only.
 
 The names are config keys (``cfg.attention_backend``): ``_pallas`` names
 the JAX counterpart of a backend, whose kernel here is the Hopper kernel
@@ -148,6 +150,22 @@ def _onepass_supports(spec: AttentionSpec):
     return True
 
 
+def _twopass_supports(spec: AttentionSpec):
+    ok = _fused_common_supports(spec)
+    if ok is not True:
+        return ok
+    if spec.ragged_q:
+        return ("the materialized A matrix assumes uniform query rows; "
+                "ragged q_len rides the onepass kernels")
+    if spec.layout == "bhsd_paged":
+        return ("materializes/re-streams a contiguous A matrix; the paged "
+                "KV pool serves the onepass/decode kernels")
+    if spec.mode != "prefill":
+        return ("paper-faithful analysis path — materializes the A matrix "
+                "in HBM; decode rides the fused decode/onepass kernels")
+    return True
+
+
 def _decode_supports(spec: AttentionSpec):
     ok = _fused_common_supports(spec)
     if ok is not True:
@@ -176,6 +194,11 @@ def _fused_run(kind, q, k, v, spec, scales, q_offset, kv_len, opts):
         kv_axis = 1 if spec.layout == "bhsd" else 2
         k8 = _quantize(k, scales.s_k, kv_axis)
         v8 = _quantize(v, scales.s_v, kv_axis)
+    if kv_native and kind == "twopass":
+        # twopass consumes kernel-layout KV: one transpose (decode and
+        # onepass read the (B,S,G,hd) buffers in place)
+        k8, v8 = k8.transpose(1, 2), v8.transpose(1, 2)
+        kv_native = False
     dbq, dbkv = default_blocks(f"ita_{kind}_pallas")
     out = fused_attention(
         q8, k8, v8, scales.s_q, scales.s_k, scales.s_v, scales.s_out,
@@ -194,6 +217,11 @@ def _fused_run(kind, q, k, v, spec, scales, q_offset, kv_len, opts):
 
 def _onepass_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
     return _fused_run("onepass", q, k, v, spec, scales, q_offset, kv_len,
+                      opts)
+
+
+def _twopass_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
+    return _fused_run("twopass", q, k, v, spec, scales, q_offset, kv_len,
                       opts)
 
 
@@ -221,3 +249,8 @@ register_backend(Backend(
     supports=_onepass_supports, run=_onepass_run,
     description="fused flash-style kernel; bit-identical to "
                 "ita_decode_pallas at equal block_kv"))
+register_backend(Backend(
+    name="ita_twopass_pallas", family="ita_twopass",
+    supports=_twopass_supports, run=_twopass_run,
+    description="paper-faithful two-pass dataflow (A matrix in device "
+                "memory)"))

@@ -25,13 +25,10 @@ from repro_torch.attention.spec import AttentionSpec
 SupportsFn = Callable[[AttentionSpec], bool | str]
 
 # JAX-package backends still to be ported, and where they come in.
-UNPORTED = {
-    "ita_twopass_pallas": "kernel B5 (ROADMAP queue B)",
-    "ita_direct_xla": "the dispatch backends after core/softmax.py "
-                      "(ROADMAP A4)",
-    "ibert_xla": "the dispatch backends after core/softmax.py (ROADMAP A4)",
-    "float_xla": "the dispatch backends after core/softmax.py (ROADMAP A4)",
-}
+_BACKENDS_SLICE = ("the dispatch backends with the baseline softmaxes of "
+                   "core/softmax.py (ROADMAP A4)")
+UNPORTED = {name: _BACKENDS_SLICE
+            for name in ("ita_direct_xla", "ibert_xla", "float_xla")}
 
 
 class BackendUnsupported(ValueError):

@@ -1,13 +1,15 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/*.cu`` source compiles into its own shared library with a
-plain C interface (no PyTorch headers, so a build takes seconds):
+Each ``csrc/*.cu`` source (under ``ita_attention/`` and ``ita_softmax/``)
+compiles into its own shared library with a plain C interface (no
+PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so
 
 at first use, all sources at once in parallel processes. The file name
-carries a hash of the sources and flags, so an edited source rebuilds and
+carries a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and
 a built library is reused. The build directory is ``build/
 repro_torch_kernels/`` under the checkout (listed in ``.gitignore``).
 """
@@ -27,11 +29,16 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+_ATT = _PKG / "ita_attention" / "csrc"
 # library name -> source
 SOURCES = {
-    "ita_onepass": _PKG / "ita_attention" / "csrc" / "onepass.cu",
-    "ita_decode": _PKG / "ita_attention" / "csrc" / "decode.cu",
+    "ita_onepass": _ATT / "onepass.cu",
+    "ita_decode": _ATT / "decode.cu",
+    "ita_twopass": _ATT / "twopass.cu",
+    "ita_softmax": _PKG / "ita_softmax" / "csrc" / "softmax.cu",
 }
+# headers every source may include (ita_common.cuh's device helpers)
+HEADERS = tuple(sorted(_ATT.glob("*.cuh")))
 # Ring launchers: q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv,
 # kv_4d, kv_rep, hq, g, causal, window, adaptive; stream.
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
@@ -41,12 +48,26 @@ LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
 # stream.
 PAGED_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
     + [ctypes.c_void_p]
+# Twopass pass 1: q, k, lmult, meta, a, row_max, inv, e_r; bh, sq, skv, d,
+# bkv, kv_rep, causal, window, adaptive; stream.
+TWOPASS_QK_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+    + [ctypes.c_void_p]
+# Twopass pass 2: a, row_max, inv, e_r, v, omult, meta, out; bh, sq, skv,
+# d, bkv, kv_rep, causal, window; stream.
+TWOPASS_AV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+    + [ctypes.c_void_p]
+# Softmax: x, mask, out; r, c, bc, adaptive; stream.
+SOFTMAX_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 # exported launcher -> (library, argtypes)
 FUNCTIONS = {
     "ita_onepass_launch": ("ita_onepass", LAUNCH_ARGTYPES),
     "ita_onepass_paged_launch": ("ita_onepass", PAGED_LAUNCH_ARGTYPES),
     "ita_decode_launch": ("ita_decode", LAUNCH_ARGTYPES),
     "ita_decode_paged_launch": ("ita_decode", PAGED_LAUNCH_ARGTYPES),
+    "ita_twopass_qk_launch": ("ita_twopass", TWOPASS_QK_ARGTYPES),
+    "ita_twopass_av_launch": ("ita_twopass", TWOPASS_AV_ARGTYPES),
+    "ita_softmax_launch": ("ita_softmax", SOFTMAX_ARGTYPES),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -64,11 +85,9 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in sorted(src.parent.glob("*.cu*")):
-        if f.suffix == ".cuh" or f == src:
-            h.update(f.read_bytes())
+    for f in (*HEADERS, SOURCES[name]):
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

@@ -14,8 +14,9 @@ Integer hazards the port handles explicitly:
   here is applied to a value that is non-negative where it is used
   (``da_update`` computes ``new_max - logits`` on masked lanes too, where
   it can be negative, and masks the shift amount afterwards).
-- torch has no count-leading-zeros: ``floor_log2`` finds ``floor(log2
-  x)`` with integer compares (float32 would round 2^24 < x up).
+- torch has no count-leading-zeros: ``floor_log2`` (``core/softmax.py``)
+  finds ``floor(log2 x)`` with integer compares (float32 would round
+  2^24 < x up).
 """
 
 from __future__ import annotations
@@ -25,6 +26,9 @@ import numbers
 import torch
 
 from repro_torch.core.quant import SOFTMAX_SHIFT
+from repro_torch.core.softmax import adaptive_sigma_inv
+# re-exported: the kernels' plain versions and the chunked prefill use them
+from repro_torch.core.softmax import floor_log2, pow2_neg  # noqa: F401
 
 # --- Declared integer bounds of the ITA softmax pipeline -------------------
 # NEG_SENTINEL: the masked-logit fill, below any requantized int8 logit;
@@ -110,38 +114,18 @@ def da_update(m: torch.Tensor, sigma: torch.Tensor, logits: torch.Tensor,
     return u, delta, new_m, new_sigma
 
 
-def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """Exact ``floor(log2 x)`` of a positive int32 tensor (``31 - clz``)."""
-    e = torch.zeros_like(x)
-    for s in (16, 8, 4, 2, 1):
-        hit = x >= (1 << s)
-        e = torch.where(hit, e + s, e)
-        x = torch.where(hit, x >> s, x)
-    return e
-
-
 def adaptive_inverse(sigma: torch.Tensor):
     """DI with per-row power-of-two scaling: ``(sigma_inv, e_r)`` with
     ``sigma_inv ~= 2^(e_r+8) / sigma`` in (128, 256], ``e_r = floor(log2
-    sigma)``; the clip is an identity on every reachable value."""
-    sigma = torch.clamp(sigma, min=1)
-    e_r = floor_log2(sigma)
-    pre = torch.clamp(e_r + 8 - 30, min=0)
-    num = torch.ones_like(sigma) << torch.clamp(e_r + 8 - pre, max=30)
-    sigma_inv = torch.div(num, sigma >> pre, rounding_mode="floor")
-    return torch.clamp(sigma_inv, 0, SIGMA_INV_MAX), e_r
+    sigma)``; the clip to ``SIGMA_INV_MAX`` is an identity on every
+    reachable value."""
+    return adaptive_sigma_inv(torch.clamp(sigma, min=1))
 
 
 def paper_inverse(sigma: torch.Tensor) -> torch.Tensor:
     """DI as in silicon: ``PAPER_INV_MAX // sigma`` (16-bit)."""
     return torch.div(torch.full_like(sigma, PAPER_INV_MAX),
                      torch.clamp(sigma, min=1), rounding_mode="floor")
-
-
-def pow2_neg(n: torch.Tensor) -> torch.Tensor:
-    """Exact float32 ``2^-n`` of an int32 tensor with ``0 <= n <= 126``,
-    built from its exponent bits (never an approximate ``exp2``)."""
-    return ((127 - n.to(torch.int32)) << 23).view(torch.float32)
 
 
 def device_tensor(x, dtype, device) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Fused ITA attention kernels for Hopper and their plain versions.
 
-``ita_attention_onepass``, ``ita_attention_decode`` and their paged
-variants ``ita_attention_onepass_paged`` and ``ita_attention_decode_paged``
-are the port's counterparts of the Pallas entry points of the same names
-(``repro/kernels/ita_attention/kernel.py:265-315, 388-448, 461-564``;
-their bodies ``onepass_kernel`` and ``decode_kernel``). The ring entries
-take the same operands:
+``ita_attention_onepass``, ``ita_attention_decode``, their paged
+variants ``ita_attention_onepass_paged`` and ``ita_attention_decode_paged``,
+and ``ita_attention_twopass`` are the port's counterparts of the Pallas
+entry points of the same names (``repro/kernels/ita_attention/
+kernel.py:265-564``; their bodies ``onepass_kernel``, ``decode_kernel``,
+``qk_da_kernel`` and ``av_en_kernel``). The ring entries take the same
+operands:
 
 - ``q`` (BH, Sq, D) int8 (decode: Sq <= 8);
 - ``k``/``v`` int8 in the kernel layout (BH/kv_rep, Skv, D) — GQA: q row
@@ -28,8 +29,16 @@ On a CPU tensor a wrapper computes its plain PyTorch version
 ``ref.stream_rows``, on any device — ``chip_smoke.py`` holds the kernels
 to it on the card). On a CUDA tensor it launches its kernel
 (``csrc/onepass.cu``, ``csrc/decode.cu``, one launcher each for rings
-and pools) or raises — there is no fallback — checks the launch status,
-and adds one to ``LAUNCHES[name]``.
+and pools; ``csrc/twopass.cu``) or raises — there is no fallback —
+checks the launch status, and adds one to ``LAUNCHES[name]``.
+
+``ita_attention_twopass`` (the paper's dataflow) takes K/V in the kernel
+layout only and returns ``(out, A)``: pass 1 (``csrc/twopass.cu``,
+counted as ``ita_attention_twopass_qk_da``) writes the int8 attention
+matrix A and the per-row statistics after DA and DI, pass 2
+(``ita_attention_twopass_av_en``) re-reads A for EN and p·V. Each pass
+has its plain version (``twopass_qk_plain``, ``twopass_av_plain``) and
+its binder (``twopass_qk_launcher``, ``twopass_av_launcher``).
 
 The KV tile schedule is part of the arithmetic (the integer Σ shifts
 depend on tile boundaries): ``block_kv`` is the tile, ``skv`` must be a
@@ -43,18 +52,24 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import device_tensor, tile_mask
-from repro_torch.kernels.ita_attention.ref import requant_logits, stream_rows
+from repro_torch.kernels.ita_attention.ref import (requant_logits,
+                                                   stream_rows, twopass_out,
+                                                   twopass_stats)
 
 # Launches of each CUDA kernel since the last reset (plain versions and
 # CPU calls do not count).
 LAUNCHES = {"ita_attention_onepass": 0, "ita_attention_decode": 0,
             "ita_attention_onepass_paged": 0,
-            "ita_attention_decode_paged": 0}
+            "ita_attention_decode_paged": 0,
+            "ita_attention_twopass_qk_da": 0,
+            "ita_attention_twopass_av_en": 0}
 # kernel -> exported launcher (``build.FUNCTIONS``)
 _LAUNCHERS = {"ita_attention_onepass": "ita_onepass_launch",
               "ita_attention_decode": "ita_decode_launch",
               "ita_attention_onepass_paged": "ita_onepass_paged_launch",
-              "ita_attention_decode_paged": "ita_decode_paged_launch"}
+              "ita_attention_decode_paged": "ita_decode_paged_launch",
+              "ita_attention_twopass_qk_da": "ita_twopass_qk_launch",
+              "ita_attention_twopass_av_en": "ita_twopass_av_launch"}
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
 
 MAX_DECODE_Q = 8
@@ -96,6 +111,13 @@ def _kv_rows(x, bh, kv_rep, hq):
     return x[r // kv_rep]
 
 
+def _row_valid(meta, sq, skv, causal, window):
+    """(BH, Sq, Skv) validity of every (query, key) pair of every row."""
+    col = [meta[:, i].view(-1, 1, 1) for i in range(3)]
+    return tile_mask(0, 0, sq, skv, causal, window, kv_len=col[0],
+                     q_offset=col[1], q_len=col[2], device=meta.device)
+
+
 def _plain_rows(q, k, v, lmult, omult, meta, *, causal, window, adaptive,
                 block_kv, kv_rep, hq):
     """The kernels' plain version: per-row logits, masks and values
@@ -103,11 +125,8 @@ def _plain_rows(q, k, v, lmult, omult, meta, *, causal, window, adaptive,
     bh, sq, _ = q.shape
     k_rows = _kv_rows(k, bh, kv_rep, hq)
     v_rows = _kv_rows(v, bh, kv_rep, hq)
-    skv = k_rows.shape[1]
     logits = requant_logits(q, k_rows, lmult.view(bh, 1, 1))
-    col = [meta[:, i].view(bh, 1, 1) for i in range(3)]
-    valid = tile_mask(0, 0, sq, skv, causal, window, kv_len=col[0],
-                      q_offset=col[1], q_len=col[2], device=q.device)
+    valid = _row_valid(meta, sq, k_rows.shape[1], causal, window)
     return stream_rows(logits, valid, v_rows, omult.view(bh, 1, 1),
                        adaptive=adaptive, block_kv=block_kv)
 
@@ -173,6 +192,38 @@ def paged_operands(q_q, k_pool, v_pool, page_table, logit_mult, out_mult,
     return lmult, omult, meta
 
 
+def _bind(name, args, out, keep):
+    """``(launch, out)``: ``launch()`` enqueues kernel ``name`` with the
+    bound ``args`` on the current stream and raises if the launch fails;
+    ``keep`` holds the operand tensors alive while ``launch`` is."""
+    fn = build.launcher(_LAUNCHERS[name])
+
+    def launch():
+        err = fn(*args, torch.cuda.current_stream(keep[0].device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {err}")
+    return launch, out
+
+
+def _check_vectors(name, d, *tensors):
+    """The kernels load D-vectors as 16-byte words."""
+    if d % 16 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 16 "
+                         f"and at most {_MAX_HEAD_DIM}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+
+
+def _require_cuda(name, *tensors):
+    if tensors[0].device.type != "cuda":
+        raise RuntimeError(f"{name}: tensors on {tensors[0].device}; the "
+                           f"kernel runs on CUDA tensors, the plain version "
+                           f"on CPU ones")
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{name}: operands on different devices")
+
+
 def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
                     causal=True, window=0, adaptive=True, block_q=None,
                     block_kv=128, kv_rep=1, hq=None):
@@ -183,9 +234,7 @@ def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
     out_mult, kv_len)``, or for a paged kernel ``(page_table, logit_mult,
     out_mult, kv_len)``. The wrappers launch through it once per call;
     timing code can launch it again without the wrapper's host work."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"{name}: tensors on {q.device}; the kernel runs "
-                           f"on CUDA tensors, the plain version on CPU ones")
+    _require_cuda(name, q)
     bh, sq, d = q.shape
     paged = name in PAGED
     if paged:
@@ -201,21 +250,15 @@ def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
                                            kv_len, q_offset, q_len, block_kv,
                                            kv_rep, hq)
     q, k, v = (t.contiguous() for t in (q, k, v))
-    if d % 16 or d > _MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} must be a multiple of 16 "
-                         f"and at most {_MAX_HEAD_DIM}")
     operands = (k, v, lmult, omult, meta) + ((page_table,) if paged else ())
-    if any(t.device != q.device for t in operands):
-        raise ValueError(f"{name}: operands on different devices")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: q/k/v must be 16-byte aligned")
+    _require_cuda(name, q, *operands)
+    _check_vectors(name, d, q, k, v)
     bq = 16 if name.startswith("ita_attention_onepass") else sq
     smem = (bq + bkv) * (d + 16) + bkv * d + bq * bkv * 4 + bq * 16
     if smem > _MAX_SMEM:
         raise ValueError(f"{name}: block_kv={bkv}, d={d} needs {smem} bytes "
                          f"of shared memory (> {_MAX_SMEM})")
     out = torch.empty_like(q)
-    fn = build.launcher(_LAUNCHERS[name])
     flags = (int(causal), window, int(adaptive))
     if paged:
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -228,14 +271,7 @@ def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
                 omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq,
                 k.shape[1], d, bkv, int(kv_4d), kv_rep, hq or 1,
                 k.shape[2] if kv_4d else 1) + flags
-    keep = (q,) + operands                   # alive while launch() is
-
-    def launch():
-        err = fn(*args, torch.cuda.current_stream(keep[0].device).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
-                               f"error {err}")
-    return launch, out
+    return _bind(name, args, out, (q,) + operands)
 
 
 def _launch(name, *args, **kw):
@@ -366,3 +402,148 @@ def ita_attention_decode_paged(q_q, k_pool, v_pool, page_table, logit_mult,
                                      logit_mult, out_mult, kv_len, **kw)
     return _launch("ita_attention_decode_paged", q_q, k_pool, v_pool,
                    page_table, logit_mult, out_mult, kv_len, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Twopass: the paper's dataflow (A written once, read once)
+# ---------------------------------------------------------------------------
+
+def _twopass_operands(x, kv, kv_len, q_offset, block_kv, kv_rep,
+                      skv=None):
+    """Check a twopass pass's operands and resolve ``(bkv, meta)``: ``x``
+    (BH, Sq, ·) int8 is Q (pass 1) or A with ``skv`` keys (pass 2); ``kv``
+    is K or V, int8 in the kernel layout (BH/kv_rep, Skv, D) with Q's D.
+    Every row's query count is Sq (no ragged q_len)."""
+    bh, sq = x.shape[:2]
+    if x.dtype != torch.int8 or kv.dtype != torch.int8:
+        raise TypeError("q/k/v and A must be int8")
+    if kv.ndim != 3 or kv.shape[0] * kv_rep != bh \
+            or (skv is None and kv.shape[2] != x.shape[2]) \
+            or (skv is not None and kv.shape[1] != skv):
+        raise ValueError(f"twopass operands {tuple(x.shape)} and K/V "
+                         f"{tuple(kv.shape)} do not fit: K/V must be "
+                         f"(BH/kv_rep, Skv, D) with kv_rep = {kv_rep}")
+    skv = kv.shape[1]
+    bkv = min(block_kv, skv)
+    if skv % bkv:
+        raise ValueError(f"Skv={skv} is not a multiple of block_kv={bkv}")
+    return bkv, _row_meta(kv_len, q_offset, sq, bh, kv.device)
+
+
+def twopass_qk_plain(q_q, k_q, logit_mult, kv_len, *, q_offset=0,
+                     causal: bool = True, window: int = 0,
+                     adaptive: bool = False, block_kv: int = 128,
+                     kv_rep: int = 1):
+    """Pass 1's plain version: ``(a, row_max, sigma_inv, e_r)`` — the int8
+    attention matrix (BH, Sq, Skv) at every position and the per-row
+    statistics (BH, Sq) int32 after the DA over KV tiles and the DI."""
+    bkv, meta = _twopass_operands(q_q, k_q, kv_len, q_offset, block_kv,
+                                  kv_rep)
+    bh, sq, _ = q_q.shape
+    lmult, _ = _row_mults(logit_mult, 1.0, bh, q_q.device)
+    logits = requant_logits(q_q, _kv_rows(k_q, bh, kv_rep, None),
+                            lmult.view(bh, 1, 1))
+    valid = _row_valid(meta, sq, k_q.shape[1], causal, window)
+    stats = twopass_stats(logits, valid, adaptive=adaptive, block_kv=bkv)
+    return (logits.to(torch.int8),) + tuple(x.view(bh, sq) for x in stats)
+
+
+def twopass_av_plain(a, row_max, sigma_inv, e_r, v_q, out_mult, kv_len, *,
+                     q_offset=0, causal: bool = True, window: int = 0,
+                     block_kv: int = 128, kv_rep: int = 1):
+    """Pass 2's plain version: EN on ``a`` with pass 1's statistics, p·V
+    and the finalize. Returns (BH, Sq, D) int8."""
+    bh, sq, skv = a.shape
+    bkv, meta = _twopass_operands(a, v_q, kv_len, q_offset, block_kv,
+                                  kv_rep, skv=skv)
+    _, omult = _row_mults(1.0, out_mult, bh, a.device)
+    valid = _row_valid(meta, sq, skv, causal, window)
+    stats = (x.view(bh, sq, 1) for x in (row_max, sigma_inv, e_r))
+    return twopass_out(a.to(torch.int32), valid, *stats,
+                       _kv_rows(v_q, bh, kv_rep, None),
+                       omult.view(bh, 1, 1), block_kv=bkv)
+
+
+def twopass_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
+                  q_offset=0, causal: bool = True, window: int = 0,
+                  adaptive: bool = False, block_q: int | None = None,
+                  block_kv: int = 128, kv_rep: int = 1):
+    """Both passes' plain version, on the tensors' device: ``(out, a)``.
+    Same operands as ``ita_attention_twopass``."""
+    kw = dict(q_offset=q_offset, causal=causal, window=window,
+              block_kv=block_kv, kv_rep=kv_rep)
+    a, *stats = twopass_qk_plain(q_q, k_q, logit_mult, kv_len,
+                                 adaptive=adaptive, **kw)
+    return twopass_av_plain(a, *stats, v_q, out_mult, kv_len, **kw), a
+
+
+def twopass_qk_launcher(q_q, k_q, logit_mult, kv_len, *, q_offset=0,
+                        causal: bool = True, window: int = 0,
+                        adaptive: bool = False, block_kv: int = 128,
+                        kv_rep: int = 1):
+    """Bind pass 1 (B5a): ``(launch, (a, row_max, sigma_inv, e_r))``, the
+    outputs as ``twopass_qk_plain`` returns them."""
+    name = "ita_attention_twopass_qk_da"
+    bkv, meta = _twopass_operands(q_q, k_q, kv_len, q_offset, block_kv,
+                                  kv_rep)
+    bh, sq, d = q_q.shape
+    skv = k_q.shape[1]
+    lmult, _ = _row_mults(logit_mult, 1.0, bh, q_q.device)
+    q_q, k_q = q_q.contiguous(), k_q.contiguous()
+    _require_cuda(name, q_q, k_q, lmult)
+    _check_vectors(name, d, q_q, k_q)
+    a = torch.empty((bh, sq, skv), dtype=torch.int8, device=q_q.device)
+    stats = torch.empty((3, bh, sq), dtype=torch.int32, device=q_q.device)
+    args = (q_q.data_ptr(), k_q.data_ptr(), lmult.data_ptr(),
+            meta.data_ptr(), a.data_ptr(), stats[0].data_ptr(),
+            stats[1].data_ptr(), stats[2].data_ptr(), bh, sq, skv, d, bkv,
+            kv_rep, int(causal), window, int(adaptive))
+    return _bind(name, args, (a, stats[0], stats[1], stats[2]),
+                 (q_q, k_q, lmult, meta))
+
+
+def twopass_av_launcher(a, row_max, sigma_inv, e_r, v_q, out_mult, kv_len,
+                        *, q_offset=0, causal: bool = True, window: int = 0,
+                        block_kv: int = 128, kv_rep: int = 1):
+    """Bind pass 2 (B5b): ``(launch, out)`` with out (BH, Sq, D) int8."""
+    name = "ita_attention_twopass_av_en"
+    bh, sq, skv = a.shape
+    d = v_q.shape[-1]
+    bkv, meta = _twopass_operands(a, v_q, kv_len, q_offset, block_kv,
+                                  kv_rep, skv=skv)
+    stats = [x.to(torch.int32).reshape(bh, sq).contiguous()
+             for x in (row_max, sigma_inv, e_r)]
+    _, omult = _row_mults(1.0, out_mult, bh, a.device)
+    a, v_q = a.contiguous(), v_q.contiguous()
+    _require_cuda(name, a, v_q, omult, *stats)
+    _check_vectors(name, d, v_q)
+    out = torch.empty((bh, sq, d), dtype=torch.int8, device=a.device)
+    args = (a.data_ptr(), *(x.data_ptr() for x in stats), v_q.data_ptr(),
+            omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq, skv,
+            d, bkv, kv_rep, int(causal), window)
+    return _bind(name, args, out, (a, v_q, omult, meta, *stats))
+
+
+def ita_attention_twopass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
+                          q_offset=0, causal: bool, window: int = 0,
+                          adaptive: bool = False, block_q: int = 128,
+                          block_kv: int = 128, kv_rep: int = 1):
+    """Paper-faithful dataflow. q (BH, Sq, D) int8; k/v (BH/kv_rep, Skv,
+    D) int8 in the kernel layout; returns ``(out int8 (BH, Sq, D), a int8
+    (BH, Sq, Skv))`` — A is the materialised attention matrix, written
+    once by pass 1 and read once by pass 2. ``block_q`` is accepted for
+    signature parity: query rows are independent (the kernels tile them
+    by 16, any Sq)."""
+    kw = dict(q_offset=q_offset, causal=causal, window=window,
+              block_kv=block_kv, kv_rep=kv_rep)
+    if q_q.device.type == "cpu":
+        return twopass_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
+                             adaptive=adaptive, **kw)
+    launch, (a, *stats) = twopass_qk_launcher(q_q, k_q, logit_mult, kv_len,
+                                              adaptive=adaptive, **kw)
+    launch()
+    LAUNCHES["ita_attention_twopass_qk_da"] += 1
+    launch, out = twopass_av_launcher(a, *stats, v_q, out_mult, kv_len, **kw)
+    launch()
+    LAUNCHES["ita_attention_twopass_av_en"] += 1
+    return out, a

@@ -13,7 +13,8 @@ per (batch·head) kernel row (rows are batch-major, head-minor).
 Kinds: ``onepass`` (flash-style) and ``decode`` (a single query tile
 against a KV ring, tiles past the valid prefix skipped), each over a
 ring or, with ``page_table=``, over the paged pool (the tile is the
-page). The twopass kernel comes with a later slice of the port.
+page); ``twopass`` (the paper's dataflow, the A matrix in device memory)
+over kernel-layout K/V with uniform query rows.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ from repro_torch.core.quant import EPS_MAX
 from repro_torch.kernels.common import device_tensor
 from repro_torch.kernels.ita_attention.kernel import (
     ita_attention_decode, ita_attention_decode_paged, ita_attention_onepass,
-    ita_attention_onepass_paged)
+    ita_attention_onepass_paged, ita_attention_twopass)
 
-KINDS = ("onepass", "decode")
+KINDS = ("onepass", "twopass", "decode")
 
 
 def _pad_seq(x, mult, hot: bool = False):
@@ -94,18 +95,28 @@ def fused_attention(q_q, k_q, v_q, s_q, s_k, s_v, s_out, *, q_offset=0,
     """Quantized multi-head attention with the ITA integer softmax.
 
     ``q_q``: (B, Hq, Sq, D) int8; ``k_q``/``v_q``: (B, Hkv, Skv, D) int8
-    or, with ``kv_native=True``, cache-native (B, Skv, Hkv, D) rings
-    (read in place by the kernels), or with ``page_table`` (B, n_pages)
-    int32 a shared paged pool (P, page, Hkv, D). GQA: Hkv divides Hq.
+    or, with ``kv_native=True`` (onepass, decode), cache-native (B, Skv,
+    Hkv, D) rings (read in place by the kernels), or with ``page_table``
+    (B, n_pages) int32 (onepass, decode) a shared paged pool (P, page,
+    Hkv, D). ``q_lens`` (onepass, decode) marks each row's valid query
+    count. GQA: Hkv divides Hq.
     ``q_offset`` / ``kv_len`` / ``q_lens`` accept (B,) per-sequence
     vectors (the ragged batch). The KV tile is ``bkv = min(block_kv,
     max(128, Skv))`` for Skv >= 128, else Skv; over a paged pool it is
     the page. Returns (B, Hq, Sq, D) int8 at scale ``s_out``.
     """
     if kind not in KINDS:
-        raise NotImplementedError(
-            f"kind={kind!r}: the port has {KINDS}; the twopass kernel comes "
-            f"with a later slice (ROADMAP B5)")
+        raise ValueError(f"kind={kind!r} is not one of {KINDS}")
+    if kind == "twopass":
+        if kv_native:
+            raise ValueError("cache-native KV layout serves the "
+                             "onepass/decode kernels only")
+        if page_table is not None:
+            raise ValueError("the paged pool serves the onepass/decode "
+                             "kernels only")
+        if q_lens is not None:
+            raise ValueError("ragged q_len serves the onepass/decode "
+                             "kernels only")
     b, hq, sq, d = q_q.shape
     if page_table is not None:              # paged pool (P, page, G, hd)
         hkv = k_q.shape[2]
@@ -149,6 +160,11 @@ def fused_attention(q_q, k_q, v_q, s_q, s_k, s_v, s_out, *, q_offset=0,
     if kind == "decode":
         out = ita_attention_decode(qf, kf, vf, lmult, omult, kv_len,
                                    **common)
+    elif kind == "twopass":
+        out, _ = ita_attention_twopass(
+            qf, kf, vf, lmult, omult, kv_len, q_offset=q_offset,
+            causal=causal, window=window, adaptive=adaptive,
+            block_q=min(block_q, max(8, sq)), block_kv=bkv, kv_rep=rep)
     else:
         out = ita_attention_onepass(qf, kf, vf, lmult, omult, kv_len,
                                     block_q=min(block_q, max(8, sq)),

@@ -52,7 +52,7 @@ def main(argv=None):
                          "can serve; capability dispatch fills the rest")
     ap.add_argument("--list-backends", action="store_true",
                     help="print every backend's verdict for this arch's "
-                         "decode spec, then exit")
+                         "decode and prefill specs, then exit")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
@@ -90,12 +90,13 @@ def main(argv=None):
     cfg = get_config(args.arch, smoke=args.smoke, attention_impl="ita",
                      attention_backend=args.attention_backend)
     if args.list_backends:
-        spec = make_spec(cfg, mode="decode", causal=cfg.causal,
-                         window=cfg.window, q_len=1)
-        print(f"[serve] decode spec for {cfg.name}: {spec}")
-        for name, verdict in ATT.backend_reasons(spec).items():
-            mark = "eligible" if verdict is True else f"no — {verdict}"
-            print(f"[serve]   {name:20s} {mark}")
+        for mode, q_len in (("decode", 1), ("prefill", args.prompt_len)):
+            spec = make_spec(cfg, mode=mode, causal=cfg.causal,
+                             window=cfg.window, q_len=q_len)
+            print(f"[serve] {mode} spec for {cfg.name}: {spec}")
+            for name, verdict in ATT.backend_reasons(spec).items():
+                mark = "eligible" if verdict is True else f"no — {verdict}"
+                print(f"[serve]   {name:20s} {mark}")
         return None
 
     dev = resolve_device(args.device)

@@ -28,7 +28,8 @@ from repro_torch.core import quant as TQ
 from repro_torch.attention.chunked import streaming_attention as t_stream
 from repro_torch.kernels.ita_attention.ops import fused_attention as t_fused
 
-PORTED = ("ita_decode_pallas", "ita_chunked_xla", "ita_onepass_pallas")
+PORTED = ("ita_decode_pallas", "ita_chunked_xla", "ita_onepass_pallas",
+          "ita_twopass_pallas")
 
 
 @pytest.fixture(scope="module", autouse=True)

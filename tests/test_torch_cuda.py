@@ -6,7 +6,8 @@ installed: ``python -m pytest -m cuda tests/test_torch_cuda.py``. Each kernel
 must equal its plain version on the same CUDA tensors bit for bit: 3D
 and 4D rings and paged pools, GQA, ragged rows and query counts, causal
 and windowed, adaptive and paper DI, short rings (one tile of 20) and
-multi-tile ones.
+multi-tile ones; the twopass kernels (out, A and pass 1's statistics)
+and the standalone softmax kernel.
 """
 
 import numpy as np
@@ -129,3 +130,102 @@ def test_cuda_paged_kernel_matches_plain(case):
         torch.cuda.synchronize()
         assert torch.equal(got, want), adaptive
         assert torch.equal(got, ring), adaptive
+
+
+TWOPASS_CASES = [
+    # bh, kv_rep, sq, skv, d, block_kv, causal, window, ragged
+    (4, 1, 40, 128, 16, 64, True, 0, False),
+    (14, 7, 64, 384, 32, 128, True, 0, True),
+    (4, 2, 32, 192, 16, 64, True, 40, True),
+    (2, 1, 16, 48, 16, 48, False, 0, False),
+    (56, 7, 512, 512, 128, 128, True, 0, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TWOPASS_CASES, ids=[
+    f"twopass-sq{c[2]}-skv{c[3]}-d{c[4]}-rep{c[1]}-w{c[7]}"
+    for c in TWOPASS_CASES])
+def test_cuda_twopass_matches_plain(case):
+    """Both twopass kernels (B5a, B5b) against their plain versions: out
+    and A through the wrapper, then each pass alone on the same inputs
+    (pass 1's statistics too)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    bh, rep, sq, skv, d, bkv, causal, window, ragged = case
+    rng = np.random.default_rng(bh * 10 + skv + sq)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    q = t(rng.integers(-128, 128, (bh, sq, d), dtype=np.int8))
+    k = t(rng.integers(-128, 128, (bh // rep, skv, d), dtype=np.int8))
+    v = t(rng.integers(-128, 128, (bh // rep, skv, d), dtype=np.int8))
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    kv_len = rng.integers(1, skv + 1, bh) if ragged else np.full(bh, skv)
+    kv_len = t(kv_len.astype(np.int32))
+    q_offset = torch.clamp(kv_len - sq, min=0)
+    for adaptive in (True, False):
+        kw = dict(q_offset=q_offset, causal=causal, window=window,
+                  block_kv=bkv, kv_rep=rep)
+        out, a = K.ita_attention_twopass(q, k, v, lmult, omult, kv_len,
+                                         adaptive=adaptive, **kw)
+        want_out, want_a = K.twopass_plain(q, k, v, lmult, omult, kv_len,
+                                           adaptive=adaptive, **kw)
+        launch, got1 = K.twopass_qk_launcher(q, k, lmult, kv_len,
+                                             adaptive=adaptive, **kw)
+        launch()
+        want1 = K.twopass_qk_plain(q, k, lmult, kv_len, adaptive=adaptive,
+                                   **kw)
+        launch, got2 = K.twopass_av_launcher(*want1, v, omult, kv_len, **kw)
+        launch()
+        want2 = K.twopass_av_plain(*want1, v, omult, kv_len, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want_out), adaptive
+        assert torch.equal(a, want_a), adaptive
+        for g, w in zip(got1, want1, strict=True):
+            assert torch.equal(g, w), adaptive
+        assert torch.equal(got2, want2), adaptive
+
+
+SOFTMAX_CASES = [
+    # r, c, block_c
+    (64, 512, 128),
+    (40, 300, 64),
+    (1024, 512, 512),
+    (7, 96, 32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SOFTMAX_CASES, ids=[
+    f"softmax-r{c[0]}-c{c[1]}-bc{c[2]}" for c in SOFTMAX_CASES])
+def test_cuda_softmax_matches_plain(case):
+    """The standalone softmax kernel (B6) against its plain version through
+    ``ops.ita_softmax`` (padded rows and columns, a fully masked row, a
+    causal mask), paper and adaptive DI."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    from repro_torch.kernels.ita_softmax.ops import ita_softmax
+    r, c, bc = case
+    rng = np.random.default_rng(r + c + bc)
+    x = torch.from_numpy(rng.integers(-128, 128, (r, c), dtype=np.int8))
+    mask = torch.from_numpy((rng.random((r, c)) > 0.2).astype(np.int8))
+    mask[r // 2] = 0
+    causal = torch.ones(r, c, dtype=torch.int8).tril(c - r)
+    for m in (mask, causal):
+        for adaptive in (True, False):
+            got = ita_softmax(x.cuda(), m.cuda(), block_c=bc,
+                              adaptive=adaptive)
+            want = ita_softmax(x, m, block_c=bc, adaptive=adaptive)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), adaptive
+            pad = (-c) % bc
+            xp = torch.nn.functional.pad(x, (0, pad)).cuda()
+            mp = torch.nn.functional.pad(m, (0, pad)).cuda()
+            plain = SK.softmax_plain(xp, mp, block_c=bc, adaptive=adaptive)
+            torch.cuda.synchronize()
+            assert torch.equal(got, plain[:, :c]), adaptive

@@ -270,7 +270,9 @@ def test_wrappers_count_only_kernel_launches():
     assert TK.LAUNCHES == {"ita_attention_onepass": 0,
                            "ita_attention_decode": 0,
                            "ita_attention_onepass_paged": 0,
-                           "ita_attention_decode_paged": 0}
+                           "ita_attention_decode_paged": 0,
+                           "ita_attention_twopass_qk_da": 0,
+                           "ita_attention_twopass_av_en": 0}
     with pytest.raises(ValueError, match="at most 8"):
         TK.ita_attention_decode(torch.zeros((2, 9, 16), dtype=torch.int8),
                                 torch.zeros((1, 32, 16), dtype=torch.int8),
