@@ -338,8 +338,7 @@ def check_twopass(checks, args, kw, label):
     checks.compare(qk, a, want_a, label + " (A)")
     checks.compare(av, out, want_out, label + " (out)")
     q, k, v, lm, om, kv_len = args
-    pass_kw = {n: x for n, x in kw.items() if n not in ("adaptive",
-                                                        "block_q")}
+    pass_kw = {n: x for n, x in kw.items() if n != "adaptive"}
     launch, got = K.twopass_qk_launcher(q, k, lm, kv_len,
                                         adaptive=kw["adaptive"], **pass_kw)
     launch()
@@ -886,21 +885,30 @@ def bound_ms(name, args, kw):
 def twopass_bounds(args, kw):
     """Least times of the two passes of a twopass call. Pass 1 reads Q and
     all of K (A holds the logit of every pair, masked ones included), the
-    multipliers and meta, and writes A and three int32 statistics per
-    query row; its ops are Q·Kᵀ at every pair (2 per head-dim element).
-    Pass 2 reads A, the statistics, the V prefix the masks reach, the
+    multipliers and meta, and writes all of A and three int32 statistics
+    per query row; its ops are Q·Kᵀ at every pair (2 per head-dim
+    element). Pass 2 reads A only at the visible pairs (p is 0 elsewhere,
+    whatever A holds), the statistics, the V prefix the masks reach, the
     multipliers and meta, and writes out; its ops are p·V at the visible
     pairs (2 per pair and head-dim element)."""
     q, k = args[:2]
     bh, sq, d = q.shape
     skv = k.shape[1]
     pairs, kv_tokens, meta = visible_work(args, kw)
-    a_bytes, stats, small = bh * sq * skv, 3 * bh * sq * 4, \
-        meta.numel() * 4 + bh * 4
-    return (roofline(q.numel() + k.numel() + a_bytes + stats + small,
+    stats, small = 3 * bh * sq * 4, meta.numel() * 4 + bh * 4
+    return (roofline(q.numel() + k.numel() + bh * sq * skv + stats + small,
                      2 * bh * sq * skv * d),
-            roofline(a_bytes + stats + kv_tokens * d + small + bh * sq * d,
+            roofline(pairs + stats + kv_tokens * d + small + bh * sq * d,
                      2 * pairs * d))
+
+
+def softmax_bound(x, mask):
+    """Least time of a standalone softmax call: x read only where the mask
+    is set (a masked element's output is 0 whatever x holds), the mask
+    read and the f32 output written at every element; ~10 integer ops
+    (DA and EN) per unmasked element."""
+    live = int((mask != 0).sum().item())
+    return roofline(live + mask.numel() + x.numel() * 4, 10 * live)
 
 
 def profile_run(label, fn):
@@ -992,8 +1000,7 @@ def timing_entries(captured, softmax_inputs):
             bound_ms(name, args, kw)))
     args, kw, _ = captured["twopass"]
     q, k, v, lm, om, kv_len = args
-    pass_kw = {n: x for n, x in kw.items() if n not in ("adaptive",
-                                                        "block_q")}
+    pass_kw = {n: x for n, x in kw.items() if n != "adaptive"}
     stats = K.twopass_qk_plain(q, k, lm, kv_len, adaptive=kw["adaptive"],
                                **pass_kw)
     b_qk, b_av = twopass_bounds(args, kw)
@@ -1017,9 +1024,7 @@ def timing_entries(captured, softmax_inputs):
         lambda: SK.kernel_launcher(x, mask, block_c=128),
         lambda: ita_softmax(x, mask, block_c=128),
         lambda: SK.softmax_plain(x, mask, block_c=128),
-        # x and mask read once, f32 out written once; ~10 integer ops per
-        # element (DA and EN)
-        roofline(x.numel() * 2 + x.numel() * 4, 10 * x.numel())))
+        softmax_bound(x, mask)))
     return entries
 
 

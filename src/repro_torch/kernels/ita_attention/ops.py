@@ -164,7 +164,7 @@ def fused_attention(q_q, k_q, v_q, s_q, s_k, s_v, s_out, *, q_offset=0,
         out, _ = ita_attention_twopass(
             qf, kf, vf, lmult, omult, kv_len, q_offset=q_offset,
             causal=causal, window=window, adaptive=adaptive,
-            block_q=min(block_q, max(8, sq)), block_kv=bkv, kv_rep=rep)
+            block_kv=bkv, kv_rep=rep)
     else:
         out = ita_attention_onepass(qf, kf, vf, lmult, omult, kv_len,
                                     block_q=min(block_q, max(8, sq)),

@@ -32,26 +32,27 @@ def reset_launches() -> None:
     LAUNCHES["ita_softmax"] = 0
 
 
-def _blocks(x_q, mask, block_r, block_c):
-    """Check the operands; ``(br, bc)`` as the Pallas kernel takes them."""
+def _part(x_q, mask, block_c):
+    """Check the operands; the DA part size ``bc`` as the Pallas kernel
+    takes it (C must be a multiple of it; any R)."""
     if x_q.dtype != torch.int8 or mask.dtype != torch.int8:
         raise TypeError("x_q and mask must be int8")
     if x_q.ndim != 2 or mask.shape != x_q.shape:
         raise ValueError(f"x_q {tuple(x_q.shape)} and mask "
                          f"{tuple(mask.shape)} must be one (R, C) shape")
-    r, c = x_q.shape
-    br, bc = min(block_r, r), min(block_c, c)
-    if br <= 0 or bc <= 0 or r % br or c % bc:
-        raise ValueError(f"(R, C) = {(r, c)} is not a multiple of the "
-                         f"blocks {(br, bc)}")
-    return br, bc
+    c = x_q.shape[1]
+    bc = min(block_c, c)
+    if bc <= 0 or c % bc:
+        raise ValueError(f"C = {c} is not a multiple of the blocks "
+                         f"(block_c {bc})")
+    return bc
 
 
 def softmax_plain(x_q, mask, *, block_r: int = 128, block_c: int = 128,
                   adaptive: bool = False) -> torch.Tensor:
     """The kernel's plain version, on the tensors' device: DA over column
     parts of ``block_c`` with the kernels' ``da_update``, DI, then EN."""
-    _, bc = _blocks(x_q, mask, block_r, block_c)
+    bc = _part(x_q, mask, block_c)
     r, c = x_q.shape
     x = x_q.to(torch.int32)
     valid = mask != 0
@@ -78,7 +79,7 @@ def kernel_launcher(x_q, mask, *, block_r: int = 128, block_c: int = 128,
         raise RuntimeError(f"ita_softmax: tensors on {x_q.device}; the "
                            f"kernel runs on CUDA tensors, the plain version "
                            f"on CPU ones")
-    _, bc = _blocks(x_q, mask, block_r, block_c)
+    bc = _part(x_q, mask, block_c)
     if mask.device != x_q.device:
         raise ValueError("ita_softmax: x_q and mask on different devices")
     x_q, mask = x_q.contiguous(), mask.contiguous()
@@ -100,8 +101,9 @@ def kernel_launcher(x_q, mask, *, block_r: int = 128, block_c: int = 128,
 def ita_softmax_kernel(x_q, mask, *, block_r: int = 128, block_c: int = 128,
                        adaptive: bool = False) -> torch.Tensor:
     """x_q (R, C) int8 logits, mask (R, C) int8 (0 = masked). Returns f32
-    probabilities (R, C). R and C must be multiples of the blocks (the
-    ``ops.ita_softmax`` wrapper pads)."""
+    probabilities (R, C). C must be a multiple of ``block_c`` (the
+    ``ops.ita_softmax`` wrapper pads); any R. ``block_r`` is accepted for
+    signature parity and changes nothing."""
     kw = dict(block_r=block_r, block_c=block_c, adaptive=adaptive)
     if x_q.device.type == "cpu":
         return softmax_plain(x_q, mask, **kw)

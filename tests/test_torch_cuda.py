@@ -204,8 +204,9 @@ SOFTMAX_CASES = [
     f"softmax-r{c[0]}-c{c[1]}-bc{c[2]}" for c in SOFTMAX_CASES])
 def test_cuda_softmax_matches_plain(case):
     """The standalone softmax kernel (B6) against its plain version through
-    ``ops.ita_softmax`` (padded rows and columns, a fully masked row, a
-    causal mask), paper and adaptive DI."""
+    ``ops.ita_softmax`` (padded columns, row counts off the kernel's
+    8-row block, a fully masked row, a causal mask), paper and adaptive
+    DI."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU build)")
     from repro_torch.kernels.ita_softmax import kernel as SK
