@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with one CUDA card and the
 CUDA toolkit (``nvcc``). Phases, each fatal on failure:
 
 1. Build the port's CUDA kernels from ``src/repro_torch/kernels/
-   ita_attention/csrc`` and ``.../ita_softmax/csrc`` (nvcc, all sources
-   in parallel).
+   ita_attention/csrc``, ``.../ita_softmax/csrc`` and ``.../int8_matmul/
+   csrc`` (nvcc, all sources in parallel).
 2. Hold each kernel to its plain PyTorch version on the card, bit for bit
    (``torch.equal``), at qwen2-7b shapes (B=4, 28 heads, 4 KV heads,
    head dim 128): decode over a ring of capacity 640 with ragged rows in
@@ -60,6 +60,22 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    beside its bound (the paged kernels on layer-0 inputs of the serve:
    its busiest mixed call and its busiest decode call; the twopass
    passes on layer 0 of run (c); the softmax on that call's A).
+7. ITA's quantized linear layer on qwen2-7b's layer 0: the inputs of
+   its seven projections (wq, wk, wv, wo, w_gate, w_up, w_down) in
+   run (a)'s prefill (M = 2048 rows) and in the decode step after it
+   (M = 4), captured at ``models.layers.linear``; the bf16 weights
+   quantized per output channel, the activations per tensor, the q/k/v
+   biases in accumulator units and the multipliers s_x·s_w/s_y from
+   ``core.quant.quantized_linear`` (s_y calibrated on the exact
+   accumulator). ``kernels.int8_matmul.ops.int8_matmul`` runs every
+   projection with both schedules (B7a, B7b), the counters zeroed just
+   before and read just after: one B7a launch per call, K/block_k B7b
+   launches. Each output must equal its plain version, the other
+   schedule and ``quantized_linear``'s int8 values; so must a random-bias
+   case and cases that pad M, K and N. Then each shape is timed: each
+   kernel alone and through its wrapper, its plain version, and
+   ``torch._int_mm`` (cuBLASLt, the int32 product only) as the library
+   yardstick, also, for information, with w stored column-major.
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -109,8 +125,19 @@ SOURCES = {
     "ita_softmax": (
         "src/repro_torch/kernels/ita_softmax/csrc/softmax.cu",
         "src/repro/kernels/ita_softmax/kernel.py:74"),
+    "int8_matmul": (
+        "src/repro_torch/kernels/int8_matmul/csrc/matmul.cu",
+        "src/repro/kernels/int8_matmul/kernel.py:89"),
+    "int8_matmul_ws": (
+        "src/repro_torch/kernels/int8_matmul/csrc/matmul.cu",
+        "src/repro/kernels/int8_matmul/kernel.py:113"),
 }
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
+MATMUL = {"tpu": "int8_matmul", "weight_stationary": "int8_matmul_ws"}
+# phase 7: layer 0's projections (attribute of the block's attn or mlp)
+PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+MLP_PROJECTIONS = ("w_gate", "w_up", "w_down")
+QKV_BIAS = {"wq": "bq", "wk": "bk", "wv": "bv"}
 TWOPASS = ("ita_attention_twopass_qk_da", "ita_attention_twopass_av_en")
 # phase 5: the served trace and the serve's geometry
 SERVE = dict(slots=4, requests=12, plen=(128, 1024), gen=(16, 48),
@@ -132,10 +159,12 @@ def card_line():
 
 def reset_launches():
     """Zero every kernel wrapper's launch counter."""
+    from repro_torch.kernels.int8_matmul import kernel as MK
     from repro_torch.kernels.ita_attention import kernel as K
     from repro_torch.kernels.ita_softmax import kernel as SK
     K.reset_launches()
     SK.reset_launches()
+    MK.reset_launches()
 
 
 def read_launches():
@@ -143,10 +172,11 @@ def read_launches():
     drained."""
     import torch
 
+    from repro_torch.kernels.int8_matmul import kernel as MK
     from repro_torch.kernels.ita_attention import kernel as K
     from repro_torch.kernels.ita_softmax import kernel as SK
     torch.cuda.synchronize()
-    return {**K.LAUNCHES, **SK.LAUNCHES}
+    return {**K.LAUNCHES, **SK.LAUNCHES, **MK.LAUNCHES}
 
 
 # ---------------------------------------------------------------------------
@@ -558,13 +588,19 @@ def full_width_model():
     return model, cfg
 
 
+def prompt_batch(cfg):
+    """Run (a)'s prompts: B x PROMPT token ids from seed 0."""
+    import torch
+    return torch.randint(0, cfg.vocab_size, (B, PROMPT),
+                         generator=torch.Generator().manual_seed(0))
+
+
 def full_width(model, cfg, checks):
     import torch
 
     from repro_torch.models import forward, init_caches
     n_layers = cfg.n_layers
-    prompts = torch.randint(0, cfg.vocab_size, (B, PROMPT),
-                            generator=torch.Generator().manual_seed(0))
+    prompts = prompt_batch(cfg)
 
     # (a) unpinned: chunked prefill, then the decode kernel every step
     res_a, la, rec_dec = run_generate(model, cfg, prompts,
@@ -1048,6 +1084,239 @@ def time_kernels(captured, softmax_inputs, launches, checks):
             f"PyTorch call computes ITA's integer attention or softmax)")
     return rows
 
+# ---------------------------------------------------------------------------
+# Phase 7: ITA's quantized linear layer on layer 0
+# ---------------------------------------------------------------------------
+
+def layer0_projection_inputs(model, cfg):
+    """``{M: {projection: x (M, K)}}``: what layer 0's projections see in
+    one prefill of run (a)'s prompts (M = B·PROMPT) and in the decode step
+    after it (M = B), recorded at ``models.layers.linear`` (the norm's
+    output for wq/wk/wv/w_gate/w_up, the attention output for wo,
+    ``silu(gate)·up`` for w_down)."""
+    import torch
+
+    from repro_torch.models import attention as MA
+    from repro_torch.models import forward, init_caches
+    from repro_torch.models import layers as ML
+    weights = layer0_weights(model)
+    seen, orig = {}, ML.linear
+
+    def recording(x, w):
+        for name, ww in weights.items():
+            if w is ww and name not in seen:
+                seen[name] = x.reshape(-1, x.shape[-1]).clone()
+        return orig(x, w)
+
+    MA.linear = ML.linear = recording
+    try:
+        with torch.inference_mode():
+            caches = init_caches(cfg, B, RING, device=DEV)
+            logits, caches = forward(model, prompt_batch(cfg), cfg,
+                                     mode="prefill", caches=caches)
+            prefill = dict(seen)
+            seen.clear()
+            forward(model, logits[:, -1:].argmax(-1), cfg, mode="decode",
+                    caches=caches, pos0=torch.full((B,), PROMPT))
+            decode = dict(seen)
+    finally:
+        MA.linear = ML.linear = orig
+    out = {B * PROMPT: prefill, B: decode}
+    for m, xs in out.items():
+        if sorted(xs) != sorted(PROJECTIONS) or any(
+                x.shape[0] != m for x in xs.values()):
+            raise AssertionError(f"captured {sorted(xs)} at M = {m}")
+    return out
+
+
+def layer0_weights(model):
+    """Layer 0's seven projection weights (K, N), by name."""
+    blk = model.blocks[0]
+    return {name: getattr(blk.mlp if name in MLP_PROJECTIONS else blk.attn,
+                          name) for name in PROJECTIONS}
+
+
+def linear_operands(x, w_q, bias=None):
+    """The int8 matmul's operands for ``quantized_linear(x, w_q, bias)``
+    and its result: ``(x_q, w_q values, bias_q (N,) int32, mult (N,) f32,
+    quantized_linear's int8 out)``; ``mult = s_x·s_w/s_y`` with s_y
+    calibrated on the exact accumulator, as ``quantized_linear`` forms
+    it; no bias gives zeros."""
+    import torch
+
+    from repro_torch.core.quant import quantize_tensor, quantized_linear
+    out, _ = quantized_linear(x, w_q, bias)
+    xq = quantize_tensor(x)
+    acc_scale = xq.scale * w_q.scale
+    bias_q = torch.zeros_like(acc_scale) if bias is None else torch.round(
+        bias.float() / acc_scale)
+    return (xq.values, w_q.values, bias_q.to(torch.int32).reshape(-1),
+            (acc_scale / out.scale).reshape(-1), out.values)
+
+
+def check_linear(checks, x_q, w_q, bias_q, mult, want, label):
+    """B7a and B7b through ``ops.int8_matmul`` against their plain
+    versions, each other and ``quantized_linear``'s int8 values."""
+    from repro_torch.kernels.int8_matmul import kernel as MK
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    outs = {}
+    for schedule, name in MATMUL.items():
+        outs[name] = int8_matmul(x_q, w_q, bias_q, mult, schedule=schedule)
+        plain = MK.matmul_plain(x_q, w_q, bias_q, mult) \
+            if schedule == "tpu" \
+            else MK.matmul_ws_plain(x_q, w_q, bias_q, mult, block_k=128)
+        checks.compare(name, outs[name], plain, label)
+        checks.compare(name, outs[name], want, label + " vs quantized_linear")
+    checks.compare(MATMUL["weight_stationary"], outs["int8_matmul_ws"],
+                   outs["int8_matmul"], label + " vs B7a")
+
+
+def matmul_bound(m, k, n):
+    """Least time of one call: x, w, bias and mult read once, out written
+    once, against 2 operations per multiply-add; B7b's bound is B7a's
+    (the same function)."""
+    return roofline(m * k + k * n + 8 * n + m * n, 2 * m * n * k)
+
+
+def full_width_linear(model, cfg, checks):
+    """Phase 7 (module docstring). Returns the main path's launches and
+    its operands ``{(M, projection): linear_operands(...)}``."""
+    import torch
+
+    from repro_torch.core.quant import QTensor, quantize_tensor
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    inputs = layer0_projection_inputs(model, cfg)
+    weights = layer0_weights(model)
+    blk = model.blocks[0]
+    w_qs = {name: quantize_tensor(w.float(), axis=0)
+            for name, w in weights.items()}
+    ops = {}
+    for m, xs in inputs.items():
+        for name in PROJECTIONS:
+            bias = getattr(blk.attn, QKV_BIAS[name]) \
+                if name in QKV_BIAS and cfg.qkv_bias else None
+            ops[(m, name)] = linear_operands(xs[name].float(), w_qs[name],
+                                             bias)
+    # the main path: every projection, both schedules, counters around it
+    reset_launches()
+    outs = {(key, schedule): int8_matmul(x_q, w_q, bias_q, mult,
+                                         schedule=schedule)
+            for key, (x_q, w_q, bias_q, mult, _) in ops.items()
+            for schedule in MATMUL}
+    launches = read_launches()
+    want = dict.fromkeys(SOURCES, 0)
+    want["int8_matmul"] = len(ops)
+    want["int8_matmul_ws"] = sum(-(-w_q.shape[0] // 128)
+                                 for _, w_q, *_ in ops.values())
+    if launches != want:
+        raise AssertionError(f"quantized-linear launches {launches} != "
+                             f"{want}")
+    for (m, name), operands in ops.items():
+        w_q, ref = operands[1], operands[-1]
+        label = f"layer 0 {name} M={m} K={w_q.shape[0]} N={w_q.shape[1]}"
+        for schedule, kname in MATMUL.items():
+            checks.compare(kname, outs[((m, name), schedule)], ref,
+                           label + " (main path) vs quantized_linear")
+        check_linear(checks, *operands, label)
+    # a random bias, and shapes that pad M, K and N
+    g = torch.Generator(device=DEV).manual_seed(11)
+    x = inputs[B * PROMPT]["wq"].float()
+    bias = torch.randn(w_qs["wq"].values.shape[1], generator=g, device=DEV)
+    check_linear(checks, *linear_operands(x, w_qs["wq"], bias),
+                 "layer 0 wq M=2048, random bias")
+    for m, name, k, n in ((1000, "wk", 3500, 500), (B, "w_gate", 3500, 1000),
+                          (300, "w_down", 18900, 3580)):
+        w_cut = QTensor(w_qs[name].values[:k, :n].contiguous(),
+                        w_qs[name].scale[:, :n])
+        x = inputs[B * PROMPT if m > B else B][name][:m, :k].float()
+        check_linear(checks, *linear_operands(x, w_cut),
+                     f"{name}[:{k}, :{n}] M={m} (padded)")
+    log(f"[linear] layer 0's 7 projections at M = {B * PROMPT} and {B}, "
+        f"both schedules: launches {launches}; every output bit-exact vs "
+        f"its plain version, the other schedule and quantized_linear "
+        f"(checks B7a {checks.n['int8_matmul']}, B7b "
+        f"{checks.n['int8_matmul_ws']}: model and random bias, padded M, "
+        f"K and N)")
+    return launches, ops
+
+
+def int_mm_call(x_q, w_q):
+    """``torch._int_mm`` on the same operands, the library yardstick (the
+    int32 product only; it needs more than 16 rows, so fewer are padded
+    to 32): ``(call, note)``."""
+    import torch
+
+    from repro_torch.core.quant import int8_matmul_ref
+    note = "int32 product only"
+    if x_q.shape[0] <= 16:
+        note += f", {x_q.shape[0]} rows padded to 32"
+        x_q = torch.nn.functional.pad(x_q, (0, 0, 0, 32 - x_q.shape[0]))
+    if not torch.equal(torch._int_mm(x_q, w_q), int8_matmul_ref(x_q, w_q)):
+        raise AssertionError("torch._int_mm disagrees with the exact "
+                             "product: not a yardstick")
+    return (lambda: torch._int_mm(x_q, w_q)), note
+
+
+def time_linear(ops, launches, checks):
+    """Each distinct (M, K, N) of phase 7: the kernels alone and through
+    ``ops.int8_matmul``, their plain versions, ``torch._int_mm``; B7b's
+    psum bytes. Returns the kernels' rows at w_gate, M = B·PROMPT."""
+    from repro_torch.kernels.int8_matmul import kernel as MK
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    rows, seen = [], set()
+    for (m, name), (x_q, w_q, bias_q, mult, _) in ops.items():
+        k, n = w_q.shape
+        if (m, k, n) in seen:
+            continue
+        seen.add((m, k, n))
+        bms, by = matmul_bound(m, k, n)
+        lib, note = int_mm_call(x_q, w_q)
+        lib_ms = median_ms(lib)
+        # information: cuBLASLt's int8 GEMM with w stored column-major
+        # (transposed once, outside the timing)
+        lib_cm_ms = median_ms(int_mm_call(x_q, w_q.t().contiguous().t())[0])
+        for schedule, kname in MATMUL.items():
+            def bind(schedule=schedule):
+                launches_, out = MK.kernel_launcher(
+                    int8_matmul_pad(x_q), w_q, bias_q, mult,
+                    schedule=schedule)
+                return (lambda: [launch() for launch in launches_]), out
+            ms = kernel_ms(bind, reps=20 if m > B else 30)
+            call = median_ms(lambda schedule=schedule: int8_matmul(
+                x_q, w_q, bias_q, mult, schedule=schedule))
+            plain_fn = (lambda: MK.matmul_plain(x_q, w_q, bias_q, mult)) \
+                if schedule == "tpu" else (lambda: MK.matmul_ws_plain(
+                    x_q, w_q, bias_q, mult, block_k=128))
+            plain = median_ms(plain_fn, reps=5, warmup=1)
+            log(f"[timing] {kname} layer 0 {name} M={m} K={k} N={n}: kernel "
+                f"{ms:.4f} ms (wrapper call {call:.4f} ms), plain "
+                f"{plain:.4f} ms, bound {bms:.5f} ms ({by}), torch._int_mm "
+                f"{lib_ms:.4f} ms ({note}; with w stored column-major "
+                f"{lib_cm_ms:.4f} ms)")
+            if schedule == "weight_stationary":
+                psum = 2 * 4 * int8_matmul_pad(x_q).shape[0] * n * k // 128
+                log(f"[psum] {kname} layer 0 {name} M={m} K={k} N={n}: "
+                    f"{psum / 1e9:.4f} GB of partial sums per call "
+                    f"(2·4·M·N·K/block_k; {-(-k // 128)} launches of "
+                    f"{-(-n // 128)} blocks) in {ms:.4f} ms, "
+                    f"{psum / 1e9 / ms:.3f} TB/s")
+            if (m, name) == (B * PROMPT, "w_gate"):
+                source, replaces = SOURCES[kname]
+                rows.append({"name": kname, "route": "cuda",
+                             "source": source, "replaces": replaces,
+                             "launches": launches[kname],
+                             "max_abs_err": checks.max_err[kname], "ms": ms,
+                             "plain_ms": plain, "bound_ms": bms,
+                             "bound_by": by, "library_ms": lib_ms})
+    return rows
+
+
+def int8_matmul_pad(x_q):
+    """x_q padded to the rows ``ops.int8_matmul`` gives the kernels (at
+    least 8; the default block_m divides the model's row counts)."""
+    import torch
+    return torch.nn.functional.pad(x_q, (0, 0, 0, max(0, 8 - x_q.shape[0])))
+
 
 def main():
     import torch
@@ -1086,6 +1355,8 @@ def main():
     rows = time_kernels(captured, softmax_inputs,
                         {**serve_launches, **metrics["launches"],
                          "ita_softmax": softmax_launches}, checks)
+    linear_launches, linear_ops = full_width_linear(model, cfg, checks)
+    rows += time_linear(linear_ops, linear_launches, checks)
     log(f"[result] prefill {metrics['prefill_s']:.4f} s, decode "
         f"{metrics['decode_tok_s']:.1f} tok/s (unpinned); pinned onepass "
         f"prefill {metrics['pinned_prefill_s']:.4f} s, decode "

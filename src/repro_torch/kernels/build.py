@@ -1,16 +1,17 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Each ``csrc/*.cu`` source (under ``ita_attention/`` and ``ita_softmax/``)
-compiles into its own shared library with a plain C interface (no
-PyTorch headers, so a build takes seconds):
+Each ``csrc/*.cu`` source (``ita_attention/csrc/{onepass,decode,
+twopass}.cu``, ``ita_softmax/csrc/softmax.cu``, ``int8_matmul/csrc/
+matmul.cu``) compiles into its own shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
         -Xcompiler -fPIC -o build/repro_torch_kernels/lib<name>-<hash>.so
 
 at first use, all sources at once in parallel processes. The file name
-carries a hash of the source, the shared headers and the flags, so an
-edited source rebuilds and
-a built library is reused. The build directory is ``build/
+carries a hash of the source, every ``csrc/*.cuh`` header of the package
+and the flags, so an edited source or header rebuilds and a built
+library is reused. The build directory is ``build/
 repro_torch_kernels/`` under the checkout (listed in ``.gitignore``).
 """
 
@@ -36,9 +37,10 @@ SOURCES = {
     "ita_decode": _ATT / "decode.cu",
     "ita_twopass": _ATT / "twopass.cu",
     "ita_softmax": _PKG / "ita_softmax" / "csrc" / "softmax.cu",
+    "int8_matmul": _PKG / "int8_matmul" / "csrc" / "matmul.cu",
 }
-# headers every source may include (ita_common.cuh's device helpers)
-HEADERS = tuple(sorted(_ATT.glob("*.cuh")))
+# headers a source may include, from any kernel's csrc/ directory
+HEADERS = tuple(sorted(_PKG.glob("*/csrc/*.cuh")))
 # Ring launchers: q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv,
 # kv_4d, kv_rep, hq, g, causal, window, adaptive; stream.
 LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
@@ -59,6 +61,13 @@ TWOPASS_AV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
 # Softmax: x, mask, out; r, c, bc, adaptive; stream.
 SOFTMAX_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
+# B7a: x, w, bias, mult, out; m, n, k; stream.
+MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    + [ctypes.c_void_p]
+# B7b, one k tile: x, w, bias, mult, psum, out; m, n, k, k0, bk, final;
+# stream.
+MATMUL_WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+    + [ctypes.c_void_p]
 # exported launcher -> (library, argtypes)
 FUNCTIONS = {
     "ita_onepass_launch": ("ita_onepass", LAUNCH_ARGTYPES),
@@ -68,6 +77,8 @@ FUNCTIONS = {
     "ita_twopass_qk_launch": ("ita_twopass", TWOPASS_QK_ARGTYPES),
     "ita_twopass_av_launch": ("ita_twopass", TWOPASS_AV_ARGTYPES),
     "ita_softmax_launch": ("ita_softmax", SOFTMAX_ARGTYPES),
+    "int8_matmul_launch": ("int8_matmul", MATMUL_ARGTYPES),
+    "int8_matmul_ws_launch": ("int8_matmul", MATMUL_WS_ARGTYPES),
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -59,12 +59,19 @@ MIN_BLOCK_KV = 128
 
 
 def default_blocks(backend: str) -> tuple:
-    """(block_q, block_kv) defaults for a fused attention backend name."""
+    """(block_q, block_kv) defaults for a fused attention backend name
+    (the matmul entry records three sizes — use ``default_matmul_blocks``)."""
     blocks = BLOCK_DEFAULTS.get(backend, (128, 128))
     if len(blocks) != 2:
         raise ValueError(f"{backend!r} records {len(blocks)} block sizes, "
-                         f"not (bq, bkv)")
+                         f"not (bq, bkv); use default_matmul_blocks() for "
+                         f"the matmul kernel")
     return blocks
+
+
+def default_matmul_blocks() -> tuple:
+    """(block_m, block_n, block_k) defaults for the int8 matmul kernel."""
+    return BLOCK_DEFAULTS["int8_matmul"]
 
 
 def tile_mask(q_tile, kv_tile, bq: int, bkv: int, causal: bool, window: int,

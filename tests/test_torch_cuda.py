@@ -6,8 +6,8 @@ installed: ``python -m pytest -m cuda tests/test_torch_cuda.py``. Each kernel
 must equal its plain version on the same CUDA tensors bit for bit: 3D
 and 4D rings and paged pools, GQA, ragged rows and query counts, causal
 and windowed, adaptive and paper DI, short rings (one tile of 20) and
-multi-tile ones; the twopass kernels (out, A and pass 1's statistics)
-and the standalone softmax kernel.
+multi-tile ones; the twopass kernels (out, A and pass 1's statistics),
+the standalone softmax kernel and both int8 matmul kernels.
 """
 
 import numpy as np
@@ -230,3 +230,73 @@ def test_cuda_softmax_matches_plain(case):
             plain = SK.softmax_plain(xp, mp, block_c=bc, adaptive=adaptive)
             torch.cuda.synchronize()
             assert torch.equal(got, plain[:, :c]), adaptive
+
+
+MATMUL_CASES = [
+    # m, k, n, block_m, block_n, block_k
+    (8, 32, 16, 32, 16, 32),
+    (100, 200, 96, 32, 16, 32),
+    (33, 65, 17, 32, 16, 32),         # no dimension a multiple of its block
+    (4, 3584, 512, 256, 128, 128),    # a decode step of qwen2-7b's wk
+    (300, 520, 260, 256, 128, 128),   # partial row, column and k tiles
+    (130, 1000, 136, 64, 64, 200),    # B7b k tiles of 200 (not a multiple of 64)
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MATMUL_CASES, ids=[
+    "matmul-m{}-k{}-n{}-b{}x{}x{}".format(*c) for c in MATMUL_CASES])
+def test_cuda_int8_matmul_matches_plain(case):
+    """Both int8 matmul kernels (B7a, B7b) through ``ops.int8_matmul``
+    against the plain version of their schedule on the CPU and the plain
+    reference on the card (padding of M, K and N included), against each
+    other, with one B7a launch per call and one B7b launch per k tile; an
+    accumulator above 2^24 checks the float32 conversion."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.kernels.int8_matmul import kernel as MK
+    from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    m, k, n, bm, bn, bk = case
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-128, 128, (m, k), dtype=np.int8)
+    w = rng.integers(-128, 128, (k, n), dtype=np.int8)
+    x[0], w[:, 0] = 127, 127
+    bias = rng.integers(-2 ** 16, 2 ** 16, n, dtype=np.int32)
+    mult = (rng.uniform(0.5, 2.0, n) * 127 / (3 * 74 ** 2 * k ** 0.5)) \
+        .astype(np.float32)
+    mult[0] = 100 / (127 * 127 * k)
+    args = [torch.from_numpy(a) for a in (x, w, bias, mult)]
+    blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+    want_ref = int8_matmul(*(a.cuda() for a in args), use_pallas=False)
+    kp = -(-k // bk) * bk
+    outs = {}
+    for schedule, name, launches in (
+            ("tpu", "int8_matmul", 1),
+            ("weight_stationary", "int8_matmul_ws", kp // min(bk, kp))):
+        MK.reset_launches()
+        got = int8_matmul(*(a.cuda() for a in args), **blocks,
+                          schedule=schedule)
+        torch.cuda.synchronize()
+        assert MK.LAUNCHES[name] == launches, (schedule, MK.LAUNCHES)
+        want = int8_matmul(*args, **blocks, schedule=schedule)
+        assert torch.equal(got.cpu(), want), schedule
+        assert torch.equal(got, want_ref), schedule
+        outs[schedule] = got
+    assert torch.equal(outs["tpu"], outs["weight_stationary"])
+    assert (outs["tpu"].abs() < 127).float().mean() > 0.5   # not saturated
+
+
+@pytest.mark.cuda
+def test_cuda_int8_matmul_refuses_what_it_cannot_load():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.kernels.int8_matmul import kernel as MK
+    x = torch.zeros((8, 30), dtype=torch.int8, device="cuda")
+    w = torch.zeros((30, 8), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="multiples of 4"):
+        MK.kernel_launcher(x, w, 0, 1.0, block_k=30)
+    x = torch.zeros((8, 4096), dtype=torch.int8, device="cuda")
+    w = torch.zeros((4096, 8), dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="resident weight tile"):
+        MK.kernel_launcher(x, w, 0, 1.0, block_k=2048,
+                           schedule="weight_stationary")
