@@ -14,7 +14,10 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    head dim 128): decode over a ring of capacity 640 with ragged rows in
    both K/V layouts, causal and windowed, adaptive and paper DI; a
    512-token onepass prefill on the cache-native layout and a multi-tile
-   3D case; the paged kernels over a pool of 128-token pages with
+   3D case; onepass with kv_len and q_len drawn per head of a kv row
+   (3D), decode-shaped onepass calls (sq 1 and 2, both layouts, with and
+   without a window) and head dims 64 and 256 (128- and 256-key tiles);
+   the paged kernels over a pool of 128-token pages with
    permuted, non-contiguous page tables, kv_len ending mid-page and, for
    the paged onepass, q_len 0, 1 and 96 in one call — each also equal to
    the ring kernel on the gathered pages; the twopass kernels (both
@@ -33,9 +36,10 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    then the decode kernel — twice, with identical tokens. The launch
    counters are zeroed before each run and read after it; the inputs and
    outputs of layers 0 and 27 of one prefill call and one decode step
-   are kept and held to the plain versions afterwards. The smoke-width
-   config (unpinned and with each pin) checks the card's logits against
-   the CPU's plain versions.
+   (run (b): also layer 0 of its first decode step, a decode-shaped
+   onepass call) are kept and held to the plain versions afterwards.
+   The smoke-width config (unpinned and with each pin) checks the card's
+   logits against the CPU's plain versions.
    Profile one unpinned ``generate()`` (device time by kernel, busy
    share).
 4. Drive the standalone softmax (``kernels.ita_softmax.ops.ita_softmax``)
@@ -57,9 +61,11 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    share, kernels launched).
 6. Time each kernel on the main path's inputs with CUDA events (median):
    the bound kernel alone, its wrapper call and its plain version,
-   beside its bound (the paged kernels on layer-0 inputs of the serve:
-   its busiest mixed call and its busiest decode call; the twopass
-   passes on layer 0 of run (c); the softmax on that call's A).
+   beside its bound (the ring onepass kernel on run (b)'s prefill and on
+   its decode-shaped call; the paged kernels on layer-0 inputs of the
+   serve: its busiest mixed call and its busiest decode call, and the
+   mean per launch over the layer-0 calls of every serve step; the
+   twopass passes on layer 0 of run (c); the softmax on that call's A).
 7. ITA's quantized linear layer on qwen2-7b's layer 0: the inputs of
    its seven projections (wq, wk, wv, wo, w_gate, w_up, w_down) in
    run (a)'s prefill (M = 2048 rows) and in the decode step after it
@@ -133,6 +139,8 @@ SOURCES = {
         "src/repro/kernels/int8_matmul/kernel.py:113"),
 }
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
+# run (b)'s decode-shaped B2 call (sq 1), kept and timed beside its prefill
+ONEPASS_DECODE = "ita_attention_onepass/decode"
 MATMUL = {"tpu": "int8_matmul", "weight_stationary": "int8_matmul_ws"}
 # phase 7: layer 0's projections (attribute of the block's attn or mlp)
 PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -258,6 +266,39 @@ def kernel_cases(rng_seed=0):
                            q_len=q_len, causal=True, window=window,
                            adaptive=True, kv_rep=rep),
                       f"onepass 3d 5 tiles ragged window={window}"))
+    # the packed heads of one kv row with their own kv_len and q_len (3D),
+    # and decode-shaped onepass calls (sq 1 and 2) in both layouts
+    kv_rows = torch.randint(1, RING + 1, (bh,), generator=g, device=DEV,
+                            dtype=torch.int32)
+    q_len = torch.randint(0, 129, (bh,), generator=g, device=DEV,
+                          dtype=torch.int32)
+    cases.append(("ita_attention_onepass",
+                  (i8(bh, 128, d), k, v, lm, om, kv_rows),
+                  dict(q_offset=torch.clamp(kv_rows - q_len, min=0),
+                       q_len=q_len, causal=True, adaptive=False, kv_rep=rep),
+                  "onepass 3d kv_len and q_len per head"))
+    for sq, layout in ((1, "4d"), (2, "3d"), (1, "3d"), (2, "4d")):
+        shape = (B, RING, hkv, d) if layout == "4d" else (B * hkv, RING, d)
+        kd, vd = i8(*shape), i8(*shape)
+        for window in (0, 200):
+            cases.append(("ita_attention_onepass",
+                          (i8(bh, sq, d), kd, vd, lm, om, kv_len),
+                          dict(q_offset=kv_len - sq, causal=True,
+                               window=window, adaptive=True, kv_rep=rep,
+                               hq=hq if layout == "4d" else None),
+                          f"onepass decode-shaped {layout} sq={sq} "
+                          f"window={window}"))
+    # head dims 64 and 256 at the model's head counts (256 with 128- and
+    # 256-key tiles: two staging stages and one)
+    for hd, bkv in ((64, 128), (256, 128), (256, 256)):
+        kh, vh = i8(B, 512, hkv, hd), i8(B, 512, hkv, hd)
+        cases.append(("ita_attention_onepass",
+                      (i8(bh, 192, hd), kh, vh, lm, om, kv_b.clamp(max=512)
+                       .repeat_interleave(hq)),
+                      dict(q_offset=(kv_b.clamp(max=512) - 192).clamp(min=0)
+                           .repeat_interleave(hq), causal=True,
+                           adaptive=True, block_kv=bkv, kv_rep=rep, hq=hq),
+                      f"onepass 4d d={hd} block_kv={bkv}"))
     return cases
 
 
@@ -616,9 +657,10 @@ def full_width(model, cfg, checks):
                              "launches")
     # (b) pinned onepass: prefill and every decode step through onepass
     cfg_b = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    # calls 0 and n_layers - 1 are prefill, n_layers the first decode step
     res_b, lb, rec_one = run_generate(model, cfg_b, prompts,
                                       record="ita_attention_onepass",
-                                      keep=(0, n_layers - 1))
+                                      keep=(0, n_layers - 1, n_layers))
     want_b = dict.fromkeys(SOURCES, 0)
     want_b["ita_attention_onepass"] = n_layers * GEN
     if lb != want_b:
@@ -673,11 +715,13 @@ def full_width(model, cfg, checks):
     from repro_torch.kernels.ita_attention import kernel as K
     captured = {}
     for name, rec, what in (("ita_attention_decode", rec_dec, "decode step"),
-                            ("ita_attention_onepass", rec_one, "prefill")):
+                            ("ita_attention_onepass", rec_one, "(b)")):
         for idx, (args, kw, out) in sorted(rec.kept.items()):
             checks.compare(name, out, K.attention_plain(*args, **kw),
-                           f"main path {what}, layer {idx}")
+                           f"main path {what}, call {idx} (sq "
+                           f"{args[0].shape[1]})")
         captured[name] = rec.kept[0]
+    captured[ONEPASS_DECODE] = rec_one.kept[n_layers]
     for idx, (args, kw, (out, a)) in sorted(rec_two.kept.items()):
         want_out, want_a = K.twopass_plain(*args, **kw)
         checks.compare(TWOPASS[0], a, want_a,
@@ -686,7 +730,8 @@ def full_width(model, cfg, checks):
                        f"main path (c) prefill, layer {idx} (out)")
     captured["twopass"] = rec_two.kept[0]
     log(f"[generate] main-path inputs of layers 0 and {n_layers - 1} "
-        f"bit-exact vs plain (runs (a), (b), (c))")
+        f"bit-exact vs plain (runs (a), (b), (c); (b) also layer 0 of its "
+        f"first decode step)")
     profile_generate(model, cfg, prompts)
     return {"prefill_s": res_a2.prefill_s, "decode_tok_s":
             res_a2.decode_tok_s, "pinned_prefill_s": res_b.prefill_s,
@@ -696,6 +741,9 @@ def full_width(model, cfg, checks):
             "launches": {"ita_attention_decode": la["ita_attention_decode"],
                          "ita_attention_onepass":
                              lb["ita_attention_onepass"],
+                         # one prefill call per layer, the rest decode
+                         ONEPASS_DECODE:
+                             lb["ita_attention_onepass"] - n_layers,
                          TWOPASS[0]: lc[TWOPASS[0]],
                          TWOPASS[1]: lc[TWOPASS[1]]}}, captured
 
@@ -839,10 +887,17 @@ def full_width_serve(model, cfg, checks):
                        f"serve, layer 0 of step {idx // n_layers}")
         captured[name] = (args, kw, out)
     log("[serve] captured layer-0 paged calls bit-exact vs plain")
+    mean = {name: mean_kernel_ms(name, rec) for name, rec in recs.items()}
+    served_mean = {name: ms for name, (ms, _) in mean.items()}
+    for name, (ms, n) in mean.items():
+        log(f"[timing] {name} over the serve: mean {ms:.5f} ms per launch "
+            f"over the layer-0 calls of all {n} steps that launched it "
+            f"(5 launches each); {card_line()}")
     profile_serve(model, cfg, reqs)
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
             "ttft_p50": res.ttft_quantile(0.5),
-            "ttft_p90": res.ttft_quantile(0.9)}, launches, captured
+            "ttft_p90": res.ttft_quantile(0.9),
+            "mean_ms": served_mean}, launches, captured
 
 
 # ---------------------------------------------------------------------------
@@ -863,6 +918,29 @@ def median_ms(fn, reps=30, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def mean_kernel_ms(name, rec, inner=5):
+    """Mean time per launch of kernel ``name`` over every call ``rec``
+    kept (CUDA events around ``inner`` back-to-back launches of each bound
+    call, after one warm-up launch). Returns ``(ms, calls)``."""
+    import torch
+
+    from repro_torch.kernels.ita_attention import kernel as K
+    total, calls = 0.0, 0
+    for args, kw, _ in rec.kept.values():
+        launch, _ = K.kernel_launcher(name, *args, **kw)
+        launch()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            launch()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b) / inner
+        calls += 1
+    return total / max(calls, 1), calls
 
 
 def roofline(nbytes, ops):
@@ -971,6 +1049,11 @@ def profile_run(label, fn):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
+    for e in kernels:
+        if "onepass_kernel" in e.key:
+            ms = e.self_device_time_total / 1e3
+            log(f"[profile] {label}: onepass kernel {ms:.2f} ms over "
+                f"{e.count} launches ({ms / e.count:.5f} ms each)")
     return out
 
 
@@ -1026,14 +1109,15 @@ def timing_entries(captured, softmax_inputs):
     for name, (args, kw, _) in captured.items():
         if name == "twopass":
             continue
-        fn, plain_fn = getattr(K, name), plain_of(name)
+        kname = name.split("/")[0]
+        fn, plain_fn = getattr(K, kname), plain_of(kname)
         entries.append((
             name, f"q{tuple(args[0].shape)} k{tuple(args[1].shape)}",
-            lambda name=name, args=args, kw=kw: K.kernel_launcher(
+            lambda name=kname, args=args, kw=kw: K.kernel_launcher(
                 name, *args, **kw),
             lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
             lambda f=plain_fn, args=args, kw=kw: f(*args, **kw),
-            bound_ms(name, args, kw)))
+            bound_ms(kname, args, kw)))
     args, kw, _ = captured["twopass"]
     q, k, v, lm, om, kv_len = args
     pass_kw = {n: x for n, x in kw.items() if n != "adaptive"}
@@ -1064,24 +1148,38 @@ def timing_entries(captured, softmax_inputs):
     return entries
 
 
-def time_kernels(captured, softmax_inputs, launches, checks):
-    rows = []
+def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
+    """One row per kernel. B2's row also carries its decode-shaped call
+    (``decode``: times, bound and launches of run (b)'s sq-1 calls) and
+    the launches of its prefill calls; each paged kernel's row its mean
+    time per launch over the serve (``serve_mean_ms``)."""
+    rows, decode = [], None
     for name, shape, bind, call_fn, plain_fn, (bms, by) in timing_entries(
             captured, softmax_inputs):
         ms = kernel_ms(bind)
         call = median_ms(call_fn)
         plain = median_ms(plain_fn, reps=10)
+        whose = "both passes" if name in TWOPASS else "one call"
+        log(f"[timing] {name} at main-path shape {shape}: kernel {ms:.4f} "
+            f"ms (wrapper call, {whose}: {call:.4f} ms), plain {plain:.4f} "
+            f"ms, bound {bms:.5f} ms ({by}); library call: none (no "
+            f"PyTorch call computes ITA's integer attention or softmax)")
+        if name == ONEPASS_DECODE:
+            decode = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
+                      "bound_by": by, "launches": launches[name]}
+            continue
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": checks.max_err[name], "ms": ms,
                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                      "library_ms": None})
-        whose = "both passes" if name in TWOPASS else "one call"
-        log(f"[timing] {name} at main-path shape {shape}: kernel {ms:.4f} "
-            f"ms (wrapper call, {whose}: {call:.4f} ms), plain {plain:.4f} "
-            f"ms, bound {bms:.5f} ms ({by}); library call: none (no "
-            f"PyTorch call computes ITA's integer attention or softmax)")
+        if name in serve_mean:
+            rows[-1]["serve_mean_ms"] = serve_mean[name]
+    for row in rows:
+        if row["name"] == "ita_attention_onepass":
+            row["decode"] = decode
+            row["prefill_launches"] = row["launches"] - decode["launches"]
     return rows
 
 # ---------------------------------------------------------------------------
@@ -1354,7 +1452,8 @@ def main():
     # serve; the softmax: its run on run (c)'s A
     rows = time_kernels(captured, softmax_inputs,
                         {**serve_launches, **metrics["launches"],
-                         "ita_softmax": softmax_launches}, checks)
+                         "ita_softmax": softmax_launches}, checks,
+                        served["mean_ms"])
     linear_launches, linear_ops = full_width_linear(model, cfg, checks)
     rows += time_linear(linear_ops, linear_launches, checks)
     log(f"[result] prefill {metrics['prefill_s']:.4f} s, decode "

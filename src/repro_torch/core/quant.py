@@ -55,23 +55,46 @@ class QTensor(NamedTuple):
         return self.values.float() * self.scale
 
 
+_HALF = (torch.bfloat16, torch.float16)
+
+
+def _work_dtype(x: torch.Tensor, scale=None) -> torch.dtype:
+    """The dtype JAX computes ``max|x|/127`` and ``x / scale`` in: a bf16
+    or f16 ``x`` keeps its dtype against a Python number or a scale of
+    its own dtype; anything else is float32."""
+    dt = x.dtype if x.dtype in _HALF else torch.float32
+    if scale is None or type(scale) in (int, float):
+        return dt
+    return dt if torch.is_tensor(scale) and scale.dtype == dt \
+        else torch.float32
+
+
 def compute_scale(x: torch.Tensor, axis=None,
                   keepdims: bool = False) -> torch.Tensor:
-    """Symmetric calibration scale: max(|x|)/127 (never zero), in float32.
-    A bf16 input is widened first, where the JAX package would compute
-    its scale in bf16: the port quantizes float32 tensors."""
-    a = x.float().abs()
+    """Symmetric calibration scale: max(|x|)/127 (never zero), in x's
+    dtype when x is bf16 or f16 (as the JAX package computes it), else in
+    float32."""
+    dt = _work_dtype(x)
+    a = x.to(dt).abs()
     amax = a.amax() if axis is None else a.amax(dim=axis, keepdim=keepdims)
     if axis is None and keepdims:
         amax = amax.reshape((1,) * x.ndim)
-    return torch.clamp(amax, min=1e-8) / _f32(INT8_MAX, x.device)
+    floor = torch.tensor(1e-8, dtype=dt, device=x.device)
+    return torch.maximum(amax, floor) / torch.tensor(INT8_MAX, dtype=dt,
+                                                     device=x.device)
 
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
-    """Real -> int8: divide by the scale (a tensor: torch divides by a
-    Python scalar as a reciprocal multiply on the card), round half to
-    even (``torch.round``, like ``jnp.round``), saturate."""
-    q = torch.round(x.float() / _f32(scale, x.device))
+    """Real -> int8: divide by the scale, round half to even
+    (``torch.round``, like ``jnp.round``), saturate. The quotient is taken
+    in the dtype JAX would use (``_work_dtype``: bf16 for a bf16 x and
+    its bf16 scale) and the scale enters as a tensor (torch divides by a
+    Python scalar as a reciprocal multiply on the card)."""
+    dt = _work_dtype(x, scale)
+    s = torch.as_tensor(scale, device=x.device).to(dt) \
+        if torch.is_tensor(scale) else torch.as_tensor(scale, dtype=dt,
+                                                       device=x.device)
+    q = torch.round(x.to(dt) / s)
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
 
 

@@ -7,16 +7,23 @@
 // DA step (running max, Σ, u = 128 >> k), acc = acc·2^-δ + u·V, and DI at
 // the last tile folded into the int8 output requant.
 //
-// What bounds it: at serving shapes the work per byte is small (a decode
-// row reads its KV prefix once and does 4 integer ops per byte), so the
-// bound is the K/V bytes over the memory rate. This first design is the
-// simple one: one block per (row, q tile), a loop over KV tiles inside the
-// block (the TPU grid's sequential axis; the integer Σ shifts make the
-// result depend on the KV tile schedule, so KV is never split across
-// blocks), K/V tiles staged in shared memory, Q·Kᵀ by __dp4a, u·V by
-// int32 multiply-adds, and an f32 accumulator in registers. Fully masked
-// KV tiles (beyond kv_len, above the causal diagonal, left of the window)
-// are exact no-ops of the DA step and are skipped.
+// The helpers (mask, requant, DA shifts, DIs, powers of two) serve every
+// attention kernel: onepass.cu's tensor-core kernel (B2, B3) and
+// `attend_rows` below.
+//
+// `attend_rows` now serves only the decode kernel (decode.cu: B4, B4p).
+// It is the first port's simple design: one block per (row, q tile), a
+// loop over KV tiles inside the block (the TPU grid's sequential axis;
+// the integer Σ shifts make the result depend on the KV tile schedule,
+// so KV is never split across blocks), K/V tiles staged in shared memory
+// by plain loads, Q·Kᵀ by __dp4a, u·V by int32 multiply-adds, and an f32
+// accumulator in registers. Fully masked KV tiles (beyond kv_len, above
+// the causal diagonal, left of the window) are exact no-ops of the DA
+// step and are skipped. What bounds it: its scalar products and its
+// synchronous copies, not the K/V bytes of a decode row (its times are
+// about 50x its bytes bound on the H100, PERF.md); onepass.cu's design
+// (heads of a kv head packed into one tile, mma.sync, cp.async) is
+// what a redesign of the decode kernel would start from.
 //
 // Bit-exactness with the JAX package: round half to even (rintf), every
 // product that feeds a rounding is an explicit __fmul_rn (no contraction),

@@ -75,6 +75,8 @@ PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
 MAX_DECODE_Q = 8
 _MAX_HEAD_DIM = 256
 _MAX_SMEM = 232448          # bytes of shared memory one block may use
+ONEPASS_MAX_TILE = 256      # keys per KV tile the onepass kernel takes
+ONEPASS_MANY_BLOCKS = 4 * 132   # 64-row blocks from this many on
 
 
 def reset_launches() -> None:
@@ -206,6 +208,59 @@ def _bind(name, args, out, keep):
     return launch, out
 
 
+def onepass_geometry(bh, sq, d, bkv, kv_rep):
+    """The onepass kernel's launch for a call (``csrc/onepass.cu``, whose
+    ``geometry`` and ``layout`` compute the same). A block serves one kv
+    row (the ``kv_rep`` q rows that read the same K/V) and ``rows`` packed
+    rows, query-major (packed row m is query ``m // kv_rep`` of head
+    ``m % kv_rep``), in row groups of 16 with ``wn`` warps each: 16 rows
+    and 8 warps when a kv row has at most 16 packed rows (a decode step;
+    4 warps at d <= 64), 64 rows and 2 warps when 64-row blocks number
+    ``ONEPASS_MANY_BLOCKS`` or more, else 32 rows and 4 warps (also for
+    KV tiles over 128 keys). Shared memory: 1 or 2 stages of K and V and
+    the Q tile (rows of d + 16 bytes), the u tile (rows of the keys
+    rounded up to 32, + 16 bytes), the row groups' partial maxima and
+    sums and 16 bytes for the block's KV range; two stages where they
+    fit. Raises on what the kernel cannot take."""
+    if d <= 0 or d % 16 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"onepass kernel: head dim {d} must be a multiple "
+                         f"of 16 and at most {_MAX_HEAD_DIM}")
+    if not 0 < bkv <= ONEPASS_MAX_TILE:
+        raise ValueError(f"onepass kernel: a KV tile of {bkv} keys; it "
+                         f"takes 1 to {ONEPASS_MAX_TILE}")
+    if kv_rep <= 0 or bh % kv_rep:
+        raise ValueError(f"onepass kernel: {bh} rows are not kv rows of "
+                         f"{kv_rep} q heads")
+    packed, n_kr = sq * kv_rep, bh // kv_rep
+    if bkv > 128:
+        wm = 2
+    elif packed <= 16:
+        wm = 1
+    else:
+        wm = 4 if n_kr * -(-packed // 64) >= ONEPASS_MANY_BLOCKS else 2
+    wn = 4 if wm == 1 and d <= 64 else 8 // wm
+    rows = 16 * wm
+    ks, sp = d + 16, -(-bkv // 32) * 32
+    for stages in (2, 1):
+        smem = stages * 2 * sp * ks + rows * (ks + sp + 16) \
+            + 2 * wn * rows * 4 + 16
+        if smem <= _MAX_SMEM:
+            break
+    else:
+        raise ValueError(f"onepass kernel: d={d}, block_kv={bkv} needs "
+                         f"{smem} bytes of shared memory (> {_MAX_SMEM})")
+    n_mt = -(-packed // rows)
+    return {"rows": rows, "warps_n": wn, "threads": 32 * wm * wn,
+            "tiles_per_kv_row": n_mt, "grid": n_kr * n_mt,
+            "stages": stages, "smem": smem}
+
+
+def decode_smem(sq, d, bkv):
+    """Shared memory of a decode block (``ita_common.cuh``'s
+    ``smem_bytes`` with the query tile sized to sq)."""
+    return (sq + bkv) * (d + 16) + bkv * d + sq * bkv * 4 + sq * 16
+
+
 def _check_vectors(name, d, *tensors):
     """The kernels load D-vectors as 16-byte words."""
     if d % 16 or d > _MAX_HEAD_DIM:
@@ -253,9 +308,9 @@ def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
     operands = (k, v, lmult, omult, meta) + ((page_table,) if paged else ())
     _require_cuda(name, q, *operands)
     _check_vectors(name, d, q, k, v)
-    bq = 16 if name.startswith("ita_attention_onepass") else sq
-    smem = (bq + bkv) * (d + 16) + bkv * d + bq * bkv * 4 + bq * 16
-    if smem > _MAX_SMEM:
+    if name.startswith("ita_attention_onepass"):
+        onepass_geometry(bh, sq, d, bkv, kv_rep)
+    elif (smem := decode_smem(sq, d, bkv)) > _MAX_SMEM:
         raise ValueError(f"{name}: block_kv={bkv}, d={d} needs {smem} bytes "
                          f"of shared memory (> {_MAX_SMEM})")
     out = torch.empty_like(q)
@@ -316,7 +371,8 @@ def ita_attention_onepass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
     """Flash-style onepass ITA attention. q (BH, Sq, D) int8; k/v 3D
     (BH/kv_rep, Skv, D) or 4D (B, Skv, G, D) with ``hq``; returns (BH, Sq,
     D) int8. ``block_q`` is accepted for signature parity: query rows are
-    independent, and the CUDA kernel tiles them by 16."""
+    independent, and the CUDA kernel packs them with their heads
+    (``onepass_geometry``)."""
     kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
               adaptive=adaptive, block_kv=block_kv, kv_rep=kv_rep, hq=hq)
     if q_q.device.type == "cpu":

@@ -24,6 +24,16 @@ CASES = [
     ("onepass", 1, 4, 1, 32, 256, 32, 64, True, 40, "3d"),
     ("onepass", 1, 2, 1, 8, 128, 16, 64, False, 0, "4d"),
     ("onepass", 1, 4, 2, 64, 512, 128, 256, True, 0, "4d"),
+    # qwen2-7b's 28/4 heads packed into the block: prefill, decode-shaped
+    # calls (sq 1 and 2), a window; head dims 64 and 256 (256-key tiles:
+    # one staging stage)
+    ("onepass", 2, 28, 4, 40, 384, 128, 128, True, 0, "3d"),
+    ("onepass", 2, 28, 4, 1, 640, 128, 128, True, 0, "4d"),
+    ("onepass", 2, 28, 4, 2, 640, 128, 128, True, 0, "3d"),
+    ("onepass", 1, 28, 4, 24, 512, 128, 128, True, 200, "4d"),
+    ("onepass", 2, 8, 2, 48, 256, 64, 128, True, 0, "4d"),
+    ("onepass", 1, 4, 2, 80, 512, 256, 128, True, 0, "3d"),
+    ("onepass", 1, 4, 2, 40, 512, 256, 256, True, 0, "4d"),
     ("decode", 2, 2, 1, 1, 20, 16, 128, True, 0, "3d"),
     ("decode", 2, 4, 2, 1, 256, 16, 128, True, 0, "4d"),
     ("decode", 1, 4, 2, 4, 256, 32, 64, True, 70, "4d"),
@@ -130,6 +140,49 @@ def test_cuda_paged_kernel_matches_plain(case):
         torch.cuda.synchronize()
         assert torch.equal(got, want), adaptive
         assert torch.equal(got, ring), adaptive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 200])
+def test_cuda_onepass_paged_prefill_decode_idle_rows(window):
+    """The paged onepass kernel on the serve's mixed call at qwen2-7b
+    widths (28/4 heads, d 128, 128-token pages): batch rows with 96, 1
+    and 0 queries in one call, against its plain version and the ring
+    kernel on the gathered pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    b, hq, hkv, sq, page, n_pages, d = 3, 28, 4, 96, 128, 9, 128
+    rng = np.random.default_rng(96 + window)
+    bh, total = b * hq, b * n_pages + 3
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    pt = rng.permutation(np.arange(1, total))[:b * n_pages]
+    pt = t(pt.reshape(b, n_pages).astype(np.int32))
+    k = t(rng.integers(-128, 128, (total, page, hkv, d), dtype=np.int8))
+    v = t(rng.integers(-128, 128, (total, page, hkv, d), dtype=np.int8))
+    q = t(rng.integers(-128, 128, (bh, sq, d), dtype=np.int8))
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    kv_len = t(np.repeat(np.array([1000, 515, 300], np.int32), hq))
+    q_len = t(np.repeat(np.array([96, 1, 0], np.int32), hq))
+    for adaptive in (True, False):
+        kw = dict(q_offset=torch.clamp(kv_len - q_len, min=0), q_len=q_len,
+                  causal=True, window=window, adaptive=adaptive,
+                  kv_rep=hq // hkv, hq=hq)
+        got = K.ita_attention_onepass_paged(q, k, v, pt, lmult, omult,
+                                            kv_len, **kw)
+        want = K.paged_attention_plain(q, k, v, pt, lmult, omult, kv_len,
+                                       **kw)
+        ring = K.ita_attention_onepass(q, K.gather_pages(k, pt),
+                                       K.gather_pages(v, pt), lmult, omult,
+                                       kv_len, block_kv=page, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), adaptive
+        assert torch.equal(got, ring), adaptive
+        assert not got[2 * hq:].any() and not got[hq:2 * hq, 1:].any()
 
 
 TWOPASS_CASES = [

@@ -278,3 +278,49 @@ def test_wrappers_count_only_kernel_launches():
                                 torch.zeros((1, 32, 16), dtype=torch.int8),
                                 torch.zeros((1, 32, 16), dtype=torch.int8),
                                 0.01, 1.0, 32, kv_rep=2)
+
+
+@pytest.mark.parametrize("bkv", [128, 256])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_onepass_geometry(d, bkv):
+    """The onepass kernel's launch geometry (``csrc/onepass.cu``) at
+    qwen2-7b's 28/4 heads: a block serves one kv row and a tile of packed
+    (query, head) rows in row groups of 16 — 64 rows for the 4×512
+    prefill (896 blocks), 16 for a decode step, 32 for a serve step's 96
+    queries and for KV tiles over 128 keys; shared memory within a
+    block's 232,448 bytes, two staging stages where they fit."""
+    prefill = TK.onepass_geometry(112, 512, d, bkv, 7)
+    decode = TK.onepass_geometry(112, 1, d, bkv, 7)
+    serve = TK.onepass_geometry(112, 96, d, bkv, 7)
+    wide = bkv > 128
+    assert prefill["rows"] == (32 if wide else 64)
+    assert prefill["grid"] == 16 * (112 if wide else 56)
+    assert decode["rows"] == (32 if wide else 16) and decode["grid"] == 16
+    assert serve["rows"] == 32 and serve["grid"] == 16 * 21
+    for geo in (prefill, decode, serve):
+        assert geo["threads"] == geo["rows"] * 2 * geo["warps_n"]
+        assert geo["threads"] in (128, 256)
+        assert geo["smem"] <= 232448
+    assert decode["threads"] == (128 if d == 64 and not wide else 256)
+    ks, rows = d + 16, prefill["rows"]
+    stages = 1 if (d, bkv) == (256, 256) else 2
+    assert prefill["stages"] == stages
+    assert prefill["smem"] == (stages * 2 * bkv * ks + rows * (ks + bkv + 16)
+                               + 2 * prefill["warps_n"] * rows * 4 + 16)
+    # a short ring's tile is rounded up to the 32 keys of an mma step
+    short = TK.onepass_geometry(4, 20, d, 20, 2)
+    assert short["smem"] == 2 * 2 * 32 * ks + short["rows"] * (ks + 48) \
+        + 2 * short["warps_n"] * short["rows"] * 4 + 16
+
+
+@pytest.mark.parametrize("d, bkv, bh, kv_rep, what", [
+    (40, 128, 8, 2, "multiple of 16"),
+    (272, 128, 8, 2, "multiple of 16"),
+    (128, 512, 8, 2, "KV tile"),
+    (128, 0, 8, 2, "KV tile"),
+    (128, 128, 9, 2, "kv rows"),
+])
+def test_onepass_geometry_refuses_what_the_kernel_cannot_take(d, bkv, bh,
+                                                              kv_rep, what):
+    with pytest.raises(ValueError, match=what):
+        TK.onepass_geometry(bh, 16, d, bkv, kv_rep)

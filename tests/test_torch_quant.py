@@ -184,3 +184,69 @@ def test_quantized_linear_matches_jax(per_channel, with_bias, out_scale):
     rel = np.abs(tout.dequantize().numpy() - y_ref).mean() \
         / (np.abs(y_ref).mean() + 1e-9)
     assert rel < (0.05 if out_scale is None else 0.2)
+
+
+def _bf16_pair(x):
+    """``x`` rounded to bf16 once, as a JAX array and a torch tensor with
+    the same bits."""
+    jx = jnp.asarray(x, dtype=jnp.bfloat16)
+    bits = np.asarray(jax.lax.bitcast_convert_type(jx, jnp.uint16))
+    tx = torch.from_numpy(bits.astype(np.int16)).view(torch.bfloat16)
+    return jx, tx
+
+
+BF16_INPUTS = {
+    # the failing input of the port's bf16 quantization fault: JAX's
+    # scale 0.091796875, first differing value at (0, 4)
+    "normal3-64x96": lambda: np.random.default_rng(0)
+    .standard_normal((64, 96)) * 3,
+    "wide-6x10x4": lambda: np.random.default_rng(11)
+    .normal(0, 30.0, (6, 10, 4)),
+    "small-7x33": lambda: np.random.default_rng(12)
+    .normal(0, 0.05, (7, 33)),
+}
+
+
+@pytest.mark.parametrize("axis", [None, 0, 1])
+@pytest.mark.parametrize("name", sorted(BF16_INPUTS))
+def test_quantize_tensor_bf16_matches_jax(name, axis):
+    """A bf16 input is quantized as JAX quantizes it: ``max|x|/127`` and
+    ``x / scale`` in bf16, then round half to even and clip. The float32
+    scales and the int8 values are equal bit for bit, per tensor and per
+    axis; so are ``compute_scale`` (in bf16) and ``quantize`` with a
+    bf16 scale and with a Python-float scale."""
+    jx, tx = _bf16_pair(BF16_INPUTS[name]())
+    jq = JQ.quantize_tensor(jx, axis=axis)
+    tq = TQ.quantize_tensor(tx, axis=axis)
+    _same(jq.values, tq.values)
+    _same(jq.scale, tq.scale)
+    js = JQ.compute_scale(jx, axis=axis, keepdims=axis is not None)
+    ts = TQ.compute_scale(tx, axis=axis, keepdims=axis is not None)
+    assert ts.dtype == torch.bfloat16
+    _same(np.asarray(js.astype(jnp.float32)), ts.float())
+    _same(JQ.quantize(jx, js), TQ.quantize(tx, ts))
+    _same(JQ.quantize(jx, 0.0173), TQ.quantize(tx, 0.0173))
+    _same(JQ.quantize(jx, jnp.float32(0.0173)),
+          TQ.quantize(tx, torch.tensor(0.0173)))
+
+
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_quantized_linear_bf16_matches_jax(per_channel, with_bias):
+    """``quantized_linear`` on a bf16 activation (the failing input of the
+    bf16 quantization fault) with a float32 weight: the int8 values, the
+    output scale and the int32 accumulator equal JAX's."""
+    jx, tx = _bf16_pair(BF16_INPUTS["normal3-64x96"]())
+    rng = np.random.default_rng(1)
+    w = rng.normal(0, 0.05, (96, 32)).astype(np.float32)
+    bias = rng.normal(0, 0.3, 32).astype(np.float32) if with_bias else None
+    axis = 0 if per_channel else None
+    jw = JQ.quantize_tensor(jnp.asarray(w), axis=axis)
+    tw = TQ.quantize_tensor(torch.from_numpy(w), axis=axis)
+    jout, jacc = JQ.quantized_linear(
+        jx, jw, None if bias is None else jnp.asarray(bias))
+    tout, tacc = TQ.quantized_linear(
+        tx, tw, None if bias is None else torch.from_numpy(bias))
+    _same(jout.values, tout.values)
+    _same(jout.scale, tout.scale)
+    _same(jacc, tacc)
