@@ -73,15 +73,21 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    quantized per output channel, the activations per tensor, the q/k/v
    biases in accumulator units and the multipliers s_x·s_w/s_y from
    ``core.quant.quantized_linear`` (s_y calibrated on the exact
-   accumulator). ``kernels.int8_matmul.ops.int8_matmul`` runs every
-   projection with both schedules (B7a, B7b), the counters zeroed just
-   before and read just after: one B7a launch per call, K/block_k B7b
-   launches. Each output must equal its plain version, the other
-   schedule and ``quantized_linear``'s int8 values; so must a random-bias
-   case and cases that pad M, K and N. Then each shape is timed: each
-   kernel alone and through its wrapper, its plain version, and
-   ``torch._int_mm`` (cuBLASLt, the int32 product only) as the library
-   yardstick, also, for information, with w stored column-major.
+   accumulator); ``quantize_tensor`` stores the quantized weights K-major
+   (the (K, N) view of an (N, K) buffer, the storage the kernels read).
+   ``kernels.int8_matmul.ops.int8_matmul`` runs every projection with
+   both schedules (B7a, B7b), the counters zeroed just before and read
+   just after: one launch per call of either. Each output must equal its
+   plain version, the other schedule, the same call on the row-major
+   weight and ``quantized_linear``'s int8 values; so must a random-bias
+   case and cases that pad M, K and N (row-major weights). Then each
+   shape is timed: each kernel alone on the K-major weight (back-to-back
+   launches, the ``ms`` of every kernel; and device time, launches
+   captured in a CUDA graph), the wrapper call on the K-major and on the
+   row-major weight (which it transposes once per call), the plain
+   version, and ``torch._int_mm`` (cuBLASLt, the int32 product only;
+   back-to-back and in a CUDA graph) on both layouts as the library
+   yardstick.
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -1097,6 +1103,37 @@ def kernel_ms(bind, reps=30, inner=10):
     return statistics.median(times)
 
 
+def graph_ms(bind, reps=20, inner=10):
+    """Device time of one launch of a bound call: ``inner`` launches
+    captured in a CUDA graph, the median over ``reps`` replays (CUDA
+    events) divided by ``inner``. Unlike ``kernel_ms`` it leaves out the
+    host's work per launch, which paces back-to-back launches of calls
+    shorter than a few tens of µs. ``bind()`` returns ``(launch, out)``."""
+    import torch
+    launch, _ = bind()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm up off the capture
+        for _ in range(3):
+            launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            launch()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
 def timing_entries(captured, softmax_inputs):
     """``(name, shape, bind, call, plain, (bound_ms, bound_by))`` of every
     kernel on the main path's inputs: the ring kernels on layer 0 of
@@ -1252,12 +1289,21 @@ def linear_operands(x, w_q, bias=None):
             (acc_scale / out.scale).reshape(-1), out.values)
 
 
+def other_layout(w_q):
+    """The same weight values in the other storage: row-major for a
+    K-major view, K-major for a row-major one."""
+    return w_q.contiguous() if w_q.t().is_contiguous() \
+        else w_q.t().contiguous().t()
+
+
 def check_linear(checks, x_q, w_q, bias_q, mult, want, label):
     """B7a and B7b through ``ops.int8_matmul`` against their plain
-    versions, each other and ``quantized_linear``'s int8 values."""
+    versions, each other, the same call on the weight in the other
+    storage and ``quantized_linear``'s int8 values."""
     from repro_torch.kernels.int8_matmul import kernel as MK
     from repro_torch.kernels.int8_matmul.ops import int8_matmul
     outs = {}
+    w_other = other_layout(w_q)
     for schedule, name in MATMUL.items():
         outs[name] = int8_matmul(x_q, w_q, bias_q, mult, schedule=schedule)
         plain = MK.matmul_plain(x_q, w_q, bias_q, mult) \
@@ -1265,15 +1311,29 @@ def check_linear(checks, x_q, w_q, bias_q, mult, want, label):
             else MK.matmul_ws_plain(x_q, w_q, bias_q, mult, block_k=128)
         checks.compare(name, outs[name], plain, label)
         checks.compare(name, outs[name], want, label + " vs quantized_linear")
+        checks.compare(name, int8_matmul(x_q, w_other, bias_q, mult,
+                                         schedule=schedule), outs[name],
+                       label + " with the weight in the other storage")
     checks.compare(MATMUL["weight_stationary"], outs["int8_matmul_ws"],
                    outs["int8_matmul"], label + " vs B7a")
 
 
 def matmul_bound(m, k, n):
-    """Least time of one call: x, w, bias and mult read once, out written
-    once, against 2 operations per multiply-add; B7b's bound is B7a's
-    (the same function)."""
+    """Least time of one B7a call: x, w, bias and mult read once, out
+    written once, against 2 operations per multiply-add."""
     return roofline(m * k + k * n + 8 * n + m * n, 2 * m * n * k)
+
+
+def ws_bound(m, k, n, block_k=128):
+    """Least time of one B7b call, from the call's own M, K and N: x, w,
+    bias and mult read once, the int32 partial sums read and written once
+    per k tile (the schedule's 2·4·M·N·K/block_k bytes), out written
+    once, against 2 operations per multiply-add. The reference reads
+    each weight tile once; the kernel's re-reads of w (once per m range)
+    are its own design's cost, logged beside the [psum] bytes."""
+    nbytes = m * k + k * n + 8 * n + 2 * 4 * m * n * -(-k // block_k) \
+        + m * n
+    return roofline(nbytes, 2 * m * n * k)
 
 
 def full_width_linear(model, cfg, checks):
@@ -1286,8 +1346,12 @@ def full_width_linear(model, cfg, checks):
     inputs = layer0_projection_inputs(model, cfg)
     weights = layer0_weights(model)
     blk = model.blocks[0]
-    w_qs = {name: quantize_tensor(w.float(), axis=0)
-            for name, w in weights.items()}
+    w_qs = {}
+    for name, w in weights.items():
+        w_qs[name] = quantize_tensor(w.float(), axis=0)
+        if not w_qs[name].values.t().is_contiguous():
+            raise AssertionError(f"{name}: quantize_tensor did not store "
+                                 f"the weight K-major")
     ops = {}
     for m, xs in inputs.items():
         for name in PROJECTIONS:
@@ -1303,9 +1367,7 @@ def full_width_linear(model, cfg, checks):
             for schedule in MATMUL}
     launches = read_launches()
     want = dict.fromkeys(SOURCES, 0)
-    want["int8_matmul"] = len(ops)
-    want["int8_matmul_ws"] = sum(-(-w_q.shape[0] // 128)
-                                 for _, w_q, *_ in ops.values())
+    want["int8_matmul"] = want["int8_matmul_ws"] = len(ops)
     if launches != want:
         raise AssertionError(f"quantized-linear launches {launches} != "
                              f"{want}")
@@ -1330,11 +1392,11 @@ def full_width_linear(model, cfg, checks):
         check_linear(checks, *linear_operands(x, w_cut),
                      f"{name}[:{k}, :{n}] M={m} (padded)")
     log(f"[linear] layer 0's 7 projections at M = {B * PROMPT} and {B}, "
-        f"both schedules: launches {launches}; every output bit-exact vs "
-        f"its plain version, the other schedule and quantized_linear "
-        f"(checks B7a {checks.n['int8_matmul']}, B7b "
-        f"{checks.n['int8_matmul_ws']}: model and random bias, padded M, "
-        f"K and N)")
+        f"both schedules, weights K-major: launches {launches}; every "
+        f"output bit-exact vs its plain version, the other schedule, the "
+        f"row-major weight and quantized_linear (checks B7a "
+        f"{checks.n['int8_matmul']}, B7b {checks.n['int8_matmul_ws']}: "
+        f"model and random bias, padded M, K and N)")
     return launches, ops
 
 
@@ -1356,48 +1418,72 @@ def int_mm_call(x_q, w_q):
 
 
 def time_linear(ops, launches, checks):
-    """Each distinct (M, K, N) of phase 7: the kernels alone and through
-    ``ops.int8_matmul``, their plain versions, ``torch._int_mm``; B7b's
-    psum bytes. Returns the kernels' rows at w_gate, M = B·PROMPT."""
+    """Each distinct (M, K, N) of phase 7: the kernels alone on the
+    K-major weight (back-to-back launches, as every kernel's ``ms``; and
+    device time from a CUDA graph), the wrapper calls on the K-major and
+    the row-major weight, their plain versions, ``torch._int_mm`` on both
+    layouts (back-to-back calls and a CUDA graph); B7b's psum bytes.
+    Returns the kernels' rows at w_gate, M = B·PROMPT."""
     from repro_torch.kernels.int8_matmul import kernel as MK
     from repro_torch.kernels.int8_matmul.ops import int8_matmul
+    sms = MK.sm_count(DEV)
     rows, seen = [], set()
-    for (m, name), (x_q, w_q, bias_q, mult, _) in ops.items():
-        k, n = w_q.shape
+    for (m, name), (x_q, w_km, bias_q, mult, _) in ops.items():
+        k, n = w_km.shape
         if (m, k, n) in seen:
             continue
         seen.add((m, k, n))
-        bms, by = matmul_bound(m, k, n)
-        lib, note = int_mm_call(x_q, w_q)
-        lib_ms = median_ms(lib)
-        # information: cuBLASLt's int8 GEMM with w stored column-major
-        # (transposed once, outside the timing)
-        lib_cm_ms = median_ms(int_mm_call(x_q, w_q.t().contiguous().t())[0])
+        w_rm = other_layout(w_km)
+        lib, lib_graph, note = {}, {}, ""
+        for layout, w in (("row-major", w_rm), ("K-major", w_km)):
+            call_, note = int_mm_call(x_q, w)
+            lib[layout] = kernel_ms(lambda call_=call_: (call_, None))
+            lib_graph[layout] = graph_ms(lambda call_=call_: (call_, None))
+        best = min(lib, key=lib.get)
+        x_pad = int8_matmul_pad(x_q)
         for schedule, kname in MATMUL.items():
+            bms, by = matmul_bound(m, k, n) if schedule == "tpu" \
+                else ws_bound(m, k, n)
+
             def bind(schedule=schedule):
-                launches_, out = MK.kernel_launcher(
-                    int8_matmul_pad(x_q), w_q, bias_q, mult,
-                    schedule=schedule)
-                return (lambda: [launch() for launch in launches_]), out
-            ms = kernel_ms(bind, reps=20 if m > B else 30)
-            call = median_ms(lambda schedule=schedule: int8_matmul(
-                x_q, w_q, bias_q, mult, schedule=schedule))
-            plain_fn = (lambda: MK.matmul_plain(x_q, w_q, bias_q, mult)) \
+                return MK.kernel_launcher(x_pad, w_km, bias_q, mult,
+                                          schedule=schedule)
+            reps = 10 if m > B and schedule != "tpu" else 20
+            ms = kernel_ms(bind, reps=reps)
+            graph = graph_ms(bind, reps=reps)
+            call = {layout: median_ms(
+                lambda w=w, schedule=schedule: int8_matmul(
+                    x_q, w, bias_q, mult, schedule=schedule))
+                for layout, w in (("K-major", w_km), ("row-major", w_rm))}
+            plain_fn = (lambda: MK.matmul_plain(x_q, w_km, bias_q, mult)) \
                 if schedule == "tpu" else (lambda: MK.matmul_ws_plain(
-                    x_q, w_q, bias_q, mult, block_k=128))
+                    x_q, w_km, bias_q, mult, block_k=128))
             plain = median_ms(plain_fn, reps=5, warmup=1)
+            geo = MK.matmul_geometry(x_pad.shape[0], n, k, sms=sms) \
+                if schedule == "tpu" \
+                else MK.ws_geometry(x_pad.shape[0], n, k, 128, sms=sms)
             log(f"[timing] {kname} layer 0 {name} M={m} K={k} N={n}: kernel "
-                f"{ms:.4f} ms (wrapper call {call:.4f} ms), plain "
+                f"{ms:.4f} ms on the K-major weight (back-to-back launches; "
+                f"CUDA graph {graph:.4f} ms; wrapper call "
+                f"{call['K-major']:.4f} ms, on the row-major weight, "
+                f"transposed per call, {call['row-major']:.4f} ms), plain "
                 f"{plain:.4f} ms, bound {bms:.5f} ms ({by}), torch._int_mm "
-                f"{lib_ms:.4f} ms ({note}; with w stored column-major "
-                f"{lib_cm_ms:.4f} ms)")
+                f"{lib['row-major']:.4f} ms row-major / {lib['K-major']:.4f} "
+                f"ms K-major back-to-back, {lib_graph['row-major']:.4f} / "
+                f"{lib_graph['K-major']:.4f} ms in a CUDA graph ({note}); "
+                f"grid {geo['grid']}")
             if schedule == "weight_stationary":
-                psum = 2 * 4 * int8_matmul_pad(x_q).shape[0] * n * k // 128
+                rows_k = x_pad.shape[0]
+                psum = 2 * 4 * rows_k * n * k // 128
+                extra = (geo["ranges"] - 1) * k * n
                 log(f"[psum] {kname} layer 0 {name} M={m} K={k} N={n}: "
                     f"{psum / 1e9:.4f} GB of partial sums per call "
-                    f"(2·4·M·N·K/block_k; {-(-k // 128)} launches of "
-                    f"{-(-n // 128)} blocks) in {ms:.4f} ms, "
-                    f"{psum / 1e9 / ms:.3f} TB/s")
+                    f"(2·4·M·N·K/block_k on {rows_k} rows; 1 launch of "
+                    f"{geo['grid'][0] * geo['grid'][1]} blocks, m ranges of "
+                    f"{geo['range_rows']} rows, which read w "
+                    f"{geo['ranges']} times: {extra / 1e9:.4f} GB more than "
+                    f"the bound's once) in {graph:.4f} ms of device time, "
+                    f"{psum / 1e9 / graph:.3f} TB/s")
             if (m, name) == (B * PROMPT, "w_gate"):
                 source, replaces = SOURCES[kname]
                 rows.append({"name": kname, "route": "cuda",
@@ -1405,7 +1491,17 @@ def time_linear(ops, launches, checks):
                              "launches": launches[kname],
                              "max_abs_err": checks.max_err[kname], "ms": ms,
                              "plain_ms": plain, "bound_ms": bms,
-                             "bound_by": by, "library_ms": lib_ms})
+                             "bound_by": by, "library_ms": lib[best],
+                             "library_layout": best,
+                             "library_row_major_ms": lib["row-major"],
+                             "library_k_major_ms": lib["K-major"],
+                             "graph_ms": graph,
+                             "library_graph_row_major_ms":
+                                 lib_graph["row-major"],
+                             "library_graph_k_major_ms":
+                                 lib_graph["K-major"],
+                             "wrapper_k_major_ms": call["K-major"],
+                             "wrapper_row_major_ms": call["row-major"]})
     return rows
 
 

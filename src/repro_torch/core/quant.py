@@ -100,9 +100,16 @@ def quantize(x: torch.Tensor, scale) -> torch.Tensor:
 
 def quantize_tensor(x: torch.Tensor, axis=None) -> QTensor:
     """Per-tensor (``axis=None``) or per-channel quantization; a
-    per-channel scale keeps the reduced axes as size 1."""
+    per-channel scale keeps the reduced axes as size 1. A (K, N) weight
+    quantized per output channel (``axis=0``) is stored K-major, as the
+    (K, N) view of an (N, K) buffer (``w.t().contiguous().t()``, the same
+    values): the layout the int8 GEMM kernels read, made here once rather
+    than on every call."""
     scale = compute_scale(x, axis=axis, keepdims=axis is not None)
-    return QTensor(quantize(x, scale), scale.float())
+    q = quantize(x, scale)
+    if x.ndim == 2 and axis in (0, -2):
+        q = q.t().contiguous().t()
+    return QTensor(q, scale.float())
 
 
 def dequantize(q: torch.Tensor, scale) -> torch.Tensor:

@@ -61,12 +61,12 @@ TWOPASS_AV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
 # Softmax: x, mask, out; r, c, bc, adaptive; stream.
 SOFTMAX_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
-# B7a: x, w, bias, mult, out; m, n, k; stream.
-MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+# B7a: x, wt, bias, mult, out; m, n, ld, bn; stream.
+MATMUL_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
-# B7b, one k tile: x, w, bias, mult, psum, out; m, n, k, k0, bk, final;
-# stream.
-MATMUL_WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+# B7b: x, wt, bias, mult, psum, out; m, n, k, bk, range_rows, staged,
+# double_w; stream.
+MATMUL_WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
 # exported launcher -> (library, argtypes)
 FUNCTIONS = {

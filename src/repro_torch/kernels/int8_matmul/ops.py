@@ -39,8 +39,11 @@ def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
     is sliced back. ``schedule`` is ``"tpu"`` (B7a) or
     ``"weight_stationary"`` (B7b). ``use_pallas=False`` computes the plain
     reference on the tensors' device; otherwise CUDA tensors launch the
-    kernel and CPU tensors take its plain version. ``interpret`` is
-    accepted for parity with the JAX wrapper and changes nothing.
+    kernel and CPU tensors take its plain version. The kernels read w
+    K-major: a weight stored so (``w.t().contiguous().t()``, a (K, N)
+    view of the same values) is used as it is, any other is transposed
+    once per call. ``interpret`` is accepted for parity with the JAX
+    wrapper and changes nothing.
     """
     dm, dn, dk = default_matmul_blocks()
     block_m = dm if block_m is None else block_m

@@ -293,6 +293,17 @@ MATMUL_CASES = [
     (4, 3584, 512, 256, 128, 128),    # a decode step of qwen2-7b's wk
     (300, 520, 260, 256, 128, 128),   # partial row, column and k tiles
     (130, 1000, 136, 64, 64, 200),    # B7b k tiles of 200 (not a multiple of 64)
+    # B7a's rows geometry (at most 16 rows) and the wgmma one above it
+    (1, 256, 64, 256, 128, 128),      # one row
+    (4, 18944, 256, 256, 128, 128),   # a decode step over a long K
+    (8, 1024, 96, 256, 128, 128),
+    (16, 3584, 512, 256, 128, 128),   # 16 rows
+    (17, 640, 200, 256, 128, 128),    # 17 rows: wgmma, one 128-row tile
+    (2000, 3584, 512, 256, 128, 128),  # wk-shaped prefill: B7b's M in 16
+                                       # ranges
+    (1000, 1000, 2600, 256, 128, 128),  # B7b's partial sums staged: 168
+                                        # blocks
+    (256, 3328, 256, 256, 128, 1664),  # B7b's largest k tile: one weight tile
 ]
 
 
@@ -303,7 +314,8 @@ def test_cuda_int8_matmul_matches_plain(case):
     """Both int8 matmul kernels (B7a, B7b) through ``ops.int8_matmul``
     against the plain version of their schedule on the CPU and the plain
     reference on the card (padding of M, K and N included), against each
-    other, with one B7a launch per call and one B7b launch per k tile; an
+    other, with one launch per call of either; the weight given row-major
+    (transposed by the wrapper) or as a K-major view (read as it is); an
     accumulator above 2^24 checks the float32 conversion."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU build)")
@@ -319,24 +331,27 @@ def test_cuda_int8_matmul_matches_plain(case):
         .astype(np.float32)
     mult[0] = 100 / (127 * 127 * k)
     args = [torch.from_numpy(a) for a in (x, w, bias, mult)]
+    dev = [a.cuda() for a in args]
+    w_km = dev[1].t().contiguous().t()         # the same values, K-major
+    assert not w_km.is_contiguous()
     blocks = dict(block_m=bm, block_n=bn, block_k=bk)
-    want_ref = int8_matmul(*(a.cuda() for a in args), use_pallas=False)
-    kp = -(-k // bk) * bk
+    want_ref = int8_matmul(*dev, use_pallas=False)
     outs = {}
-    for schedule, name, launches in (
-            ("tpu", "int8_matmul", 1),
-            ("weight_stationary", "int8_matmul_ws", kp // min(bk, kp))):
-        MK.reset_launches()
-        got = int8_matmul(*(a.cuda() for a in args), **blocks,
-                          schedule=schedule)
-        torch.cuda.synchronize()
-        assert MK.LAUNCHES[name] == launches, (schedule, MK.LAUNCHES)
+    for schedule, name in (("tpu", "int8_matmul"),
+                           ("weight_stationary", "int8_matmul_ws")):
         want = int8_matmul(*args, **blocks, schedule=schedule)
-        assert torch.equal(got.cpu(), want), schedule
-        assert torch.equal(got, want_ref), schedule
-        outs[schedule] = got
-    assert torch.equal(outs["tpu"], outs["weight_stationary"])
-    assert (outs["tpu"].abs() < 127).float().mean() > 0.5   # not saturated
+        for layout, w_dev in (("row-major", dev[1]), ("k-major", w_km)):
+            MK.reset_launches()
+            got = int8_matmul(dev[0], w_dev, *dev[2:], **blocks,
+                              schedule=schedule)
+            torch.cuda.synchronize()
+            assert MK.LAUNCHES[name] == 1, (schedule, layout, MK.LAUNCHES)
+            assert torch.equal(got.cpu(), want), (schedule, layout)
+            assert torch.equal(got, want_ref), (schedule, layout)
+            outs[schedule, layout] = got
+    assert all(torch.equal(o, outs["tpu", "row-major"])
+               for o in outs.values())
+    assert (want_ref.abs() < 127).float().mean() > 0.5     # not saturated
 
 
 @pytest.mark.cuda
@@ -353,3 +368,17 @@ def test_cuda_int8_matmul_refuses_what_it_cannot_load():
     with pytest.raises(ValueError, match="resident weight tile"):
         MK.kernel_launcher(x, w, 0, 1.0, block_k=2048,
                            schedule="weight_stationary")
+    # B7b's launcher checks the geometry it is given: partial sums staged
+    # beside two weight tiles of 1664 bytes do not fit two blocks to an SM
+    from repro_torch.kernels import build
+    wt = torch.zeros((128, 4096), dtype=torch.int8, device="cuda")
+    psum = torch.zeros((8, 128), dtype=torch.int32, device="cuda")
+    out = torch.empty((8, 128), dtype=torch.int8, device="cuda")
+    bias = torch.zeros(128, dtype=torch.int32, device="cuda")
+    mult = torch.ones(128, device="cuda")
+    ptrs = [t.data_ptr() for t in (x, wt, bias, mult, psum, out)]
+    launch = build.launcher("int8_matmul_ws_launch")
+    stream = torch.cuda.current_stream().cuda_stream
+    assert launch(*ptrs, 8, 128, 4096, 1664, 128, 1, 1, stream) == 1
+    assert launch(*ptrs, 8, 128, 4096, 1664, 128, 0, 0, stream) == 0
+    torch.cuda.synchronize()
