@@ -17,10 +17,16 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    3D case; onepass with kv_len and q_len drawn per head of a kv row
    (3D), decode-shaped onepass calls (sq 1 and 2, both layouts, with and
    without a window) and head dims 64 and 256 (128- and 256-key tiles);
-   the paged kernels over a pool of 128-token pages with
-   permuted, non-contiguous page tables, kv_len ending mid-page and, for
-   the paged onepass, q_len 0, 1 and 96 in one call — each also equal to
-   the ring kernel on the gathered pages; the twopass kernels (both
+   the decode kernel's block at sq 1, 2, 3 and 8 (7 to 56 packed rows)
+   with kv_len drawn per head, many at 1, 128, 129 and the capacity, kv_rep
+   1, a ring of 20 tokens, rings of 2304 tokens (runs of 3 tiles per CTA;
+   with a window that skips leading tiles), each decode shape both as
+   clusters and as one streaming block per kv row; the paged kernels over
+   a pool of 128-token pages with permuted, non-contiguous page tables,
+   kv_len ending mid-page and, for the paged onepass, q_len 0, 1 and 96
+   in one call, the paged decode kernel also over pages of 16 and 64
+   tokens and over 18 pages per sequence — each also equal to the ring
+   kernel on the gathered pages; the twopass kernels (both
    passes through the wrapper and each alone: out, A and pass 1's
    statistics) in kernel layout on the 512-token causal prefill, a
    window, ragged kv_len tails and Skv 200 padded to 256, paper and
@@ -60,8 +66,12 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    Then profile a serve of the trace's first two requests (device busy
    share, kernels launched).
 6. Time each kernel on the main path's inputs with CUDA events (median):
-   the bound kernel alone, its wrapper call and its plain version,
-   beside its bound (the ring onepass kernel on run (b)'s prefill and on
+   the bound kernel alone, launched back to back (``ms``) and from a
+   CUDA graph (``graph_ms``, device time without the host's work per
+   launch), its wrapper call and its plain version, beside its bound;
+   the decode kernel also without a cluster (one streaming block per kv
+   row: ``streaming_ms``, ``streaming_graph_ms``), and the geometry it
+   took (the ring onepass kernel on run (b)'s prefill and on
    its decode-shaped call; the paged kernels on layer-0 inputs of the
    serve: its busiest mixed call and its busiest decode call, and the
    mean per launch over the layer-0 calls of every serve step; the
@@ -112,6 +122,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 B, PROMPT, GEN = 4, 512, 32
 RING = 640                       # the main path's ring: 512 + 32 aligned
+LONG_RING = 2304                 # 18 tiles: more than a cluster's CTAs
+STREAMING = "/streaming"         # a decode case run without a cluster
 DEV = "cuda"
 WIDTH = {}                       # config overrides (none: full width)
 
@@ -145,6 +157,7 @@ SOURCES = {
         "src/repro/kernels/int8_matmul/kernel.py:113"),
 }
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
+DECODE = ("ita_attention_decode", "ita_attention_decode_paged")
 # run (b)'s decode-shaped B2 call (sq 1), kept and timed beside its prefill
 ONEPASS_DECODE = "ita_attention_onepass/decode"
 MATMUL = {"tpu": "int8_matmul", "weight_stationary": "int8_matmul_ws"}
@@ -294,6 +307,51 @@ def kernel_cases(rng_seed=0):
                                hq=hq if layout == "4d" else None),
                           f"onepass decode-shaped {layout} sq={sq} "
                           f"window={window}"))
+    # the decode block's edges: sq 1, 2, 3 and 8 (7 to 56 packed rows),
+    # each head of a kv row with its own kv_len, many at 1, 128, 129 and
+    # the capacity; as clusters over a kv row's tiles and as one
+    # streaming block per kv row ("/streaming": DECODE_MAX_CLUSTER 1)
+    k4, v4 = i8(B, RING, hkv, d), i8(B, RING, hkv, d)
+    edges = torch.tensor([1, 128, 129, RING], device=DEV, dtype=torch.int32)
+    heads = torch.randint(1, RING + 1, (bh,), generator=g, device=DEV,
+                          dtype=torch.int32)
+    pick = torch.rand(bh, generator=g, device=DEV) < 0.6
+    heads = torch.where(pick, edges[torch.randint(
+        0, 4, (bh,), generator=g, device=DEV)], heads)
+    for sq in (1, 2, 3, 8):
+        lens = torch.clamp(heads, min=sq)
+        for variant in ("", STREAMING):
+            cases.append((
+                "ita_attention_decode" + variant,
+                (i8(bh, sq, d), k4, v4, lm, om, lens),
+                dict(q_offset=lens - sq, causal=True, adaptive=sq != 3,
+                     kv_rep=rep, hq=hq),
+                f"decode 4d sq={sq} kv_len per head{variant}"))
+    # kv_rep 1 (a kv head per q head), a ring of 20 tokens (one tile of
+    # 20), and rings of 2304 tokens (18 tiles: runs of 3 per CTA), one
+    # with a window that skips the leading tiles
+    k1 = i8(B, RING, hq, d)
+    cases.append(("ita_attention_decode",
+                  (i8(bh, 1, d), k1, i8(B, RING, hq, d), lm, om, kv_len),
+                  dict(q_offset=kv_len - 1, causal=True, kv_rep=1, hq=hq),
+                  "decode 4d kv_rep 1"))
+    short = torch.randint(1, 21, (bh,), generator=g, device=DEV,
+                          dtype=torch.int32)
+    cases.append(("ita_attention_decode",
+                  (i8(bh, 1, d), i8(B * hkv, 20, d), i8(B * hkv, 20, d), lm,
+                   om, short),
+                  dict(q_offset=short - 1, causal=True, kv_rep=rep),
+                  "decode 3d ring of 20 tokens"))
+    long = torch.tensor([LONG_RING, 1900, 700, 129], device=DEV,
+                        dtype=torch.int32)[:B].repeat_interleave(hq)
+    kl, vl = i8(B, LONG_RING, hkv, d), i8(B, LONG_RING, hkv, d)
+    for window, variant in ((0, ""), (0, STREAMING), (300, "")):
+        cases.append(("ita_attention_decode" + variant,
+                      (i8(bh, 1, d), kl, vl, lm, om, long),
+                      dict(q_offset=long - 1, causal=True, window=window,
+                           kv_rep=rep, hq=hq),
+                      f"decode 4d ring {LONG_RING} window={window}"
+                      f"{variant}"))
     # head dims 64 and 256 at the model's head counts (256 with 128- and
     # 256-key tiles: two staging stages and one)
     for hd, bkv in ((64, 128), (256, 128), (256, 256)):
@@ -354,6 +412,28 @@ def paged_cases(rng_seed=1):
                       dict(q_offset=torch.clamp(kv_len - 1, min=0),
                            **common),
                       f"decode paged {tail}"))
+    cases.append(("ita_attention_decode_paged" + STREAMING,
+                  (i8(bh, 1, d), k, v, table, lm, om, kv_len),
+                  dict(q_offset=torch.clamp(kv_len - 1, min=0), causal=True,
+                       kv_rep=rep, hq=hq),
+                  f"decode paged{STREAMING}"))
+    # pages of 16 and 64 tokens (sq 1 and 2), and a pool of 18 pages of
+    # 128 tokens per sequence (runs of 3 tiles per CTA)
+    for pg, n_pg, sq, lens in ((16, 40, 1, (600, 515, 96, 1)),
+                               (64, 12, 2, (700, 64, 65, 300)),
+                               (128, 18, 1, (LONG_RING, 1900, 700, 129))):
+        n_tot = B * n_pg + 5
+        tab = (torch.randperm(n_tot - 1, generator=g, device=DEV)
+               [:B * n_pg] + 1).to(torch.int32).view(B, n_pg)
+        kp, vp = i8(n_tot, pg, hkv, d), i8(n_tot, pg, hkv, d)
+        lens = rows(*lens)
+        for variant in ("", STREAMING):
+            cases.append(("ita_attention_decode_paged" + variant,
+                          (i8(bh, sq, d), kp, vp, tab, lm, om, lens),
+                          dict(q_offset=lens - sq, causal=True, kv_rep=rep,
+                               hq=hq),
+                          f"decode paged pages of {pg} tokens sq={sq}"
+                          f"{variant}"))
     return cases
 
 
@@ -459,13 +539,29 @@ def plain_of(name):
     return K.paged_attention_plain if name in PAGED else K.attention_plain
 
 
+def run_case(name, args, kw):
+    """Kernel ``name`` on a case; a ``STREAMING`` suffix runs the decode
+    kernel as one streaming block per kv row (no cluster)."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    name, _, variant = name.partition("/")
+    saved = K.DECODE_MAX_CLUSTER
+    if variant:
+        K.DECODE_MAX_CLUSTER = 1
+    try:
+        return getattr(K, name)(*args, **kw)
+    finally:
+        K.DECODE_MAX_CLUSTER = saved
+
+
 def check_kernels(checks):
     from repro_torch.kernels.ita_attention import kernel as K
     for name, args, kw, label in kernel_cases():
-        got = getattr(K, name)(*args, **kw)
-        checks.compare(name, got, K.attention_plain(*args, **kw), label)
+        got = run_case(name, args, kw)
+        checks.compare(name.partition("/")[0], got,
+                       K.attention_plain(*args, **kw), label)
     for name, args, kw, label in paged_cases():
-        got = getattr(K, name)(*args, **kw)
+        got = run_case(name, args, kw)
+        name = name.partition("/")[0]
         checks.compare(name, got, K.paged_attention_plain(*args, **kw),
                        label)
         q, k, v, table = args[:4]
@@ -935,7 +1031,7 @@ def mean_kernel_ms(name, rec, inner=5):
     from repro_torch.kernels.ita_attention import kernel as K
     total, calls = 0.0, 0
     for args, kw, _ in rec.kept.values():
-        launch, _ = K.kernel_launcher(name, *args, **kw)
+        launch, out = K.kernel_launcher(name, *args, **kw)
         launch()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -1055,11 +1151,14 @@ def profile_run(label, fn):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
             f"{e.count:6d} x  {e.key[:90]}")
-    for e in kernels:
-        if "onepass_kernel" in e.key:
-            ms = e.self_device_time_total / 1e3
-            log(f"[profile] {label}: onepass kernel {ms:.2f} ms over "
-                f"{e.count} launches ({ms / e.count:.5f} ms each)")
+    for kernel in ("onepass_kernel", "decode_kernel"):
+        found = [e for e in kernels if kernel in e.key]
+        ms = sum(e.self_device_time_total for e in found) / 1e3
+        n = sum(e.count for e in found)
+        if n:
+            log(f"[profile] {label}: {kernel} {ms:.2f} ms over {n} "
+                f"launches ({ms / n:.5f} ms each), {ms / busy_ms:.1%} of "
+                f"device time")
     return out
 
 
@@ -1087,7 +1186,7 @@ def kernel_ms(bind, reps=30, inner=10):
     launches of a bound kernel (CUDA events): the kernel alone, without
     its wrapper's host work. ``bind()`` returns ``(launch, out)``."""
     import torch
-    launch, _ = bind()
+    launch, out = bind()        # out stays alive while launch writes it
     for _ in range(3):
         launch()
     times = []
@@ -1110,7 +1209,7 @@ def graph_ms(bind, reps=20, inner=10):
     host's work per launch, which paces back-to-back launches of calls
     shorter than a few tens of µs. ``bind()`` returns ``(launch, out)``."""
     import torch
-    launch, _ = bind()
+    launch, out = bind()        # out stays alive while launch writes it
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):          # warm up off the capture
@@ -1134,6 +1233,38 @@ def graph_ms(bind, reps=20, inner=10):
     return statistics.median(times)
 
 
+def call_meta(name, args, kw):
+    """The per-batch-row kv_len and q_offset of a ring or paged call (and
+    a paged call's page table shape; a decode call's geometry), for the
+    timing log."""
+    import torch
+
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.ita_attention import kernel as K
+    hq = kw.get("hq") or kw.get("kv_rep", 1)
+    kv_len = args[6 if name in PAGED else 5]
+
+    def per_row(x):
+        x = torch.as_tensor(x).reshape(-1)
+        return x[::hq].tolist() if x.numel() > 1 else x.tolist()
+    table = f" table{tuple(args[3].shape)}" if name in PAGED else ""
+    geometry = ""
+    if name in DECODE:
+        bh, sq, d = args[0].shape
+        if name in PAGED:
+            bkv, n_tiles = args[1].shape[1], args[3].shape[1]
+        else:
+            bkv = min(kw.get("block_kv", 128), args[1].shape[1])
+            n_tiles = args[1].shape[1] // bkv
+        geo = K.decode_geometry(bh, sq, d, bkv, kw.get("kv_rep", 1),
+                                sm_count(args[0].device), n_tiles,
+                                max_cluster=K.DECODE_MAX_CLUSTER)
+        geometry = (f"; clusters of {geo['cluster']} CTAs, "
+                    f"{geo['stages']} stage(s), {geo['grid']} CTAs")
+    return (f"{table} kv_len per batch row {per_row(kv_len)} q_offset "
+            f"{per_row(kw.get('q_offset', 0))}{geometry}")
+
+
 def timing_entries(captured, softmax_inputs):
     """``(name, shape, bind, call, plain, (bound_ms, bound_by))`` of every
     kernel on the main path's inputs: the ring kernels on layer 0 of
@@ -1149,7 +1280,8 @@ def timing_entries(captured, softmax_inputs):
         kname = name.split("/")[0]
         fn, plain_fn = getattr(K, kname), plain_of(kname)
         entries.append((
-            name, f"q{tuple(args[0].shape)} k{tuple(args[1].shape)}",
+            name, f"q{tuple(args[0].shape)} k{tuple(args[1].shape)}"
+            + call_meta(kname, args, kw),
             lambda name=kname, args=args, kw=kw: K.kernel_launcher(
                 name, *args, **kw),
             lambda fn=fn, args=args, kw=kw: fn(*args, **kw),
@@ -1185,6 +1317,18 @@ def timing_entries(captured, softmax_inputs):
     return entries
 
 
+def streaming_ms(bind):
+    """``kernel_ms`` and ``graph_ms`` of a decode call bound with
+    ``DECODE_MAX_CLUSTER`` 1: one streaming block per kv row."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    saved = K.DECODE_MAX_CLUSTER
+    K.DECODE_MAX_CLUSTER = 1
+    try:
+        return {"ms": kernel_ms(bind), "graph_ms": graph_ms(bind)}
+    finally:
+        K.DECODE_MAX_CLUSTER = saved
+
+
 def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
     """One row per kernel. B2's row also carries its decode-shaped call
     (``decode``: times, bound and launches of run (b)'s sq-1 calls) and
@@ -1194,25 +1338,37 @@ def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
     for name, shape, bind, call_fn, plain_fn, (bms, by) in timing_entries(
             captured, softmax_inputs):
         ms = kernel_ms(bind)
+        graph = graph_ms(bind)
         call = median_ms(call_fn)
         plain = median_ms(plain_fn, reps=10)
         whose = "both passes" if name in TWOPASS else "one call"
         log(f"[timing] {name} at main-path shape {shape}: kernel {ms:.4f} "
-            f"ms (wrapper call, {whose}: {call:.4f} ms), plain {plain:.4f} "
-            f"ms, bound {bms:.5f} ms ({by}); library call: none (no "
-            f"PyTorch call computes ITA's integer attention or softmax)")
+            f"ms back to back, {graph:.4f} ms in a CUDA graph (wrapper "
+            f"call, {whose}: {call:.4f} ms), plain {plain:.4f} ms, bound "
+            f"{bms:.5f} ms ({by}); library call: none (no PyTorch call "
+            f"computes ITA's integer attention or softmax); {card_line()}")
+        if name in DECODE:
+            streaming = streaming_ms(bind)
+            log(f"[timing] {name} without a cluster (one streaming block "
+                f"per kv row): kernel {streaming['ms']:.4f} ms back to "
+                f"back, {streaming['graph_ms']:.4f} ms in a CUDA graph, "
+                f"against {graph:.4f} ms with its geometry; {card_line()}")
         if name == ONEPASS_DECODE:
-            decode = {"ms": ms, "plain_ms": plain, "bound_ms": bms,
-                      "bound_by": by, "launches": launches[name]}
+            decode = {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+                      "bound_ms": bms, "bound_by": by,
+                      "launches": launches[name]}
             continue
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": checks.max_err[name], "ms": ms,
-                     "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                     "library_ms": None})
+                     "graph_ms": graph, "plain_ms": plain, "bound_ms": bms,
+                     "bound_by": by, "library_ms": None})
         if name in serve_mean:
             rows[-1]["serve_mean_ms"] = serve_mean[name]
+        if name in DECODE:
+            rows[-1]["streaming_ms"] = streaming["ms"]
+            rows[-1]["streaming_graph_ms"] = streaming["graph_ms"]
     for row in rows:
         if row["name"] == "ita_attention_onepass":
             row["decode"] = decode

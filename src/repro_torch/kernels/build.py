@@ -42,13 +42,18 @@ SOURCES = {
 # headers a source may include, from any kernel's csrc/ directory
 HEADERS = tuple(sorted(_PKG.glob("*/csrc/*.cuh")))
 # Ring launchers: q, k, v, lmult, omult, meta, out; bh, sq, skv, d, bkv,
-# kv_4d, kv_rep, hq, g, causal, window, adaptive; stream.
-LAUNCH_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
+# kv_4d, kv_rep, hq, g, causal, window, adaptive; the block geometry (row
+# groups, warps per group, stages; decode also the cluster size); stream.
+ONEPASS_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15 \
+    + [ctypes.c_void_p]
+DECODE_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 16 \
     + [ctypes.c_void_p]
 # Paged launchers: q, k_pool, v_pool, page_table, lmult, omult, meta, out;
-# bh, sq, n_pages, page, d, kv_rep, hq, g, causal, window, adaptive;
-# stream.
-PAGED_LAUNCH_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
+# bh, sq, n_pages, page, d, kv_rep, hq, g, causal, window, adaptive; the
+# geometry as above; stream.
+ONEPASS_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 \
+    + [ctypes.c_void_p]
+DECODE_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
     + [ctypes.c_void_p]
 # Twopass pass 1: q, k, lmult, meta, a, row_max, inv, e_r; bh, sq, skv, d,
 # bkv, kv_rep, causal, window, adaptive; stream.
@@ -70,10 +75,10 @@ MATMUL_WS_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
     + [ctypes.c_void_p]
 # exported launcher -> (library, argtypes)
 FUNCTIONS = {
-    "ita_onepass_launch": ("ita_onepass", LAUNCH_ARGTYPES),
-    "ita_onepass_paged_launch": ("ita_onepass", PAGED_LAUNCH_ARGTYPES),
-    "ita_decode_launch": ("ita_decode", LAUNCH_ARGTYPES),
-    "ita_decode_paged_launch": ("ita_decode", PAGED_LAUNCH_ARGTYPES),
+    "ita_onepass_launch": ("ita_onepass", ONEPASS_ARGTYPES),
+    "ita_onepass_paged_launch": ("ita_onepass", ONEPASS_PAGED_ARGTYPES),
+    "ita_decode_launch": ("ita_decode", DECODE_ARGTYPES),
+    "ita_decode_paged_launch": ("ita_decode", DECODE_PAGED_ARGTYPES),
     "ita_twopass_qk_launch": ("ita_twopass", TWOPASS_QK_ARGTYPES),
     "ita_twopass_av_launch": ("ita_twopass", TWOPASS_AV_ARGTYPES),
     "ita_softmax_launch": ("ita_softmax", SOFTMAX_ARGTYPES),

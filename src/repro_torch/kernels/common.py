@@ -21,6 +21,7 @@ Integer hazards the port handles explicitly:
 
 from __future__ import annotations
 
+import functools
 import numbers
 
 import torch
@@ -142,6 +143,19 @@ def device_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, numbers.Number):
         return torch.full((), x, dtype=dtype, device=device)
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device (132 on an H100
+    SXM), which the kernels' geometries fill."""
+    device = torch.device(device)
+    index = device.index
+    return _sm_count(torch.cuda.current_device() if index is None else index)
 
 
 def exact_float32_matmul() -> None:

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.core.quant import int8_matmul_ref as exact_product
 from repro_torch.kernels import build
-from repro_torch.kernels.common import device_tensor
+from repro_torch.kernels.common import device_tensor, sm_count
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_ref,
                                                  requant_epilogue)
 
@@ -72,12 +72,6 @@ WS_MAX_BLOCK_K = 1664
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
-
-
-def sm_count(device) -> int:
-    """The streaming multiprocessors of a CUDA device (132 on an H100
-    SXM), which the geometries fill."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def matmul_geometry(m: int, n: int, kdim: int, *, sms: int) -> dict:

@@ -42,8 +42,10 @@ its binder (``twopass_qk_launcher``, ``twopass_av_launcher``).
 
 The KV tile schedule is part of the arithmetic (the integer Σ shifts
 depend on tile boundaries): ``block_kv`` is the tile, ``skv`` must be a
-multiple of it, and a kernel never splits a row's KV across blocks. The
-q tiling is free (query rows are independent).
+multiple of it, and no kernel splits a row's KV into parts that fold on
+their own. The decode kernel may spread a row's tiles over the CTAs of a
+cluster (``decode_geometry``), which fold them in tile order, as one
+block would. The q tiling is free (query rows are independent).
 """
 
 from __future__ import annotations
@@ -51,7 +53,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.common import device_tensor, tile_mask
+from repro_torch.kernels.common import device_tensor, sm_count, tile_mask
 from repro_torch.kernels.ita_attention.ref import (requant_logits,
                                                    stream_rows, twopass_out,
                                                    twopass_stats)
@@ -75,8 +77,11 @@ PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
 MAX_DECODE_Q = 8
 _MAX_HEAD_DIM = 256
 _MAX_SMEM = 232448          # bytes of shared memory one block may use
-ONEPASS_MAX_TILE = 256      # keys per KV tile the onepass kernel takes
-ONEPASS_MANY_BLOCKS = 4 * 132   # 64-row blocks from this many on
+MAX_TILE = 256              # keys per KV tile the onepass and decode
+                            # kernels take
+ONEPASS_MANY_BLOCKS_PER_SM = 4  # 64-row blocks from this many per SM on
+DECODE_MAX_STAGES = 4       # K/V stages of a streaming decode block
+DECODE_MAX_CLUSTER = 8      # CTAs of a decode cluster (portable size)
 
 
 def reset_launches() -> None:
@@ -208,42 +213,67 @@ def _bind(name, args, out, keep):
     return launch, out
 
 
-def onepass_geometry(bh, sq, d, bkv, kv_rep):
-    """The onepass kernel's launch for a call (``csrc/onepass.cu``, whose
-    ``geometry`` and ``layout`` compute the same). A block serves one kv
-    row (the ``kv_rep`` q rows that read the same K/V) and ``rows`` packed
-    rows, query-major (packed row m is query ``m // kv_rep`` of head
-    ``m % kv_rep``), in row groups of 16 with ``wn`` warps each: 16 rows
+def _check_block(name, bh, d, bkv, kv_rep):
+    """Refuse what the onepass and decode blocks cannot take."""
+    if d <= 0 or d % 16 or d > _MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} must be a multiple of 16 "
+                         f"and at most {_MAX_HEAD_DIM}")
+    if not 0 < bkv <= MAX_TILE:
+        raise ValueError(f"{name}: a KV tile of {bkv} keys; it takes 1 to "
+                         f"{MAX_TILE}")
+    if kv_rep <= 0 or bh % kv_rep:
+        raise ValueError(f"{name}: {bh} rows are not kv rows of {kv_rep} "
+                         f"q heads")
+
+
+def _block_smem(d, bkv, stages, rows, wn, cluster=1):
+    """Shared memory of a block (``csrc/ita_common.cuh``'s ``layout``):
+    ``stages`` stages of K and V and the Q tile (rows of d + 16 bytes),
+    the u tile (rows of the keys rounded up to 32, + 16 bytes), the row
+    groups' partial maxima and sums, 16 bytes for the block's KV range;
+    in a cluster also the rows' run maxima and kernel rows (16 bytes a
+    row) and, for each of the kv row's ``stages · cluster`` tiles at
+    most, every row's δ and Σu and the int32 u·V of the block's share of
+    the output's four-column items."""
+    ks, sp = d + 16, -(-bkv // 32) * 32
+    smem = stages * 2 * sp * ks + rows * (ks + sp + 16) \
+        + 2 * wn * rows * 4 + 16
+    if cluster > 1:
+        tiles, share = stages * cluster, -(-rows * d // 4 // cluster)
+        smem += rows * 20 + tiles * (2 * rows * 4 + share * 16)
+    return smem
+
+
+def _warps_n(wm, d):
+    """8 warps a block; a single row group at d <= 64 takes 4 (a warp
+    takes at least 16 columns)."""
+    return 4 if wm == 1 and d <= 64 else 8 // wm
+
+
+def onepass_geometry(bh, sq, d, bkv, kv_rep, sms):
+    """The onepass kernel's launch for a call on a card of ``sms`` SMs
+    (``csrc/onepass.cu`` checks it). A block serves one kv row (the
+    ``kv_rep`` q rows that read the same K/V) and ``rows`` packed rows,
+    query-major (packed row m is query ``m // kv_rep`` of head ``m %
+    kv_rep``), in row groups of 16 with ``warps_n`` warps each: 16 rows
     and 8 warps when a kv row has at most 16 packed rows (a decode step;
     4 warps at d <= 64), 64 rows and 2 warps when 64-row blocks number
-    ``ONEPASS_MANY_BLOCKS`` or more, else 32 rows and 4 warps (also for
-    KV tiles over 128 keys). Shared memory: 1 or 2 stages of K and V and
-    the Q tile (rows of d + 16 bytes), the u tile (rows of the keys
-    rounded up to 32, + 16 bytes), the row groups' partial maxima and
-    sums and 16 bytes for the block's KV range; two stages where they
-    fit. Raises on what the kernel cannot take."""
-    if d <= 0 or d % 16 or d > _MAX_HEAD_DIM:
-        raise ValueError(f"onepass kernel: head dim {d} must be a multiple "
-                         f"of 16 and at most {_MAX_HEAD_DIM}")
-    if not 0 < bkv <= ONEPASS_MAX_TILE:
-        raise ValueError(f"onepass kernel: a KV tile of {bkv} keys; it "
-                         f"takes 1 to {ONEPASS_MAX_TILE}")
-    if kv_rep <= 0 or bh % kv_rep:
-        raise ValueError(f"onepass kernel: {bh} rows are not kv rows of "
-                         f"{kv_rep} q heads")
+    ``ONEPASS_MANY_BLOCKS_PER_SM`` per SM or more, else 32 rows and 4
+    warps (also for KV tiles over 128 keys). Two stages of K and V where
+    they fit (``_block_smem``), else one. Raises on what the kernel
+    cannot take."""
+    _check_block("onepass kernel", bh, d, bkv, kv_rep)
     packed, n_kr = sq * kv_rep, bh // kv_rep
     if bkv > 128:
         wm = 2
     elif packed <= 16:
         wm = 1
     else:
-        wm = 4 if n_kr * -(-packed // 64) >= ONEPASS_MANY_BLOCKS else 2
-    wn = 4 if wm == 1 and d <= 64 else 8 // wm
-    rows = 16 * wm
-    ks, sp = d + 16, -(-bkv // 32) * 32
+        many = n_kr * -(-packed // 64) >= ONEPASS_MANY_BLOCKS_PER_SM * sms
+        wm = 4 if many else 2
+    wn, rows = _warps_n(wm, d), 16 * wm
     for stages in (2, 1):
-        smem = stages * 2 * sp * ks + rows * (ks + sp + 16) \
-            + 2 * wn * rows * 4 + 16
+        smem = _block_smem(d, bkv, stages, rows, wn)
         if smem <= _MAX_SMEM:
             break
     else:
@@ -255,10 +285,54 @@ def onepass_geometry(bh, sq, d, bkv, kv_rep):
             "stages": stages, "smem": smem}
 
 
-def decode_smem(sq, d, bkv):
-    """Shared memory of a decode block (``ita_common.cuh``'s
-    ``smem_bytes`` with the query tile sized to sq)."""
-    return (sq + bkv) * (d + 16) + bkv * d + sq * bkv * 4 + sq * 16
+def decode_geometry(bh, sq, d, bkv, kv_rep, sms, n_tiles,
+                    max_cluster=DECODE_MAX_CLUSTER):
+    """The decode kernel's launch for a call of ``n_tiles`` KV tiles per
+    row (ring capacity / ``bkv``, or the page table's width) on a card of
+    ``sms`` SMs (``csrc/decode.cu`` checks it). A block serves one kv
+    row's ``kv_rep · sq`` packed rows, query-major, in 1, 2 or 4 row
+    groups of 16 (``tiles_per_kv_row`` blocks past 64 rows; 2 groups of 4
+    warps for tiles over 128 keys), 8 warps a block (4 for one group at
+    d <= 64).
+
+    When the call's blocks leave SMs idle and a row has several tiles,
+    each kv row gets a ``cluster`` of up to ``max_cluster`` CTAs (and at
+    most the SMs per block): the CTAs split the row's live tiles into
+    runs of at most ``stages`` tiles, each held whole in shared memory.
+    Otherwise ``cluster`` is 1 and one block streams the tiles through
+    up to ``DECODE_MAX_STAGES`` stages. Raises on what the kernel cannot
+    take."""
+    _check_block("decode kernel", bh, d, bkv, kv_rep)
+    if not 1 <= sq <= MAX_DECODE_Q:
+        raise ValueError(f"decode kernel takes at most {MAX_DECODE_Q} "
+                         f"queries per row, got {sq}")
+    if n_tiles < 1:
+        raise ValueError(f"decode kernel: {n_tiles} KV tiles per row")
+    packed, n_kr = sq * kv_rep, bh // kv_rep
+    if bkv > 128:
+        wm = 2
+    else:
+        wm = 1 if packed <= 16 else 2 if packed <= 32 else 4
+    wn, rows = _warps_n(wm, d), 16 * wm
+    n_mt = -(-packed // rows)
+    blocks = n_kr * n_mt
+    cluster = min(max_cluster, n_tiles, sms // max(blocks, 1))
+    stages = -(-n_tiles // max(cluster, 1))
+    if cluster < 2 or _block_smem(d, bkv, stages, rows, wn,
+                                  cluster) > _MAX_SMEM:
+        cluster = 1
+        for stages in range(min(DECODE_MAX_STAGES, n_tiles), 0, -1):
+            if _block_smem(d, bkv, stages, rows, wn) <= _MAX_SMEM:
+                break
+        else:
+            raise ValueError(
+                f"decode kernel: d={d}, block_kv={bkv} needs "
+                f"{_block_smem(d, bkv, 1, rows, wn)} bytes of shared memory "
+                f"(> {_MAX_SMEM})")
+    return {"rows": rows, "warps_n": wn, "threads": 32 * wm * wn,
+            "tiles_per_kv_row": n_mt, "grid": blocks * cluster,
+            "stages": stages, "cluster": cluster,
+            "smem": _block_smem(d, bkv, stages, rows, wn, cluster)}
 
 
 def _check_vectors(name, d, *tensors):
@@ -308,13 +382,18 @@ def kernel_launcher(name, q, k, v, *args, q_offset=0, q_len=None,
     operands = (k, v, lmult, omult, meta) + ((page_table,) if paged else ())
     _require_cuda(name, q, *operands)
     _check_vectors(name, d, q, k, v)
+    sms = sm_count(q.device)
     if name.startswith("ita_attention_onepass"):
-        onepass_geometry(bh, sq, d, bkv, kv_rep)
-    elif (smem := decode_smem(sq, d, bkv)) > _MAX_SMEM:
-        raise ValueError(f"{name}: block_kv={bkv}, d={d} needs {smem} bytes "
-                         f"of shared memory (> {_MAX_SMEM})")
+        geo = onepass_geometry(bh, sq, d, bkv, kv_rep, sms)
+        cluster = ()
+    else:
+        n_tiles = page_table.shape[1] if paged else k.shape[1] // bkv
+        geo = decode_geometry(bh, sq, d, bkv, kv_rep, sms, n_tiles,
+                              max_cluster=DECODE_MAX_CLUSTER)
+        cluster = (geo["cluster"],)
     out = torch.empty_like(q)
-    flags = (int(causal), window, int(adaptive))
+    flags = (int(causal), window, int(adaptive), geo["rows"] // 16,
+             geo["warps_n"], geo["stages"]) + cluster
     if paged:
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 page_table.data_ptr(), lmult.data_ptr(), omult.data_ptr(),

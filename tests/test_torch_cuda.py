@@ -39,6 +39,19 @@ CASES = [
     ("decode", 1, 4, 2, 4, 256, 32, 64, True, 70, "4d"),
     ("decode", 1, 4, 2, 8, 384, 16, 128, True, 0, "3d"),
     ("decode", 2, 28, 4, 3, 640, 128, 128, True, 0, "4d"),
+    # the decode block at qwen2-7b's 28/4 heads: 7·sq packed rows (sq 1,
+    # 2, 8: one row group to four), a window that skips leading tiles,
+    # a ring of 20 tokens (one tile of 20), kv_rep 1, head dim 256, and
+    # rings of 2304 tokens (18 tiles: runs of 3 tiles on 8-CTA clusters)
+    ("decode", 2, 28, 4, 1, 640, 128, 128, True, 0, "4d"),
+    ("decode", 2, 28, 4, 2, 640, 128, 128, True, 0, "3d"),
+    ("decode", 2, 28, 4, 8, 640, 128, 128, True, 0, "4d"),
+    ("decode", 2, 28, 4, 1, 640, 128, 128, True, 200, "4d"),
+    ("decode", 1, 28, 4, 2, 20, 128, 128, True, 0, "3d"),
+    ("decode", 2, 4, 4, 1, 384, 64, 128, True, 0, "4d"),
+    ("decode", 1, 8, 2, 1, 512, 256, 128, True, 0, "4d"),
+    ("decode", 1, 28, 4, 1, 2304, 128, 128, True, 0, "4d"),
+    ("decode", 1, 28, 4, 8, 2304, 128, 128, True, 300, "3d"),
 ]
 
 
@@ -86,6 +99,11 @@ PAGED_CASES = [
     ("decode", 3, 4, 2, 1, 32, 6, 16, 0),
     ("decode", 2, 28, 4, 1, 128, 9, 128, 0),
     ("decode", 2, 4, 2, 4, 64, 5, 32, 70),
+    # qwen2-7b's heads over pages of 16 and 64 tokens and over a pool
+    # long enough for runs of tiles (18 pages of 128 tokens)
+    ("decode", 2, 28, 4, 1, 16, 40, 128, 0),
+    ("decode", 2, 28, 4, 2, 64, 12, 128, 150),
+    ("decode", 2, 28, 4, 1, 128, 18, 128, 0),
 ]
 
 
@@ -140,6 +158,76 @@ def test_cuda_paged_kernel_matches_plain(case):
         torch.cuda.synchronize()
         assert torch.equal(got, want), adaptive
         assert torch.equal(got, ring), adaptive
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_cluster", [1, 8])
+@pytest.mark.parametrize("sq", [1, 3])
+def test_cuda_decode_kv_len_edges(sq, max_cluster, monkeypatch):
+    """The decode kernel at qwen2-7b widths over a ring of 640 tokens
+    (5 tiles), the heads of each kv row with their own kv_len among 1,
+    128, 129 and the capacity (and a few drawn), both as clusters of the
+    row's tiles and as one streaming block per kv row (``max_cluster``
+    1: four stages), against its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    b, hq, hkv, skv, d = 4, 28, 4, 640, 128
+    rng = np.random.default_rng(640 + sq)
+    bh = b * hq
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    q = t(rng.integers(-128, 128, (bh, sq, d), dtype=np.int8))
+    k = t(rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8))
+    v = t(rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8))
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    edges = np.array([1, 128, 129, skv], np.int32)
+    kv_len = np.where(rng.random(bh) < 0.7, rng.choice(edges, bh),
+                      rng.integers(sq, skv + 1, bh)).astype(np.int32)
+    kv_len = np.maximum(kv_len, sq)
+    monkeypatch.setattr(K, "DECODE_MAX_CLUSTER", max_cluster)
+    for adaptive in (True, False):
+        kw = dict(q_offset=t(kv_len - sq), causal=True, adaptive=adaptive,
+                  kv_rep=hq // hkv, hq=hq)
+        got = K.ita_attention_decode(q, k, v, lmult, omult, t(kv_len), **kw)
+        want = K.attention_plain(q, k, v, lmult, omult, t(kv_len), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), adaptive
+
+
+@pytest.mark.cuda
+def test_cuda_decode_full_card_streams():
+    """A decode call whose kv rows fill the card (40 sequences x 4 kv
+    heads = 160 blocks on 132 SMs) runs one streaming block per kv row
+    (no cluster), equal to its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    b, hq, hkv, skv, d = 40, 28, 4, 384, 128
+    rng = np.random.default_rng(160)
+    bh = b * hq
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    q = t(rng.integers(-128, 128, (bh, 1, d), dtype=np.int8))
+    k = t(rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8))
+    v = t(rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8))
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    kv_len = rng.integers(1, skv + 1, bh).astype(np.int32)
+    geo = K.decode_geometry(bh, 1, d, 128, hq // hkv,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count, skv // 128)
+    assert geo["cluster"] == 1
+    kw = dict(q_offset=t(kv_len - 1), causal=True, kv_rep=hq // hkv, hq=hq)
+    got = K.ita_attention_decode(q, k, v, lmult, omult, t(kv_len), **kw)
+    want = K.attention_plain(q, k, v, lmult, omult, t(kv_len), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -288,10 +288,11 @@ def test_onepass_geometry(d, bkv):
     (query, head) rows in row groups of 16 — 64 rows for the 4×512
     prefill (896 blocks), 16 for a decode step, 32 for a serve step's 96
     queries and for KV tiles over 128 keys; shared memory within a
-    block's 232,448 bytes, two staging stages where they fit."""
-    prefill = TK.onepass_geometry(112, 512, d, bkv, 7)
-    decode = TK.onepass_geometry(112, 1, d, bkv, 7)
-    serve = TK.onepass_geometry(112, 96, d, bkv, 7)
+    block's 232,448 bytes, two staging stages where they fit; on an
+    H100's 132 SMs."""
+    prefill = TK.onepass_geometry(112, 512, d, bkv, 7, 132)
+    decode = TK.onepass_geometry(112, 1, d, bkv, 7, 132)
+    serve = TK.onepass_geometry(112, 96, d, bkv, 7, 132)
     wide = bkv > 128
     assert prefill["rows"] == (32 if wide else 64)
     assert prefill["grid"] == 16 * (112 if wide else 56)
@@ -308,7 +309,7 @@ def test_onepass_geometry(d, bkv):
     assert prefill["smem"] == (stages * 2 * bkv * ks + rows * (ks + bkv + 16)
                                + 2 * prefill["warps_n"] * rows * 4 + 16)
     # a short ring's tile is rounded up to the 32 keys of an mma step
-    short = TK.onepass_geometry(4, 20, d, 20, 2)
+    short = TK.onepass_geometry(4, 20, d, 20, 2, 132)
     assert short["smem"] == 2 * 2 * 32 * ks + short["rows"] * (ks + 48) \
         + 2 * short["warps_n"] * short["rows"] * 4 + 16
 
@@ -323,4 +324,101 @@ def test_onepass_geometry(d, bkv):
 def test_onepass_geometry_refuses_what_the_kernel_cannot_take(d, bkv, bh,
                                                               kv_rep, what):
     with pytest.raises(ValueError, match=what):
-        TK.onepass_geometry(bh, 16, d, bkv, kv_rep)
+        TK.onepass_geometry(bh, 16, d, bkv, kv_rep, 132)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132, 264])
+def test_onepass_geometry_follows_the_sm_count(sms):
+    """64-row blocks once they number four per SM of the card, else 32:
+    the 4×512 prefill's 896 64-row blocks take 64 rows up to 224 SMs; a
+    4×256 prefill's 448 take them up to 112 SMs. A decode step is 16
+    rows on any card."""
+    prefill = TK.onepass_geometry(112, 512, 128, 128, 7, sms)
+    half = TK.onepass_geometry(112, 256, 128, 128, 7, sms)
+    assert prefill["rows"] == (64 if 896 >= 4 * sms else 32)
+    assert half["rows"] == (64 if 448 >= 4 * sms else 32)
+    assert half["grid"] == 16 * -(-1792 // half["rows"])
+    assert TK.onepass_geometry(112, 1, 128, 128, 7, sms)["rows"] == 16
+    for geo in (prefill, half):
+        assert geo["threads"] == 256 and geo["stages"] == 2
+
+
+def _decode_smem(d, bkv, stages, rows, wn, cluster):
+    """``csrc/ita_common.cuh``'s ``layout`` bytes, written out."""
+    ks, sp = d + 16, -(-bkv // 32) * 32
+    smem = stages * 2 * sp * ks + rows * ks + rows * (sp + 16) \
+        + 2 * wn * rows * 4 + 16
+    if cluster > 1:
+        tiles = stages * cluster
+        share = (rows * d // 4 + cluster - 1) // cluster
+        smem += rows * 4 + rows * 16 + 2 * tiles * rows * 4 \
+            + tiles * share * 16
+    return smem
+
+
+@pytest.mark.parametrize("bkv", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("sq", [1, 2, 8])
+def test_decode_geometry(sq, d, bkv):
+    """The decode kernel's launch geometry (``csrc/decode.cu`` checks it)
+    at qwen2-7b's 28/4 heads and batch 4 (16 kv rows) on 132 SMs, over a
+    ring of 640 tokens: one block serves a kv row's 7·sq packed rows in
+    1, 2 or 4 row groups of 16 (8 warps; 4 for one group at d 64), and
+    the 116 idle SMs give each kv row a cluster of 8 CTAs (at most the
+    row's tiles), each holding its run of the row's tiles."""
+    n_tiles = 640 // bkv
+    geo = TK.decode_geometry(112, sq, d, bkv, 7, 132, n_tiles)
+    wm = {1: 1, 2: 1, 8: 4}[sq]
+    wn = 4 if wm == 1 and d == 64 else 8 // wm
+    assert geo["rows"] == 16 * wm and geo["warps_n"] == wn
+    assert geo["threads"] == 32 * wm * wn
+    assert geo["tiles_per_kv_row"] == 1
+    cluster = min(8, n_tiles)
+    run = -(-n_tiles // cluster)
+    if _decode_smem(d, bkv, run, 16 * wm, wn, cluster) > 232448:
+        assert geo["cluster"] == 1
+    else:
+        assert (geo["cluster"], geo["stages"]) == (cluster, run)
+    assert geo["grid"] == 16 * geo["cluster"]
+    assert geo["smem"] == _decode_smem(d, bkv, geo["stages"], 16 * wm, wn,
+                                       geo["cluster"]) <= 232448
+
+
+def test_decode_geometry_clusters_only_where_sms_are_idle():
+    """Cluster size from the call and the card: 1 when the blocks fill
+    the card or a row has one tile (then one block streams the tiles
+    through up to 4 stages), at most the SMs per block, and a run of
+    tiles per CTA when a row has more tiles than a cluster has CTAs."""
+    def geo(bh, n_tiles, sms=132, **kw):
+        return TK.decode_geometry(bh, 1, 128, 128, 7, sms, n_tiles, **kw)
+    assert (geo(112, 5)["cluster"], geo(112, 5)["stages"]) == (5, 1)
+    assert (geo(112, 8)["cluster"], geo(112, 8)["stages"]) == (8, 1)
+    long = geo(28, 18)                   # one sequence, 2304 tokens
+    assert (long["cluster"], long["stages"], long["grid"]) == (8, 3, 32)
+    full = geo(7 * 132, 5)               # 132 kv rows: the card is full
+    assert (full["cluster"], full["stages"], full["grid"]) == (1, 4, 132)
+    assert geo(112, 1)["cluster"] == 1 and geo(112, 1)["stages"] == 1
+    assert geo(112, 5, sms=48)["cluster"] == 3          # 48 // 16 SMs
+    assert geo(112, 5, sms=16)["cluster"] == 1
+    streaming = geo(112, 5, max_cluster=1)
+    assert (streaming["cluster"], streaming["stages"]) == (1, 4)
+    assert streaming["smem"] == _decode_smem(128, 128, 4, 16, 8, 1)
+    # a run that does not fit beside its u·V: one streaming block instead
+    wide = TK.decode_geometry(4, 1, 256, 128, 1, 132, 40)
+    assert wide["cluster"] == 1 and wide["stages"] == 3
+
+
+@pytest.mark.parametrize("sq, d, bkv, bh, kv_rep, n_tiles, what", [
+    (1, 40, 128, 8, 2, 5, "multiple of 16"),
+    (1, 272, 128, 8, 2, 5, "multiple of 16"),
+    (1, 128, 512, 8, 2, 5, "KV tile"),
+    (1, 128, 0, 8, 2, 5, "KV tile"),
+    (1, 128, 128, 9, 2, 5, "kv rows"),
+    (9, 128, 128, 8, 2, 5, "at most 8"),
+    (0, 128, 128, 8, 2, 5, "at most 8"),
+    (1, 128, 128, 8, 2, 0, "KV tiles per row"),
+])
+def test_decode_geometry_refuses_what_the_kernel_cannot_take(
+        sq, d, bkv, bh, kv_rep, n_tiles, what):
+    with pytest.raises(ValueError, match=what):
+        TK.decode_geometry(bh, sq, d, bkv, kv_rep, 132, n_tiles)
