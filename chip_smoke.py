@@ -441,8 +441,11 @@ def twopass_cases(rng_seed=2):
     """(args, kwargs, label) of ``ita_attention_twopass`` at qwen2-7b
     shapes (kernel-layout K/V, GQA 28/4): the 512-token causal prefill,
     a window, ragged kv_len tails with query offsets, and Skv = 200 padded
-    to the 256 of two 128-key tiles, as ``fused_attention`` pads it; each
-    paper and adaptive."""
+    to the 256 of two 128-key tiles, as ``fused_attention`` pads it; the
+    prefill in 256-key tiles (the largest), 40 queries (280 packed rows a
+    kv row, not a multiple of the kernels' 64- or 128-row blocks) on
+    ragged rows, head dim 64, and pad rows (one q row sees a single key,
+    the next none: A still written, output 0); each paper and adaptive."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(rng_seed)
     hq, hkv, d = 28, 4, 128
@@ -475,11 +478,30 @@ def twopass_cases(rng_seed=2):
                                    i8(B * hkv, 256, d), lm, om, short),
                                   dict(causal=True)),
     }
+    prefill = inputs["prefill 512"][0]
+    tail = torch.clamp(kv, max=384)
+    pad = kv.clone()
+    pad[:2] = torch.tensor([1, 0], device=DEV, dtype=torch.int32)
+    inputs.update({
+        "prefill 512 in 256-key tiles": (prefill,
+                                         dict(causal=True, block_kv=256)),
+        "40 queries, ragged": ((i8(bh, 40, d), i8(B * hkv, 384, d),
+                                i8(B * hkv, 384, d), lm, om, tail),
+                               dict(q_offset=torch.clamp(tail - 40, min=0),
+                                    causal=True)),
+        "head dim 64": ((i8(bh, 96, 64), i8(B * hkv, 256, 64),
+                         i8(B * hkv, 256, 64), lm, om, 256),
+                        dict(q_offset=160, causal=True)),
+        "pad rows": ((i8(bh, 48, d), i8(B * hkv, 256, d),
+                      i8(B * hkv, 256, d), lm, om, pad),
+                     dict(q_offset=torch.clamp(pad - 48, min=0),
+                          causal=True)),
+    })
     cases = []
     for label, (args, kw) in inputs.items():
         for adaptive in (False, True):
-            cases.append((args, dict(kw, adaptive=adaptive, kv_rep=rep,
-                                     block_kv=128),
+            cases.append((args, dict(dict(block_kv=128), **kw,
+                                     adaptive=adaptive, kv_rep=rep),
                           f"twopass {label} adaptive={adaptive}"))
     return cases
 

@@ -56,12 +56,13 @@ ONEPASS_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 \
 DECODE_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
     + [ctypes.c_void_p]
 # Twopass pass 1: q, k, lmult, meta, a, row_max, inv, e_r; bh, sq, skv, d,
-# bkv, kv_rep, causal, window, adaptive; stream.
-TWOPASS_QK_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 \
+# bkv, kv_rep, causal, window, adaptive; the geometry (warps of 16 packed
+# rows, stages); stream.
+TWOPASS_QK_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
     + [ctypes.c_void_p]
 # Twopass pass 2: a, row_max, inv, e_r, v, omult, meta, out; bh, sq, skv,
-# d, bkv, kv_rep, causal, window; stream.
-TWOPASS_AV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+# d, bkv, kv_rep, causal, window; the geometry as pass 1; stream.
+TWOPASS_AV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
     + [ctypes.c_void_p]
 # Softmax: x, mask, out; r, c, bc, adaptive; stream.
 SOFTMAX_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \

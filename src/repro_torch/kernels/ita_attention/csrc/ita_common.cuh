@@ -7,12 +7,12 @@
 // DA step (running max, Σ, u = 128 >> k), acc = acc·2^-δ + u·V, and DI at
 // the last tile folded into the int8 output requant.
 //
-// The scalar helpers (mask, requant, DA shifts, DIs, powers of two, the
-// K/V operand) serve every attention kernel, the twopass kernels
-// (twopass.cu) among them. `attend_block` is the tensor-core block of
-// the onepass kernel (onepass.cu: B2, B3) and the decode kernel
-// (decode.cu: B4, B4p), with the mma.sync, ldmatrix, cp.async and
-// cluster helpers it is built from:
+// The scalar helpers (requant, DA shifts, DIs, powers of two, the K/V
+// operand), the packed rows with their tile ranges and the mma.sync,
+// ldmatrix and cp.async helpers serve every attention kernel, the
+// twopass kernels (twopass.cu) among them. `attend_block` is the
+// tensor-core block of the onepass kernel (onepass.cu: B2, B3) and the
+// decode kernel (decode.cu: B4, B4p), with the cluster helpers:
 // - one block serves one kv row (the kv_rep q rows that read the same
 //   K/V) and a tile of packed (query, head) rows in row groups of 16;
 // - Q·Kᵀ and u·V on mma.sync m16n8k32 (s8·s8 and u8·s8 -> s32), DA on
@@ -41,7 +41,6 @@ constexpr int kMaskK = 31;           // shift of a masked element: 128 >> 31 == 
 constexpr int kSoftmaxShift = 5;
 constexpr int kSigmaInvMax = 256;
 constexpr int kPaperInvMax = 1 << 16;
-constexpr int kThreads = 128;        // threads of a twopass block
 constexpr int kMaxHeadDim = 256;
 
 // K/V operand: a ring in the kernel layout (BH/kv_rep, S, D) or the
@@ -81,16 +80,6 @@ __device__ __forceinline__ long long kv_token_offset(const KvOperand& kv,
     return ((static_cast<long long>(b) * kv.skv + t) * kv.g + head) * kv.d;
   }
   return (static_cast<long long>(r / kv.kv_rep) * kv.skv + t) * kv.d;
-}
-
-// tile_mask: query qi (logical position; qli its index in the row) sees
-// key kj.
-__device__ __forceinline__ bool visible(int qi, int qli, int kj, int causal,
-                                        int window, int kv_len, int q_len) {
-  bool ok = kj < kv_len && qli < q_len;
-  if (causal || window > 0) ok = ok && qi >= kj;
-  if (window > 0) ok = ok && (qi - kj) < window;
-  return ok;
 }
 
 // Exact 2^-n for 0 <= n <= 126.
@@ -295,21 +284,30 @@ __device__ __forceinline__ T* cluster_ptr(T* p, unsigned rank) {
 }
 
 // Four 8 x 16-byte matrices; lane l gives the address of row l % 8 of
-// matrix l / 8 and gets, of each matrix, bytes 4t..4t+3 of row g.
-__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+// matrix l / 8 and gets, of each matrix, bytes 4t..4t+3 of row g. The
+// address is a pointer into shared memory or its smem_addr.
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const void* p) {
+  ldsm4(r, smem_addr(p));
 }
 
 // The same, transposed as 16-bit pairs: of each matrix, bytes 2g, 2g+1
 // of rows 2t and 2t+1.
-__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const void* p) {
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], unsigned addr) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4_t(unsigned (&r)[4], const void* p) {
+  ldsm4_t(r, smem_addr(p));
 }
 
 __device__ __forceinline__ void mma_s8s8(int (&d)[4], const unsigned (&a)[4],

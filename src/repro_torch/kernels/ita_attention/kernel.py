@@ -82,6 +82,7 @@ MAX_TILE = 256              # keys per KV tile the onepass and decode
 ONEPASS_MANY_BLOCKS_PER_SM = 4  # 64-row blocks from this many per SM on
 DECODE_MAX_STAGES = 4       # K/V stages of a streaming decode block
 DECODE_MAX_CLUSTER = 8      # CTAs of a decode cluster (portable size)
+TWOPASS_MAX_STAGES = 4      # K (pass 1) or V and A (pass 2) tiles in flight
 
 
 def reset_launches() -> None:
@@ -333,6 +334,59 @@ def decode_geometry(bh, sq, d, bkv, kv_rep, sms, n_tiles,
             "tiles_per_kv_row": n_mt, "grid": blocks * cluster,
             "stages": stages, "cluster": cluster,
             "smem": _block_smem(d, bkv, stages, rows, wn, cluster)}
+
+
+def _twopass_smem(kind, d, bkv, rows, stages):
+    """Shared memory of a twopass block (``csrc/twopass.cu``'s
+    ``qk_smem``/``av_smem``): staged K/V rows of the head dim rounded up
+    to 128 bytes; pass 1 (``kind`` "qk") ``stages`` K tiles of the KV tile
+    rounded up to 64 keys and the Q tile (rows of d + 16 bytes); pass 2
+    ("av") ``stages`` of a V tile and an A tile (rows of the KV tile
+    rounded up to 32 keys, + 16 bytes), the tile's V in fragment order
+    (keys × d bytes), 8 bytes per row and 8 per warp (its tile range)."""
+    rs = -(-d // 128) * 128
+    if kind == "qk":
+        return stages * -(-bkv // 64) * 64 * rs + rows * (d + 16)
+    sp = -(-bkv // 32) * 32
+    return stages * (sp * rs + rows * (sp + 16)) + sp * d + rows * 8 \
+        + rows // 2
+
+
+def twopass_geometry(bh, sq, d, bkv, kv_rep, sms, n_tiles):
+    """Both twopass passes' launch for a call of ``n_tiles`` KV tiles per
+    row on a card of ``sms`` SMs (``csrc/twopass.cu`` checks it):
+    ``{"qk": {...}, "av": {...}}``. A block serves one kv row and
+    ``rows`` packed (query, head) rows, query-major, one warp per 16
+    rows: 128 rows (at head dim and KV tile up to 128) when the call has
+    128-row blocks enough, 1.5 per SM for pass 1 (every block walks all
+    its row's tiles) and one per SM for pass 2, else 64. Each pass takes
+    the deepest ring of 2 to ``TWOPASS_MAX_STAGES`` stages (no deeper
+    than the row's tiles) that leaves room for two blocks an SM, else the
+    deepest that fits one. Raises on what the kernels cannot take."""
+    _check_block("twopass kernels", bh, d, bkv, kv_rep)
+    packed, n_kr = sq * kv_rep, bh // kv_rep
+    wide = d > 128 or bkv > 128
+    blocks128 = n_kr * -(-packed // 128)
+    geo = {}
+    for kind, per_sm in (("qk", 1.5), ("av", 1)):
+        rows = 64 if wide or blocks128 < per_sm * sms else 128
+        n_mt = -(-packed // rows)
+        deepest = max(2, min(TWOPASS_MAX_STAGES, n_tiles))
+        fits = [st for st in range(deepest, 1, -1)
+                if _twopass_smem(kind, d, bkv, rows, st) <= _MAX_SMEM]
+        if not fits:
+            raise ValueError(
+                f"twopass kernels: d={d}, block_kv={bkv} needs "
+                f"{_twopass_smem(kind, d, bkv, rows, 2)} bytes of shared "
+                f"memory (> {_MAX_SMEM})")
+        two = [st for st in fits
+               if 2 * _twopass_smem(kind, d, bkv, rows, st) <= _MAX_SMEM]
+        stages = (two or fits)[0]
+        geo[kind] = {"rows": rows, "threads": 2 * rows,
+                     "tiles_per_kv_row": n_mt, "grid": n_kr * n_mt,
+                     "stages": stages,
+                     "smem": _twopass_smem(kind, d, bkv, rows, stages)}
+    return geo
 
 
 def _check_vectors(name, d, *tensors):
@@ -612,12 +666,23 @@ def twopass_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
     return twopass_av_plain(a, *stats, v_q, out_mult, kv_len, **kw), a
 
 
+def _twopass_pass_geometry(kind, x, d, bkv, kv_rep, skv, geometry):
+    """The geometry a twopass pass launches with: ``geometry`` (a pass's
+    entry of ``twopass_geometry``, for timing others) or the call's own."""
+    if geometry is not None:
+        return geometry
+    bh, sq = x.shape[:2]
+    return twopass_geometry(bh, sq, d, bkv, kv_rep, sm_count(x.device),
+                            skv // bkv)[kind]
+
+
 def twopass_qk_launcher(q_q, k_q, logit_mult, kv_len, *, q_offset=0,
                         causal: bool = True, window: int = 0,
                         adaptive: bool = False, block_kv: int = 128,
-                        kv_rep: int = 1):
+                        kv_rep: int = 1, geometry=None):
     """Bind pass 1 (B5a): ``(launch, (a, row_max, sigma_inv, e_r))``, the
-    outputs as ``twopass_qk_plain`` returns them."""
+    outputs as ``twopass_qk_plain`` returns them. ``geometry``: see
+    ``_twopass_pass_geometry``."""
     name = "ita_attention_twopass_qk_da"
     bkv, meta = _twopass_operands(q_q, k_q, kv_len, q_offset, block_kv,
                                   kv_rep)
@@ -627,20 +692,23 @@ def twopass_qk_launcher(q_q, k_q, logit_mult, kv_len, *, q_offset=0,
     q_q, k_q = q_q.contiguous(), k_q.contiguous()
     _require_cuda(name, q_q, k_q, lmult)
     _check_vectors(name, d, q_q, k_q)
+    geo = _twopass_pass_geometry("qk", q_q, d, bkv, kv_rep, skv, geometry)
     a = torch.empty((bh, sq, skv), dtype=torch.int8, device=q_q.device)
     stats = torch.empty((3, bh, sq), dtype=torch.int32, device=q_q.device)
     args = (q_q.data_ptr(), k_q.data_ptr(), lmult.data_ptr(),
             meta.data_ptr(), a.data_ptr(), stats[0].data_ptr(),
             stats[1].data_ptr(), stats[2].data_ptr(), bh, sq, skv, d, bkv,
-            kv_rep, int(causal), window, int(adaptive))
+            kv_rep, int(causal), window, int(adaptive), geo["rows"] // 16,
+            geo["stages"])
     return _bind(name, args, (a, stats[0], stats[1], stats[2]),
                  (q_q, k_q, lmult, meta))
 
 
 def twopass_av_launcher(a, row_max, sigma_inv, e_r, v_q, out_mult, kv_len,
                         *, q_offset=0, causal: bool = True, window: int = 0,
-                        block_kv: int = 128, kv_rep: int = 1):
-    """Bind pass 2 (B5b): ``(launch, out)`` with out (BH, Sq, D) int8."""
+                        block_kv: int = 128, kv_rep: int = 1, geometry=None):
+    """Bind pass 2 (B5b): ``(launch, out)`` with out (BH, Sq, D) int8.
+    ``geometry``: see ``_twopass_pass_geometry``."""
     name = "ita_attention_twopass_av_en"
     bh, sq, skv = a.shape
     d = v_q.shape[-1]
@@ -652,10 +720,12 @@ def twopass_av_launcher(a, row_max, sigma_inv, e_r, v_q, out_mult, kv_len,
     a, v_q = a.contiguous(), v_q.contiguous()
     _require_cuda(name, a, v_q, omult, *stats)
     _check_vectors(name, d, v_q)
+    geo = _twopass_pass_geometry("av", a, d, bkv, kv_rep, skv, geometry)
     out = torch.empty((bh, sq, d), dtype=torch.int8, device=a.device)
     args = (a.data_ptr(), *(x.data_ptr() for x in stats), v_q.data_ptr(),
             omult.data_ptr(), meta.data_ptr(), out.data_ptr(), bh, sq, skv,
-            d, bkv, kv_rep, int(causal), window)
+            d, bkv, kv_rep, int(causal), window, geo["rows"] // 16,
+            geo["stages"])
     return _bind(name, args, out, (a, v_q, omult, meta, *stats))
 
 
@@ -667,8 +737,8 @@ def ita_attention_twopass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
     D) int8 in the kernel layout; returns ``(out int8 (BH, Sq, D), a int8
     (BH, Sq, Skv))`` — A is the materialised attention matrix, written
     once by pass 1 and read once by pass 2. ``block_q`` is accepted for
-    signature parity: query rows are independent (the kernels tile them
-    by 16, any Sq)."""
+    signature parity: query rows are independent (the kernels pack them
+    with their heads, ``twopass_geometry``)."""
     kw = dict(q_offset=q_offset, causal=causal, window=window,
               block_kv=block_kv, kv_rep=kv_rep)
     if q_q.device.type == "cpu":

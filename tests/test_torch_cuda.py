@@ -274,12 +274,21 @@ def test_cuda_onepass_paged_prefill_decode_idle_rows(window):
 
 
 TWOPASS_CASES = [
-    # bh, kv_rep, sq, skv, d, block_kv, causal, window, ragged
+    # bh, kv_rep, sq, skv, d, block_kv, causal, window, ragged ("pad": row
+    # 0 sees one key, row 1 none — its queries are the call's pad rows,
+    # A still written, output 0)
     (4, 1, 40, 128, 16, 64, True, 0, False),
     (14, 7, 64, 384, 32, 128, True, 0, True),
     (4, 2, 32, 192, 16, 64, True, 40, True),
     (2, 1, 16, 48, 16, 48, False, 0, False),
     (56, 7, 512, 512, 128, 128, True, 0, False),
+    # the 64/128-row blocks of csrc/twopass.cu: the largest KV tile, 40
+    # queries x 7 heads (280 packed rows, not a multiple of the block),
+    # head dim 64 at kv_rep 7, and pad rows
+    (28, 7, 256, 512, 128, 256, True, 0, False),
+    (28, 7, 40, 384, 128, 128, True, 0, True),
+    (14, 7, 96, 256, 64, 128, True, 0, False),
+    (14, 7, 48, 256, 128, 128, True, 0, "pad"),
 ]
 
 
@@ -290,7 +299,7 @@ TWOPASS_CASES = [
 def test_cuda_twopass_matches_plain(case):
     """Both twopass kernels (B5a, B5b) against their plain versions: out
     and A through the wrapper, then each pass alone on the same inputs
-    (pass 1's statistics too)."""
+    (pass 1's statistics too), also in the other block size."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU build)")
     exact_float32_matmul()
@@ -306,6 +315,8 @@ def test_cuda_twopass_matches_plain(case):
     lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
     omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
     kv_len = rng.integers(1, skv + 1, bh) if ragged else np.full(bh, skv)
+    if ragged == "pad":
+        kv_len[:2] = (1, 0)
     kv_len = t(kv_len.astype(np.int32))
     q_offset = torch.clamp(kv_len - sq, min=0)
     for adaptive in (True, False):
@@ -315,20 +326,31 @@ def test_cuda_twopass_matches_plain(case):
                                          adaptive=adaptive, **kw)
         want_out, want_a = K.twopass_plain(q, k, v, lmult, omult, kv_len,
                                            adaptive=adaptive, **kw)
-        launch, got1 = K.twopass_qk_launcher(q, k, lmult, kv_len,
-                                             adaptive=adaptive, **kw)
-        launch()
         want1 = K.twopass_qk_plain(q, k, lmult, kv_len, adaptive=adaptive,
                                    **kw)
-        launch, got2 = K.twopass_av_launcher(*want1, v, omult, kv_len, **kw)
-        launch()
         want2 = K.twopass_av_plain(*want1, v, omult, kv_len, **kw)
         torch.cuda.synchronize()
         assert torch.equal(out, want_out), adaptive
         assert torch.equal(a, want_a), adaptive
-        for g, w in zip(got1, want1, strict=True):
-            assert torch.equal(g, w), adaptive
-        assert torch.equal(got2, want2), adaptive
+        # each pass alone, in the call's geometry and in the blocks of
+        # 128 and 64 rows that an SM count of 1 and of 10^6 gives
+        bkv_ = min(bkv, skv)
+        for sms in (None, 1, 10 ** 6):
+            geo = (dict.fromkeys(("qk", "av")) if sms is None else
+                   K.twopass_geometry(bh, sq, d, bkv_, rep, sms, skv // bkv_))
+            launch, got1 = K.twopass_qk_launcher(
+                q, k, lmult, kv_len, adaptive=adaptive, geometry=geo["qk"],
+                **kw)
+            launch()
+            launch, got2 = K.twopass_av_launcher(*want1, v, omult, kv_len,
+                                                 geometry=geo["av"], **kw)
+            launch()
+            torch.cuda.synchronize()
+            for g, w in zip(got1, want1, strict=True):
+                assert torch.equal(g, w), (adaptive, sms)
+            assert torch.equal(got2, want2), (adaptive, sms)
+        if ragged == "pad":
+            assert not out[1].any() and a[1].any()
 
 
 SOFTMAX_CASES = [

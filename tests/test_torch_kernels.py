@@ -327,6 +327,87 @@ def test_onepass_geometry_refuses_what_the_kernel_cannot_take(d, bkv, bh,
         TK.onepass_geometry(bh, 16, d, bkv, kv_rep, 132)
 
 
+# bh, sq, d, bkv, kv_rep, n_tiles: chip_smoke.py run (c)'s prefill (4×512
+# on qwen2-7b) and the twopass shapes of tests/test_torch_cuda.py
+TWOPASS_GEOMETRY_CASES = [
+    (112, 512, 128, 128, 7, 4),
+    (112, 512, 128, 256, 7, 2),
+    (28, 40, 128, 128, 7, 3),
+    (14, 96, 64, 128, 7, 2),
+    (14, 40, 128, 256, 7, 2),
+    (14, 64, 32, 128, 7, 3),
+    (4, 40, 16, 64, 1, 2),
+    (2, 16, 16, 48, 1, 1),
+    (8, 24, 256, 256, 2, 2),
+]
+
+
+@pytest.mark.parametrize("case", TWOPASS_GEOMETRY_CASES, ids=[
+    "-".join(map(str, c)) for c in TWOPASS_GEOMETRY_CASES])
+def test_twopass_geometry(case):
+    """Both twopass kernels' launch (``csrc/twopass.cu`` checks it): one
+    kv row and 64 or 128 packed (query, head) rows a block, one warp per
+    16 rows, covering every packed row once (sq not a multiple of the
+    tile: the last block's rows past sq write nothing); 128 rows only at
+    head dim and KV tile <= 128 with 1.5 blocks (pass 1) or one (pass 2)
+    per SM of an H100's 132;
+    2-4 stages, no deeper than the row's tiles where two blocks fit an
+    SM, each pass's shared memory as ``csrc/twopass.cu`` lays it out and
+    within a block's 232,448 bytes."""
+    bh, sq, d, bkv, rep, n_tiles = case
+    geo = TK.twopass_geometry(bh, sq, d, bkv, rep, 132, n_tiles)
+    packed, n_kr = sq * rep, bh // rep
+    rs, sp1, sp2 = -(-d // 128) * 128, -(-bkv // 64) * 64, -(-bkv // 32) * 32
+    for kind, per_stage, fixed in (
+            ("qk", sp1 * rs, geo["qk"]["rows"] * (d + 16)),
+            ("av", sp2 * rs + geo["av"]["rows"] * (sp2 + 16),
+             sp2 * d + geo["av"]["rows"] * 8 + geo["av"]["rows"] // 2)):
+        g = geo[kind]
+        assert g["rows"] in (64, 128) and g["threads"] == 2 * g["rows"]
+        need = {"qk": 1.5, "av": 1}[kind] * 132
+        big = n_kr * -(-packed // 128) >= need and d <= 128 and bkv <= 128
+        assert g["rows"] == (128 if big else 64)
+        assert g["tiles_per_kv_row"] == -(-packed // g["rows"])
+        assert (g["tiles_per_kv_row"] - 1) * g["rows"] < packed
+        assert g["grid"] == n_kr * g["tiles_per_kv_row"]
+        assert 2 <= g["stages"] <= max(2, min(4, n_tiles))
+        assert g["smem"] == g["stages"] * per_stage + fixed <= 232448
+        deeper = (g["stages"] + 1) * per_stage + fixed
+        if g["stages"] < min(4, n_tiles):
+            assert 2 * deeper > 232448
+    if case[:5] == (112, 512, 128, 128, 7):
+        # run (c): 448 blocks of 128 rows; K tiles 4 deep, V+A 2 deep
+        assert geo["qk"]["grid"] == 16 * 28 and geo["qk"]["rows"] == 128
+        assert (geo["qk"]["stages"], geo["av"]["stages"]) == (4, 2)
+
+
+@pytest.mark.parametrize("sms", [78, 114, 132, 200, 264, 500])
+def test_twopass_geometry_follows_the_sm_count(sms):
+    """128-row blocks once they number 1.5 per SM of the card for pass 1,
+    one per SM for pass 2, else 64: run (c)'s 4×512 prefill has 448 of
+    them (128 rows up to 298 and 448 SMs), a 4×256 prefill 224 (up to
+    149 and 224 SMs)."""
+    for sq, blocks in ((512, 448), (256, 224)):
+        geo = TK.twopass_geometry(112, sq, 128, 128, 7, sms, sq // 128)
+        for kind, per_sm in (("qk", 1.5), ("av", 1)):
+            rows = 128 if blocks >= per_sm * sms else 64
+            assert geo[kind]["rows"] == rows
+            assert geo[kind]["grid"] == 16 * -(-sq * 7 // rows)
+
+
+@pytest.mark.parametrize("d, bkv, bh, kv_rep, what", [
+    (40, 128, 8, 2, "multiple of 16"),
+    (272, 128, 8, 2, "multiple of 16"),
+    (128, 512, 8, 2, "KV tile"),
+    (128, 0, 8, 2, "KV tile"),
+    (128, 128, 9, 2, "kv rows"),
+])
+def test_twopass_geometry_refuses_what_the_kernels_cannot_take(d, bkv, bh,
+                                                               kv_rep, what):
+    with pytest.raises(ValueError, match=what):
+        TK.twopass_geometry(bh, 16, d, bkv, kv_rep, 132, 2)
+
+
 @pytest.mark.parametrize("sms", [78, 114, 132, 264])
 def test_onepass_geometry_follows_the_sm_count(sms):
     """64-row blocks once they number four per SM of the card, else 32:

@@ -132,6 +132,51 @@ def test_twopass_passes_compose():
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
+@pytest.mark.parametrize("case", [c for c in TWOPASS_CASES
+                                  if c[8] and not c[10]],
+                         ids=[c[0] for c in TWOPASS_CASES
+                              if c[8] and not c[10]])
+def test_twopass_en_reaches_256_on_causal_calls(case, adaptive):
+    """EN's ``p = Σ_inv >> k`` reaches 256 = SIGMA_INV_MAX, one over u8,
+    on every causal call: a query that sees a single key has Σ = 256 and
+    Σ_inv = 256 under both DIs, and that key has k = 0. The CUDA pass 2
+    splits such a p into two u8 products; the bit-exact cases of
+    ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` hold it. Here the
+    statistics of ``twopass_qk_plain`` are checked against the Pallas
+    pass 1 + DI, and p (pass 2's EN, as ``ref.twopass_out`` takes it) is
+    at most 256 everywhere, and 256 at the one key of every query that
+    sees a single key (query 0 at q_offset 0)."""
+    _, bh, rep, sq, skv, _, _, bkv, causal, window, _ = case
+    q, k, v, lmult, omult, kv_len, q_offset = _twopass_inputs(case)
+    kw = dict(q_offset=q_offset, causal=causal, window=window,
+              block_kv=bkv, kv_rep=rep)
+    tkw = {n: _t(x) if isinstance(x, np.ndarray) else x
+           for n, x in kw.items()}
+    a, row_max, inv, e_r = TK.twopass_qk_plain(
+        _t(q), _t(k), _t(lmult), _t(kv_len) if isinstance(
+            kv_len, np.ndarray) else kv_len, adaptive=adaptive, **tkw)
+    # the Pallas pass 1 (its A) and the DI of the JAX package on its Σ
+    _, want_a = JK.ita_attention_twopass(
+        *(_j(x) for x in (q, k, v, lmult, omult, kv_len)), interpret=True,
+        adaptive=adaptive, block_q=sq, **{n: _j(x) for n, x in kw.items()})
+    assert np.array_equal(np.asarray(want_a), a.numpy())
+    lens = torch.as_tensor(kv_len).reshape(-1).expand(bh)
+    offs = torch.as_tensor(q_offset).reshape(-1).expand(bh)
+    valid = TK._row_valid(torch.stack([lens, offs, torch.full_like(
+        lens, sq)], 1).to(torch.int32), sq, skv, causal, window)
+    shift = torch.clamp((row_max[..., None] - a.int()).clamp(min=0) >> 5,
+                        max=31)
+    p = inv[..., None] >> torch.where(valid, shift, 31)
+    assert int(p.max()) == 256 and int(p.min()) >= 0
+    first = valid.int().argmax(dim=-1)          # each query's first key
+    alone = valid.sum(dim=-1) == 1
+    assert alone.any()
+    pick = p.gather(-1, first[..., None])[..., 0]
+    assert bool((pick[alone] == 256).all())
+    assert bool((inv[alone] == 256).all())
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
 def test_twopass_single_tile_equals_paper_oneshot(adaptive):
     """Single KV tile: the twopass kernel equals the one-shot paper-EN
     oracle exactly (the mirror of ``tests/test_kernels.py``'s test), and
