@@ -32,22 +32,28 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    window, ragged kv_len tails and Skv 200 padded to 256, paper and
    adaptive DI, and a single-tile call equal to the one-shot paper
    oracle ``ita_attention_ref``. Check that the model's projections
-   (``models.layers.linear``) give a row the same bits whatever the rows
-   beside it, which serve-equals-solo rests on.
+   (``models.layers.linear``) and norm give a row the same bits whatever
+   the rows beside it, which serve-equals-solo rests on, and the same
+   bits replayed from a CUDA graph as run eagerly, which the captured
+   steps rest on.
 3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
-   seed, batch 4, prompt 512, 32 tokens): (a) unpinned — chunked prefill,
-   then the decode kernel — twice, with identical tokens; (b) with the
+   seed, batch 4, prompt 512, 32 tokens), its decode step replayed from a
+   CUDA graph (``loop="fused"``, the default; captured at the first call,
+   kept for the second): (a) unpinned — chunked prefill, then the decode
+   kernel — twice, with identical tokens; (b) with the
    ``ita_onepass_pallas`` pin; (c) with the ``ita_twopass_pallas`` pin
    and the paper DI (``softmax_impl="ita_paper"``) — twopass prefill,
-   then the decode kernel — twice, with identical tokens. The launch
-   counters are zeroed before each run and read after it; the inputs and
-   outputs of layers 0 and 27 of one prefill call and one decode step
-   (run (b): also layer 0 of its first decode step, a decode-shaped
-   onepass call) are kept and held to the plain versions afterwards.
-   The smoke-width config (unpinned and with each pin) checks the card's
-   logits against the CPU's plain versions.
-   Profile one unpinned ``generate()`` (device time by kernel, busy
-   share).
+   then the decode kernel — twice, with identical tokens. Each run is
+   held token for token against ``loop="stepwise"`` (the step's ops
+   eagerly) on the same inputs. The launch counters are zeroed before
+   each run and read after it (a replay counts the launches its capture
+   saw); the inputs and outputs of layers 0 and 27 of one prefill call
+   and one decode step (the first, run eagerly before the capture; run
+   (b): also layer 0 of its first decode step, a decode-shaped onepass
+   call) are kept and held to the plain versions afterwards. The
+   smoke-width config (unpinned and with each pin) checks the card's
+   logits against the CPU's plain versions. Profile one unpinned
+   ``generate()`` with each loop (device time by kernel, busy share).
 4. Drive the standalone softmax (``kernels.ita_softmax.ops.ita_softmax``)
    on layer 0's attention matrix A of run (c) (57,344 rows of 512 int8
    logits, the causal mask, ``block_c`` 128), paper and adaptive, with
@@ -59,11 +65,27 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    from a seed), 128-token pages, 96-token chunks, 16-step segments and
    24 pages, fewer than the 37 of full provisioning, so admission waits
    on released pages. The launch counters are zeroed before the serve
-   and read after it (both paged kernels must have run); the allocator
+   and read after it (both paged kernels must have run); the serve's
+   mixed and decode steps replay from two CUDA graphs; the allocator
    invariants are checked after every admission round and after the
    serve; each request's tokens must equal ``generate()`` of the request
-   alone with the ``ita_onepass_pallas`` pin at the same ``max_len``.
-   Then profile a serve of the trace's first two requests (device busy
+   alone with the ``ita_onepass_pallas`` pin at the same ``max_len``;
+   layer 0's paged calls of the first mixed and the first decode step
+   (each step's eager warm-up before its capture) are held to their
+   plain versions. Then the trace once more with ``admission="stall"``
+   under the ``ita_onepass_pallas`` pin: a ragged prefill of the
+   admitted prompts through the ring onepass kernel (28 launches an
+   admission round) copied into pool pages, then captured decode steps
+   (through the paged onepass kernel, which the pin reaches); every
+   request's tokens must equal the chunked serve's, and layer 0's ring
+   onepass call of the busiest admission round and its paged onepass
+   call of the first decode step are held to their plain versions.
+   Then the trace sampled
+   (temperature 0.8): its steps run eagerly, so the layer-0 inputs of
+   both paged kernels are kept at every step for phase 6; its launches
+   and steps must equal the greedy serve's and each request's tokens
+   solo ``generate()`` drawing from the request's generator. Then
+   profile a serve of the trace's first two requests (device busy
    share, kernels launched).
 6. Time each kernel on the main path's inputs with CUDA events (median):
    the bound kernel alone, launched back to back (``ms``) and from a
@@ -73,8 +95,8 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    row: ``streaming_ms``, ``streaming_graph_ms``), and the geometry it
    took (the ring onepass kernel on run (b)'s prefill and on
    its decode-shaped call; the paged kernels on layer-0 inputs of the
-   serve: its busiest mixed call and its busiest decode call, and the
-   mean per launch over the layer-0 calls of every serve step; the
+   sampled serve: its busiest mixed call and its busiest decode call,
+   and the mean per launch over the layer-0 calls of every step; the
    twopass passes on layer 0 of run (c); the softmax on that call's A).
 7. ITA's quantized linear layer on qwen2-7b's layer 0: the inputs of
    its seven projections (wq, wk, wv, wo, w_gate, w_up, w_down) in
@@ -601,8 +623,11 @@ def check_row_invariance():
     """The projections and the norm give each row the same bits whatever
     rows share the call (``models.layers``: fixed blocks of 128 rows): a
     served request's tokens can equal its solo ``generate()`` only if
-    this holds. Also reports where a plain ``x @ w`` or ``torch.mean``
-    over rows would not."""
+    this holds. They also give the same bits replayed from a CUDA graph
+    as run eagerly (cuBLAS may pick its kernel and workspace anew under
+    capture): the captured steps of ``generate()`` and the serve rest on
+    that. Also reports where a plain ``x @ w`` or ``torch.mean`` over
+    rows would not be row-invariant."""
     import torch
 
     from repro_torch.models.layers import linear, rmsnorm
@@ -622,6 +647,27 @@ def check_row_invariance():
         alone = fn(x[200:201])
         if not torch.equal(alone[0], full[200]):
             raise AssertionError(f"{what}: row 200 alone differs")
+        for m in (4, 96, 384):
+            same_in_graph(fn, x[:m].clone(), f"{what}, {m} rows")
+
+    graphs = []
+
+    def same_in_graph(fn, x, what):
+        want = fn(x)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):          # warm up off the capture
+            fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = fn(x)
+        graph.replay()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: replayed from a CUDA graph, "
+                                 f"{int((got != want).sum())} elements "
+                                 f"differ from the eager call")
+        graphs.append(what)
 
     def raw_differs(fn, x):
         """For each row count m, how many of the first m rows differ
@@ -650,7 +696,8 @@ def check_row_invariance():
                  f"alone, by row count: "
                  f"{raw_differs(lambda t: torch.mean(t, dim=-1), xf)}")
     log(f"[invariance] linear and rmsnorm: every checked row equal among "
-        f"{counts} and 700 rows; " + "; ".join(notes))
+        f"{counts} and 700 rows; {len(graphs)} calls replayed from CUDA "
+        f"graphs equal to eager (4, 96 and 384 rows); " + "; ".join(notes))
 
 
 # ---------------------------------------------------------------------------
@@ -660,15 +707,19 @@ def check_row_invariance():
 class Recorder:
     """Stands in for a kernel wrapper inside ``ops``: forwards every call
     and keeps the inputs (cloned: the rings change in place later) and the
-    output of the calls whose index is in ``keep``."""
+    output of the calls whose index is in ``keep``. Calls made while a
+    CUDA graph is captured are forwarded only: they run nothing then, and
+    their replays never reach Python."""
 
     def __init__(self, fn, keep):
         self.fn, self.keep, self.calls, self.kept = fn, set(keep), 0, {}
 
     def __call__(self, *args, **kw):
+        import torch
         out = self.fn(*args, **kw)
+        if torch.cuda.is_current_stream_capturing():
+            return out          # a graph's capture runs nothing: no call
         if self.calls in self.keep:
-            import torch
 
             def clone(x):
                 if isinstance(x, tuple):
@@ -681,7 +732,8 @@ class Recorder:
         return out
 
 
-def run_generate(model, cfg, prompts, *, record=None, keep=()):
+def run_generate(model, cfg, prompts, *, record=None, keep=(),
+                 loop="fused"):
     """One ``generate()`` with the launch counters zeroed just before and
     read just after; ``record`` names the ops wrapper to record."""
     from repro_torch.kernels.ita_attention import ops
@@ -692,12 +744,42 @@ def run_generate(model, cfg, prompts, *, record=None, keep=()):
         setattr(ops, record, rec)
     try:
         reset_launches()
-        res = generate(model, cfg, prompts, GEN, device=DEV)
+        res = generate(model, cfg, prompts, GEN, loop=loop, device=DEV)
         launches = read_launches()
     finally:
         if rec is not None:
             setattr(ops, record, rec.fn)
     return res, launches, rec
+
+
+def hold_to_stepwise(model, cfg, prompts, fused, want, label):
+    """Run ``label`` once more with ``loop="stepwise"``: its tokens and
+    launches must equal the fused run's. Logs both loops' figures."""
+    import torch
+    step, launches, _ = run_generate(model, cfg, prompts, loop="stepwise")
+    if launches != want or not torch.equal(step.tokens, fused.tokens):
+        raise AssertionError(f"{label}: loop='stepwise' gave other tokens "
+                             f"or launches ({launches}) than the fused loop")
+    log(f"[generate] {label} fused vs stepwise, tokens identical: decode "
+        f"{fused.decode_tok_s:.1f} vs {step.decode_tok_s:.1f} tok/s, "
+        f"prefill {fused.prefill_s:.3f} vs {step.prefill_s:.3f} s, "
+        f"capture {fused.capture_s:.3f} s (none stepwise), graph pool "
+        f"{fused.graph_bytes / 2**20:.1f} MiB; {card_line()}")
+    return step
+
+
+def log_capture(label, first, kept):
+    """The first fused call (which captured the decode step) beside the
+    second (which replayed the kept graph)."""
+    log(f"[generate] {label} capture: first fused call decode "
+        f"{first.decode_s:.3f} s ({first.decode_tok_s:.1f} tok/s) of which "
+        f"capture {first.capture_s:.3f} s; graph pool "
+        f"{first.graph_bytes / 2**20:.1f} MiB (device memory the capture "
+        f"reserved), allocated memory +{first.alloc_bytes / 2**20:.1f} MiB "
+        f"from before the copy-in to after the capture (the call's own "
+        f"carry, its ring included, is the kept graph's static buffers); "
+        f"second call {kept.decode_s:.3f} s "
+        f"({kept.decode_tok_s:.1f} tok/s), capture {kept.capture_s:.3f} s")
 
 
 def smoke_width_reference():
@@ -779,6 +861,8 @@ def full_width(model, cfg, checks):
     if la2 != want or not torch.equal(res_a.tokens, res_a2.tokens):
         raise AssertionError("a second unpinned run gave other tokens or "
                              "launches")
+    log_capture("(a)", res_a, res_a2)
+    step_a = hold_to_stepwise(model, cfg, prompts, res_a2, want, "(a)")
     # (b) pinned onepass: prefill and every decode step through onepass
     cfg_b = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
     # calls 0 and n_layers - 1 are prefill, n_layers the first decode step
@@ -789,6 +873,7 @@ def full_width(model, cfg, checks):
     want_b["ita_attention_onepass"] = n_layers * GEN
     if lb != want_b:
         raise AssertionError(f"pinned launches {lb} != {want_b}")
+    step_b = hold_to_stepwise(model, cfg_b, prompts, res_b, want_b, "(b)")
     for res in (res_a, res_b):
         tok = res.tokens
         if tok.shape != (B, GEN) or tok.min() < 0 \
@@ -825,6 +910,8 @@ def full_width(model, cfg, checks):
     if lc2 != want_c or not torch.equal(res_c.tokens, res_c2.tokens):
         raise AssertionError("a second twopass-pinned run gave other tokens "
                              "or launches")
+    log_capture("(c)", res_c, res_c2)
+    step_c = hold_to_stepwise(model, cfg_c, prompts, res_c2, want_c, "(c)")
     tok = res_c.tokens
     if tok.shape != (B, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(tok.shape)}")
@@ -862,6 +949,10 @@ def full_width(model, cfg, checks):
             "pinned_decode_tok_s": res_b.decode_tok_s,
             "twopass_prefill_s": res_c2.prefill_s,
             "twopass_decode_tok_s": res_c2.decode_tok_s,
+            "stepwise_decode_tok_s": (step_a.decode_tok_s,
+                                      step_b.decode_tok_s,
+                                      step_c.decode_tok_s),
+            "capture_s": res_a.capture_s,
             "launches": {"ita_attention_decode": la["ita_attention_decode"],
                          "ita_attention_onepass":
                              lb["ita_attention_onepass"],
@@ -933,12 +1024,35 @@ def serve_trace(cfg, seed=7):
     return reqs
 
 
-def busiest(rec):
-    """The kept call with the most KV work (the largest summed kv_len)."""
+def busiest(rec, kv_arg=6):
+    """The kept call with the most KV work (the largest summed kv_len,
+    argument ``kv_arg``: 6 of a paged call, 5 of a ring call)."""
+    import torch
+
     def work(item):
-        args = item[1][0]
-        return int(args[6].sum().item())
+        return int(torch.as_tensor(item[1][0][kv_arg]).sum().item())
     return max(rec.kept.items(), key=work)
+
+
+def recording(names, keep):
+    """``Recorder``s put in place of the ops wrappers ``names``."""
+    from repro_torch.kernels.ita_attention import ops
+    recs = {name: Recorder(getattr(ops, name), keep) for name in names}
+    for name, rec in recs.items():
+        setattr(ops, name, rec)
+    return recs
+
+
+def unrecord(recs):
+    from repro_torch.kernels.ita_attention import ops
+    for name, rec in recs.items():
+        setattr(ops, name, rec.fn)
+
+
+def check_recorded(checks, name, rec, idx, what):
+    """Kept call ``idx`` of ``rec`` against its plain version."""
+    args, kw, out = rec.kept[idx]
+    checks.compare(name, out, plain_of(name)(*args, **kw), what)
 
 
 def full_width_serve(model, cfg, checks):
@@ -946,14 +1060,12 @@ def full_width_serve(model, cfg, checks):
     import torch
 
     from repro_torch.kernels.ita_attention import kernel as K
-    from repro_torch.kernels.ita_attention import ops
     from repro_torch.runtime.generate import generate, serve_continuous
     reqs = serve_trace(cfg)
     n_layers = cfg.n_layers
-    keep = range(0, n_layers * 512, n_layers)          # layer 0 of a step
-    recs = {name: Recorder(getattr(ops, name), keep) for name in PAGED}
-    for name, rec in recs.items():
-        setattr(ops, name, rec)
+    # the steps run eagerly only at their warm-up: call 0 of B3 is layer 0
+    # of the first mixed step, call 0 of B4p of the first decode step
+    warm = recording(PAGED, keep=(0,))
     try:
         reset_launches()
         res = serve_continuous(
@@ -963,8 +1075,7 @@ def full_width_serve(model, cfg, checks):
             debug_invariants=True, device=DEV)
         launches = read_launches()
     finally:
-        for name, rec in recs.items():
-            setattr(ops, name, rec.fn)
+        unrecord(warm)
     if any(launches[name] <= 0 for name in PAGED):
         raise AssertionError(f"a paged kernel did not run in the serve: "
                              f"{launches}")
@@ -985,7 +1096,19 @@ def full_width_serve(model, cfg, checks):
     log(f"[serve] {res.total_tokens} tokens in {res.wall_s:.3f} s: "
         f"sustained {res.tok_s:.2f} tok/s; TTFT p50 "
         f"{res.ttft_quantile(0.5):.3f} s p90 {res.ttft_quantile(0.9):.3f} "
-        f"s; latency p50 {res.latency_quantile(0.5):.3f} s; {card_line()}")
+        f"s; latency p50 {res.latency_quantile(0.5):.3f} s; mixed and "
+        f"decode steps captured in {res.capture_s:.3f} s, graph pools "
+        f"{res.graph_bytes / 2**20:.1f} MiB reserved, allocated memory "
+        f"+{res.alloc_bytes / 2**20:.1f} MiB from before the first copy-in "
+        f"to after each capture (the carry, KV pools included, is the "
+        f"graphs' static buffers); {card_line()}")
+    for name, what in zip(PAGED, ("mixed", "decode"), strict=True):
+        check_recorded(checks, name, warm[name], 0,
+                       f"chunked serve, layer 0 of the first {what} step "
+                       f"(its eager warm-up)")
+    log("[serve] the chunked serve's own layer-0 paged calls of its first "
+        "mixed step (B3) and first decode step (B4p), run eagerly before "
+        "their capture, bit-exact vs plain")
 
     # each request alone, through the onepass pin, at the serve's max_len
     cfg_pin = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
@@ -1003,25 +1126,151 @@ def full_width_serve(model, cfg, checks):
                 f"{c.tokens[first]} vs {want[first]}")
     log(f"[serve] every request's tokens equal solo generate() "
         f"(ita_onepass_pallas pin, max_len {max_len})")
+    stall = stall_serve(model, cfg_pin, reqs, res, checks)
+    recs = sampled_serve(model, cfg, reqs, res, launches, max_len)
 
     captured = {}
     for name, rec in recs.items():
         idx, (args, kw, out) = busiest(rec)
         checks.compare(name, out, K.paged_attention_plain(*args, **kw),
-                       f"serve, layer 0 of step {idx // n_layers}")
+                       f"sampled serve, layer 0 of step {idx // n_layers}")
         captured[name] = (args, kw, out)
-    log("[serve] captured layer-0 paged calls bit-exact vs plain")
+    log("[serve] the sampled serve's busiest layer-0 paged calls bit-exact "
+        "vs plain")
     mean = {name: mean_kernel_ms(name, rec) for name, rec in recs.items()}
     served_mean = {name: ms for name, (ms, _) in mean.items()}
     for name, (ms, n) in mean.items():
-        log(f"[timing] {name} over the serve: mean {ms:.5f} ms per launch "
-            f"over the layer-0 calls of all {n} steps that launched it "
-            f"(5 launches each); {card_line()}")
+        log(f"[timing] {name} over the sampled serve: mean {ms:.5f} ms per "
+            f"launch over the layer-0 calls of all {n} steps that launched "
+            f"it (5 launches each); {card_line()}")
     profile_serve(model, cfg, reqs)
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
             "ttft_p50": res.ttft_quantile(0.5),
             "ttft_p90": res.ttft_quantile(0.9),
-            "mean_ms": served_mean}, launches, captured
+            "mean_ms": served_mean, "stall": stall}, launches, captured
+
+
+def sampled_serve(model, cfg, reqs, greedy, launches, max_len):
+    """The trace once more, sampled (temperature 0.8, seed 11). A sampled
+    step reads its emitting rows back to draw from their generators, so
+    its steps run eagerly and Python sees every kernel call: this serve's
+    layer-0 paged calls are kept for phase 6 (the busiest call and the
+    mean over every step). Without EOS its schedule (admissions, chunks,
+    kv lengths) is the greedy serve's, so its kernels get the same work
+    and launches. Each request's tokens must equal solo ``generate()``
+    (onepass pin, fused loop) drawing from the request's generator."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import request_generator
+    from repro_torch.runtime.generate import generate, serve_continuous
+    n_layers = cfg.n_layers
+    keep = range(0, n_layers * 512, n_layers)          # layer 0 of a step
+    recs = recording(PAGED, keep)
+    try:
+        reset_launches()
+        res = serve_continuous(
+            model, cfg, reqs, slots=SERVE["slots"],
+            segment=SERVE["segment"], page_size=SERVE["page_size"],
+            num_pages=SERVE["num_pages"], chunk_size=SERVE["chunk_size"],
+            temperature=0.8, seed=11, device=DEV)
+        sampled = read_launches()
+    finally:
+        unrecord(recs)
+    if sampled != launches or res.steps != greedy.steps \
+            or len(res.completed) != len(reqs):
+        raise AssertionError(f"sampled serve: {res.steps} steps, launches "
+                             f"{sampled}, not the greedy serve's")
+    cfg_pin = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    for c in res.completed:
+        r = reqs[c.index]
+        solo = generate(model, cfg_pin, torch.as_tensor(r.prompt)[None],
+                        r.gen, max_len=max_len, temperature=0.8,
+                        generator=request_generator(11, c.index, DEV),
+                        device=DEV).tokens[0].cpu().numpy()
+        if not np.array_equal(c.tokens, solo):
+            raise AssertionError(f"sampled serve: request {c.index}'s "
+                                 f"tokens differ from solo generate()")
+    log(f"[serve] sampled (temperature 0.8, seed 11; steps eager): every "
+        f"request's tokens equal solo generate() drawing from its "
+        f"generator (fused loop, its graph registered with it); launches "
+        f"and {res.steps} steps equal the greedy serve's; {res.total_tokens}"
+        f" tokens in {res.wall_s:.3f} s: sustained {res.tok_s:.2f} tok/s; "
+        f"{card_line()}")
+    return recs
+
+
+def stall_serve(model, cfg_pin, reqs, chunked, checks):
+    """The trace once more with ``admission="stall"`` under the onepass
+    pin: each admission round's ragged prefill runs the ring onepass
+    kernel (B2) once a layer, and the pin takes the decode steps to the
+    paged onepass kernel (B3) at one query a row; every request's tokens
+    must equal the chunked serve's (which equal solo ``generate()``).
+    Layer 0's B2 call of the busiest round (every round runs eagerly) and
+    layer 0's B3 call of the first decode step (its eager warm-up) are
+    held against their plain versions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.generate import serve_continuous
+    n_layers = cfg_pin.n_layers
+    recs = recording(("ita_attention_onepass",),
+                     keep=range(0, n_layers * 64, n_layers))
+    recs.update(recording(("ita_attention_onepass_paged",), keep=(0,)))
+    try:
+        reset_launches()
+        res = serve_continuous(
+            model, cfg_pin, reqs, slots=SERVE["slots"],
+            segment=SERVE["segment"], page_size=SERVE["page_size"],
+            num_pages=SERVE["num_pages"], admission="stall",
+            debug_invariants=True, device=DEV)
+        launches = read_launches()
+    finally:
+        unrecord(recs)
+    if len(res.completed) != len(reqs):
+        raise AssertionError(f"stall serve: {len(res.completed)} of "
+                             f"{len(reqs)} requests completed")
+    if launches["ita_attention_onepass"] != n_layers * res.admission_rounds \
+            or res.prefill_stall_s <= 0:
+        raise AssertionError(f"stall serve: {launches} over "
+                             f"{res.admission_rounds} admission rounds, "
+                             f"stall {res.prefill_stall_s} s")
+    want = {c.index: c.tokens for c in chunked.completed}
+    for c in res.completed:
+        if not np.array_equal(c.tokens, want[c.index]):
+            raise AssertionError(f"stall serve: request {c.index}'s tokens "
+                                 f"differ from the chunked serve's")
+    idx, (args, _, _) = busiest(recs["ita_attention_onepass"], kv_arg=5)
+    check_recorded(checks, "ita_attention_onepass",
+                   recs["ita_attention_onepass"], idx,
+                   f"stall serve, layer 0 of admission round "
+                   f"{idx // n_layers} (sq {args[0].shape[1]})")
+    check_recorded(checks, "ita_attention_onepass_paged",
+                   recs["ita_attention_onepass_paged"], 0,
+                   "stall serve, layer 0 of the first decode step (its "
+                   "eager warm-up)")
+    log(f"[serve] stall serve: layer 0's B2 call of its busiest admission "
+        f"round ({idx // n_layers}, q {tuple(args[0].shape)}, summed kv_len "
+        f"{int(torch.as_tensor(args[5]).sum())}) and layer 0's B3 call of "
+        f"its first decode step bit-exact vs plain")
+    paged = {name: launches[name] for name in PAGED}
+    log(f"[serve] stall admission (ita_onepass_pallas pin): every "
+        f"request's tokens equal the chunked serve's; {res.steps} steps, "
+        f"{res.segments} segments, {res.admission_rounds} admission rounds; "
+        f"B2 (ring onepass) {launches['ita_attention_onepass']} launches "
+        f"({n_layers} a round), paged {paged} (the pin reaches the paged "
+        f"decode spec, so decode steps run the paged onepass kernel); "
+        f"prefill_stall_s {res.prefill_stall_s:.3f} s; {res.total_tokens} "
+        f"tokens in {res.wall_s:.3f} s: sustained {res.tok_s:.2f} tok/s; "
+        f"TTFT p50 {res.ttft_quantile(0.5):.3f} s p90 "
+        f"{res.ttft_quantile(0.9):.3f} s; capture {res.capture_s:.3f} s, "
+        f"graph pool {res.graph_bytes / 2**20:.1f} MiB, allocated "
+        f"+{res.alloc_bytes / 2**20:.1f} MiB; "
+        f"{card_line()}")
+    return {"tok_s": res.tok_s, "wall_s": res.wall_s,
+            "ttft_p50": res.ttft_quantile(0.5),
+            "ttft_p90": res.ttft_quantile(0.9),
+            "prefill_stall_s": res.prefill_stall_s, "launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1185,16 +1434,21 @@ def profile_run(label, fn):
 
 
 def profile_generate(model, cfg, prompts):
+    """Run (a) under the profiler with each loop: the decode step replayed
+    from its kept graph, then its ops eagerly."""
     from repro_torch.runtime.generate import generate
-    profile_run("generate (a)",
-                lambda: generate(model, cfg, prompts, GEN, device=DEV))
+    for loop, how in (("fused", "decode step replayed from its kept graph"),
+                      ("stepwise", "decode step's ops eagerly")):
+        profile_run(f"generate (a), {how}", lambda loop=loop: generate(
+            model, cfg, prompts, GEN, loop=loop, device=DEV))
 
 
 def profile_serve(model, cfg, reqs):
     """The serve's first two requests under the profiler."""
     from repro_torch.runtime.generate import serve_continuous
     res = profile_run(
-        "serve of requests 0-1", lambda: serve_continuous(
+        "serve of requests 0-1, steps replayed from CUDA graphs",
+        lambda: serve_continuous(
             model, cfg, reqs[:2], slots=SERVE["slots"],
             segment=SERVE["segment"], page_size=SERVE["page_size"],
             num_pages=SERVE["num_pages"], chunk_size=SERVE["chunk_size"],
@@ -1738,7 +1992,11 @@ def main():
         f"{metrics['twopass_decode_tok_s']:.1f} tok/s; serve "
         f"{served['tok_s']:.2f} tok/s sustained, TTFT p50 "
         f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
-        f"{served['wall_s']:.3f} s; {card}")
+        f"{served['wall_s']:.3f} s; stall serve {served['stall']['tok_s']:.2f} "
+        f"tok/s, wall {served['stall']['wall_s']:.3f} s, prefill stall "
+        f"{served['stall']['prefill_stall_s']:.3f} s; stepwise decode "
+        f"(a) (b) (c) {', '.join(f'{x:.1f}' for x in metrics['stepwise_decode_tok_s'])}"
+        f" tok/s; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -299,8 +299,8 @@ class PagedKVState:
         ascending page-id order. A page already at count 0 can neither
         underflow nor be pushed twice."""
         P = self.num_pages
-        freed = (dec > 0) & (self.ref_count > 0) & (self.ref_count <= dec)
-        freed[PARKING_PAGE] = False
+        freed = (dec > 0) & (self.ref_count > 0) & (self.ref_count <= dec) \
+            & (self._ar(P) != PARKING_PAGE)
         ref = torch.clamp(self.ref_count - dec, min=0)
         rank = torch.cumsum(freed, 0, dtype=torch.int32) - 1
         dest = self.free_top + rank

@@ -14,7 +14,9 @@ config. Attention is ITA's int8 pipeline (the float and I-BERT impls
 come with their backends). Runs on the card; ``--device cpu`` runs the
 plain versions on the CPU. ``--ragged`` serves right-padded prompts of
 random lengths in [prompt_len/2, prompt_len]; ``--paged`` swaps the
-rings for the shared paged pool (equal tokens).
+rings for the shared paged pool (equal tokens); ``--loop stepwise`` runs
+the decode step's ops eagerly in place of replaying it from a CUDA graph
+(``fused``, the default; equal tokens).
 
 ``--continuous`` serves an arrival trace built as the JAX CLI builds it
 (Poisson arrivals at ``--rate`` per decode step, prompt lengths in
@@ -22,8 +24,10 @@ rings for the shared paged pool (equal tokens).
 ``--seed``) through ``--batch`` slots over the paged pool, admitting by
 chunked prefill (``--chunk-size``, ``--token-budget``) between
 ``--segment``-step segments, and reports sustained tok/s, latency and
-TTFT. The JAX CLI's prefix-sharing, preemption, journal and stall
-options come with later slices of the port.
+TTFT. ``--admission stall`` admits by a stop-the-world prefill into a
+ring scratch copied into pool pages (the A/B reference; its stop time is
+reported as prefill-stall). The JAX CLI's prefix-sharing, preemption
+and journal options come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--loop", default="fused", choices=["fused", "stepwise"],
+                    help="fused = replay the decode step from a CUDA graph "
+                         "(captured once); stepwise = its ops eagerly, "
+                         "step by step")
     ap.add_argument("--ragged", action="store_true")
     ap.add_argument("--eos-id", type=int, default=None,
                     help="pin sequences to pad after this token, stop "
@@ -79,8 +87,15 @@ def main(argv=None):
                          "granularity) for --continuous")
     ap.add_argument("--page-size", type=int, default=128,
                     help="KV pool page size (tokens per page)")
+    ap.add_argument("--admission", default="chunked",
+                    choices=["chunked", "stall"],
+                    help="chunked = prompts prefill in chunks inside the "
+                         "segments, interleaved with decode; stall = a "
+                         "stop-the-world ragged prefill into a ring scratch "
+                         "copied into pool pages (A/B reference)")
     ap.add_argument("--chunk-size", type=int, default=32,
-                    help="prompt tokens prefilling per slot per step")
+                    help="prompt tokens prefilling per slot per step "
+                         "under --admission chunked")
     ap.add_argument("--token-budget", type=int, default=None,
                     help="per-step token budget of the decode-maximal "
                          "scheduler (default slots - 1 + chunk_size)")
@@ -118,10 +133,10 @@ def main(argv=None):
                    temperature=args.temperature, generator=sampler,
                    prompt_lengths=lengths, eos_id=args.eos_id,
                    early_exit=args.eos_id is not None, paged=args.paged,
-                   page_size=args.page_size, device=dev)
+                   page_size=args.page_size, loop=args.loop, device=dev)
 
     print(f"[serve] arch={cfg.name} impl={cfg.attention_impl} device={dev}"
-          + (" ragged" if args.ragged else "")
+          f" loop={args.loop}" + (" ragged" if args.ragged else "")
           + (" paged" if args.paged else ""))
     if lengths is not None:
         print(f"[serve] prompt lengths: {lengths.tolist()}")
@@ -150,12 +165,14 @@ def _continuous(args, cfg, model, dev):
         max_len=args.prompt_len + args.gen, page_size=args.page_size,
         temperature=args.temperature,
         seed=args.seed if args.temperature > 0 else None,
-        eos_id=args.eos_id, chunk_size=args.chunk_size,
-        token_budget=args.token_budget, device=dev)
+        eos_id=args.eos_id, admission=args.admission,
+        chunk_size=args.chunk_size, token_budget=args.token_budget,
+        device=dev)
     util = max((u for _, u in res.page_util), default=0.0)
     print(f"[serve] arch={cfg.name} continuous slots={args.batch} "
           f"segment={args.segment} page_size={args.page_size} "
-          f"admission=chunked chunk={args.chunk_size} device={dev}")
+          f"admission={args.admission} chunk={args.chunk_size} "
+          f"device={dev}")
     print(f"[serve] {len(res.completed)}/{args.requests} requests, "
           f"{res.steps} steps / {res.segments} segments / "
           f"{res.admission_rounds} admission rounds")

@@ -12,15 +12,20 @@ decode ``gen`` tokens through the ring caches.
 Ragged batches: ``prompt_lengths`` (B,) for right-padded prompts — each
 sequence prefills, positions and decodes at its own length through the
 per-row kernel meta. ``paged=True`` swaps the per-sequence rings for
-shared paged KV pools (equal tokens).
+shared paged KV pools (equal tokens). ``loop="fused"`` (the default)
+replays the decode step from a CUDA graph captured once per shape;
+``loop="stepwise"`` runs its ops eagerly, step by step (equal tokens).
 
 ``serve_continuous`` is the continuous-batching server on top: a fixed-
 slot batch over the paged pool, segments of steps with host admission
-between them. Finished sequences release their pages; arrived prompts
-enter by chunked prefill: admission only enqueues their token ids, and
-the segments prefill them chunk by chunk straight into pool pages,
-interleaved with decode under a decode-maximal token budget. Throughput
-is sustained tok/s over the whole arrival trace.
+between them, each step replayed from a CUDA graph when greedy.
+Finished sequences release their pages. Arrived prompts enter by
+chunked prefill — admission only enqueues their token ids, and the
+segments prefill them chunk by chunk straight into pool pages,
+interleaved with decode under a decode-maximal token budget — or, with
+``admission="stall"``, by a stop-the-world prefill into a ring scratch
+copied into pool pages. Throughput is sustained tok/s over the whole
+arrival trace.
 
     from repro_torch.runtime.generate import ServeRequest, serve_continuous
     res = serve_continuous(model, cfg, [ServeRequest(prompt, gen=32)],
@@ -30,9 +35,11 @@ is sustained tok/s over the whole arrival trace.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
 import time
+import weakref
 from typing import Any
 
 import numpy as np
@@ -49,10 +56,44 @@ class GenerateResult:
     decode_s: float              # wall clock of all decode steps
     decode_steps: int            # steps actually run (< gen-1 on early exit)
     n_decode_tokens: int         # decode tokens from *live* sequences
+    capture_s: float = 0.0       # of decode_s: capturing the decode step
+    graph_bytes: int = 0         # device memory of the step's graph pool
+    alloc_bytes: int = 0         # allocated memory the capture added
 
     @property
     def decode_tok_s(self) -> float:
         return self.n_decode_tokens / max(self.decode_s, 1e-9)
+
+
+LOOPS = ("fused", "stepwise")
+
+# captured decode steps of generate(loop="fused") over caches it made
+# itself, kept while their model lives: model -> {key: CapturedSteps}
+_DECODE_GRAPHS = weakref.WeakKeyDictionary()
+_DECODE_GRAPHS_KEPT = 4                 # per model, the most recent
+
+
+def _decode_graphs(model, cfg, dev, key, generator, own_caches):
+    """The ``CapturedSteps`` of a fused decode loop. A greedy loop over
+    caches ``generate`` made keeps its step across calls of the same
+    model, config and carry shapes (one capture, as the JAX package
+    compiles its loop once), in static buffers that are the first call's
+    own carry; a later call copies its carry in. A loop over the
+    caller's ``caches=`` captures its own step over the caller's buffers
+    (nothing copied, nothing kept), and a sampled loop its own with the
+    call's generator registered."""
+    from repro_torch.launch.steps import CapturedSteps
+    if generator is not None or not own_caches:
+        return CapturedSteps(dev, generator=generator)
+    kept = _DECODE_GRAPHS.setdefault(model, collections.OrderedDict())
+    key = (cfg, str(dev)) + key
+    if key in kept:
+        kept.move_to_end(key)
+        return kept[key]
+    graphs = kept[key] = CapturedSteps(dev)
+    while len(kept) > _DECODE_GRAPHS_KEPT:
+        kept.popitem(last=False)
+    return graphs
 
 
 def _sync(dev):
@@ -148,7 +189,7 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
              eos_id: int | None = None, pad_id: int = 0,
              early_exit: bool = False, paged: bool = False,
              page_size: int = 128, num_pages: int | None = None,
-             device="cuda") -> GenerateResult:
+             loop: str = "fused", device="cuda") -> GenerateResult:
     """Prefill the prompt batch, then decode ``gen`` tokens.
 
     ``prompts`` (B, S) int, right-padded when ``prompt_lengths`` (B,)
@@ -161,14 +202,25 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
     against batch, max_len and the pool geometry). ``temperature
     > 0`` with a ``generator`` samples; otherwise decoding is greedy.
     ``eos_id``: sequences that emit it are pinned to ``pad_id`` and stop
-    counting toward ``decode_tok_s``; ``early_exit`` stops once all have.
-    ``device`` (default the card; raises when CUDA is missing) must hold
-    the model.
+    counting toward ``decode_tok_s``; ``early_exit`` stops once all have
+    (a host check per step). ``loop="fused"`` replays the decode step
+    from a CUDA graph (``launch.steps.CapturedSteps``), captured at the
+    first call of a model, config and shape — its capture time
+    (``capture_s``) is part of that call's ``decode_s``, as the JAX
+    package's compile is — and kept while the model lives, its static
+    buffers holding one set of caches; over ``caches=`` or sampling, per
+    call (the caller's buffers are the graph's; the generator is
+    registered with it). ``loop="stepwise"`` runs the step's ops eagerly
+    (equal tokens). ``device`` (default the card; raises when CUDA is
+    missing) must hold the model.
     """
     from repro_torch.launch.steps import (make_generate_loop,
-                                          make_prefill_step, sample_token)
+                                          make_prefill_step, sample_token,
+                                          tree_leaves)
     from repro_torch.models import init_caches
 
+    if loop not in LOOPS:
+        raise ValueError(f"loop={loop!r} not in {LOOPS}")
     if early_exit and eos_id is None:
         raise ValueError("early_exit needs an eos_id to exit on")
     dev = resolve_device(device)
@@ -182,7 +234,8 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
         return GenerateResult(torch.zeros((b, 0), dtype=torch.int32,
                                           device=dev), 0.0, 0.0, 0, 0)
     max_len = max_len or prompt_len + gen
-    if caches is None:
+    own_caches = caches is None
+    if own_caches:
         caches = init_caches(cfg, b, max_len, paged=paged,
                              page_size=page_size, num_pages=num_pages,
                              device=dev)
@@ -209,19 +262,31 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
 
         pos0 = lengths if lengths is not None else torch.full(
             (b,), prompt_len, dtype=torch.int32, device=dev)
-        loop = make_generate_loop(cfg, gen=gen, sample=sample,
-                                  eos_id=eos_id, pad_id=pad_id,
-                                  early_exit=early_exit)
+        run = make_generate_loop(cfg, gen=gen, sample=sample,
+                                 eos_id=eos_id, pad_id=pad_id,
+                                 early_exit=early_exit)
+        graphs = None
+        if loop == "fused":
+            shapes = tuple((tuple(t.shape), t.dtype) for t in
+                           tree_leaves((tok, pos0, caches)))
+            graphs = _decode_graphs(model, cfg, dev,
+                                    (eos_id, pad_id, shapes),
+                                    generator if sample else None,
+                                    own_caches)
+        captured = graphs.capture_s if graphs is not None else 0.0
         t0 = time.perf_counter()
-        rest, n_dec, steps_run, caches = loop(model, tok, caches, pos0,
-                                              generator, temperature)
+        rest, n_dec, steps_run, caches = run(model, tok, caches, pos0,
+                                             generator, temperature, graphs)
         tokens = torch.cat([tok, rest], dim=1)
         _sync(dev)
         t_decode = time.perf_counter() - t0
 
-    return GenerateResult(tokens=tokens, prefill_s=t_prefill,
-                          decode_s=t_decode, decode_steps=steps_run,
-                          n_decode_tokens=int(n_dec))
+    return GenerateResult(
+        tokens=tokens, prefill_s=t_prefill, decode_s=t_decode,
+        decode_steps=steps_run, n_decode_tokens=int(n_dec),
+        capture_s=graphs.capture_s - captured if graphs is not None else 0.0,
+        graph_bytes=graphs.graph_bytes if graphs is not None else 0,
+        alloc_bytes=graphs.alloc_bytes if graphs is not None else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +341,9 @@ class ServeResult:
     prefill_stall_s: float = 0.0     # wall spent in stop-the-world prefill
                                      # (0 under chunked admission)
     prefill_tokens: int = 0          # prompt tokens prefilled
+    capture_s: float = 0.0           # of wall_s: capturing the serve steps
+    graph_bytes: int = 0             # device memory of their graph pools
+    alloc_bytes: int = 0             # allocated memory the captures added
 
     @property
     def total_tokens(self) -> int:
@@ -326,6 +394,18 @@ def _release_slots(caches, finished):
 def _check_paged_invariants(caches):
     for c in caches:
         c["mix"].check_invariants()
+
+
+def _adopt_prompts(caches, scratch, slot_ids, lengths):
+    """Copy freshly prefilled ring K/V bytes from ``scratch`` into pool
+    pages at the admitted slots (``PagedKVState.write_prompts``), every
+    layer: the stall admission's hand-off. Rows of slot -1 are padding
+    and dropped. The ring holds exactly the quantized bytes decode will
+    read, so the adopted pages equal a prefill straight into the pool."""
+    return [dict(c, mix=c["mix"].write_prompts(t["mix"].k, t["mix"].v,
+                                               lengths=lengths,
+                                               slots=slot_ids))
+            for c, t in zip(caches, scratch, strict=True)]
 
 
 def _validate_serve_cfg(cfg, admission: str = "chunked", chunk: int = 1):
@@ -396,7 +476,7 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                      aging_steps: int | None = None,
                      device="cuda") -> ServeResult:
     """Serve an arrival trace with continuous batching over a paged pool
-    (``repro.runtime.generate.serve_continuous``, chunked admission).
+    (``repro.runtime.generate.serve_continuous``).
 
     A fixed-slot batch (``slots`` wide) runs segments of ``segment``
     steps; between segments the host scheduler (1) releases the pages of
@@ -404,13 +484,25 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     and (3) reads back the segment's tokens — once per segment. Virtual
     time = decode steps (request ``arrival`` is in steps).
 
-    Admission enqueues a prompt's token ids into the slot state and
-    reserves the request's worst-case page need (``ceil((len + gen) /
-    page_size)``, capped at the per-slot window), so the on-device
-    allocator is never overdrawn mid-segment; the segments prefill the
-    prompt in ``chunk_size``-token chunks, page-native, interleaved with
-    decode under a decode-maximal per-step ``token_budget`` (default
-    ``slots - 1 + chunk_size``). Admission order: SLO class, then
+    Admission reserves the request's worst-case page need (``ceil((len +
+    gen) / page_size)``, capped at the per-slot window), so the on-device
+    allocator is never overdrawn mid-segment. ``admission`` selects how
+    a prompt enters:
+
+    - ``"chunked"`` (default): admission enqueues the prompt's token ids
+      into the slot state; the segments prefill it in ``chunk_size``-token
+      chunks, page-native, interleaved with decode under a decode-maximal
+      per-step ``token_budget`` (default ``slots - 1 + chunk_size``).
+    - ``"stall"``: the stop-the-world path kept for A/B parity. Each
+      admission round runs one ragged prefill of the admitted prompts
+      over a ring scratch (``slots`` rows of the longest prompt,
+      allocated once), samples their first tokens, copies the K/V bytes
+      into pool pages and enters the slots in the decode phase; every
+      decode slot waits meanwhile (``ServeResult.prefill_stall_s``). A
+      request of one token, or whose first token is EOS, finishes in its
+      admission round.
+
+    Admission order: SLO class, then
     arrival, then trace position; the head of the queue waits for pages
     (no overtaking). ``audit`` (testing hook) is called after every
     admission round with the caches, the slot->request map and the pin
@@ -418,21 +510,29 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     checks the allocator invariants after every round.
 
     Greedy serving equals generating each request alone (``generate``
-    with the ``ita_onepass_pallas`` pin, the same ``max_len``): the
-    chunks stream the same KV tile schedule when ``page_size`` equals the
-    fused ``block_kv`` (128), and the projections give a token the same
-    bits in any batch (``models.layers.linear``). ``temperature > 0``
-    with a ``seed`` samples each request from its own generator
-    (``steps.request_generator(seed, index)``), independent of arrival
-    order and co-scheduled traffic.
+    with the ``ita_onepass_pallas`` pin, the same ``max_len``), under
+    either admission: the chunks stream the same KV tile schedule when
+    ``page_size`` equals the fused ``block_kv`` (128), and the projections
+    give a token the same bits in any batch (``models.layers.linear``).
+    On the card a greedy serve replays its steps from two CUDA graphs,
+    the mixed step's and the decode step's (``steps.CapturedSteps``,
+    captured at their first use in the serve; ``capture_s``).
+    ``temperature > 0`` with a ``seed`` samples each request from its own
+    generator (``steps.request_generator(seed, index)``), independent of
+    arrival order and co-scheduled traffic; a sampled step reads its
+    emitting rows back to the host to draw from their generators, so
+    sampled serving runs its steps eagerly.
 
-    ``admission="stall"`` and the options of ``_UNPORTED_SERVE`` come
-    with later slices and raise ``NotImplementedError``. ``device``
-    (default the card; raises when CUDA is missing) must hold the model.
+    The options of ``_UNPORTED_SERVE`` come with later slices and raise
+    ``NotImplementedError``. ``device`` (default the card; raises when
+    CUDA is missing) must hold the model.
     """
-    from repro_torch.launch.steps import (ServeSlotState, admit_chunked,
+    from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
+                                          admit_chunked, admit_stall,
+                                          make_prefill_step,
                                           make_serve_segment,
-                                          request_generator)
+                                          request_generator,
+                                          sample_token_rows)
     from repro_torch.models import init_caches
 
     given = dict(prefix_sharing=prefix_sharing, preemption=preemption,
@@ -446,11 +546,6 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 f"with {_UNPORTED_SERVE[name]}")
     if admission not in ADMISSIONS:
         raise ValueError(f"admission={admission!r} not in {ADMISSIONS}")
-    if admission == "stall":
-        raise NotImplementedError(
-            "admission='stall' (stop-the-world prefill into a ring scratch "
-            "copied into pages) is not ported yet: it is the next item of "
-            "the ROADMAP's queue")
     dev = resolve_device(device)
     if model.embed.device != dev:
         raise ValueError(f"the model lives on {model.embed.device}, not on "
@@ -487,6 +582,8 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             f"token_budget={budget} < slots={slots}: a decode-maximal "
             f"step must cover every decoding slot plus at least one "
             f"prefill token")
+    # greedy steps replay from CUDA graphs shared by every segment
+    graphs = None if sample else CapturedSteps(dev)
     seg_fns = {}
 
     def seg_fn(mixed_steps):
@@ -498,7 +595,8 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             seg_fns[mixed_steps] = make_serve_segment(
                 cfg, segment=segment, sample=sample, eos_id=eos_id,
                 pad_id=pad_id, chunk=chunk if mixed_steps else None,
-                budget=budget, mixed_steps=mixed_steps or None)
+                budget=budget, mixed_steps=mixed_steps or None,
+                graphs=graphs)
         return seg_fns[mixed_steps]
 
     def pages_for(i):
@@ -516,6 +614,12 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 f"request {idx} needs {pages_for(idx)} pages but the pool "
                 f"has {pool_pages}; raise num_pages")
 
+    # stall admission: one ring scratch for the admission prefills (fully
+    # overwritten by every ragged prefill), allocated once per serve
+    scratch = init_caches(cfg, slots, prompt_pad, device=dev) \
+        if admission == "stall" else None
+    prefill = make_prefill_step(cfg)
+
     # scheduler state (host)
     queue = sorted(range(len(requests)), key=lambda i: requests[i].arrival)
     slot_req = [None] * slots                      # request index per slot
@@ -526,11 +630,42 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     arrived_wall, first_tok, admitted_step = {}, {}, {}
     emitted = {i: [] for i in range(len(requests))}
     completed, page_util = [], []
-    prefill_tokens = 0
+    prefill_tokens, stall_s = 0, 0.0
     state = ServeSlotState.init(slots, prompt_pad, dev)
     step = segments = rounds = 0
     to_release = []                                # slots freed, pages held
     t0 = time.perf_counter()
+
+    def stall_admit(state, caches, adm, prompts, lengths, slot_ids,
+                    req_gens, prios):
+        # the stop-the-world ragged prefill over the ring scratch, the
+        # first tokens, the bytes copied into pool pages, then the slot
+        # state write; every admitted slot enters the decode phase
+        nonlocal scratch
+        lengths_d = torch.as_tensor(lengths, device=dev)
+        slot_d = torch.as_tensor(slot_ids, device=dev)
+        logits, scratch = prefill(model, torch.as_tensor(prompts, device=dev),
+                                  scratch, lengths_d)
+        tok0 = sample_token_rows(logits, req_gens, temp, sample=sample,
+                                 advance=slot_d >= 0)
+        caches = _adopt_prompts(caches, scratch, slot_d, lengths_d)
+        tok0_np = tok0.cpu().numpy()
+        new_done = np.zeros((slots,), bool)
+        new_rem = np.zeros((slots,), np.int32)
+        now_s = time.perf_counter() - t0
+        for row, (slot, i) in enumerate(adm):
+            first = int(tok0_np[row, 0])
+            emitted[i].append(first)
+            first_tok.setdefault(i, now_s)
+            new_rem[row] = requests[i].gen - 1
+            new_done[row] = requests[i].gen <= 1 or (
+                eos_id is not None and first == eos_id)
+            cursor_host[slot] = plen_host[slot]
+            prefilling[slot] = False
+        state = admit_stall(state, slot_ids, lengths, tok0, new_done,
+                            new_rem, req_gens, prios)
+        _sync(dev)
+        return state, caches
 
     def finish(slot, now_s):
         i = slot_req[slot]
@@ -593,16 +728,37 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                     prios[row] = prio_req[i]
                     slot_ids[row] = slot
                     plen_host[slot] = p.size
-                    cursor_host[slot] = 0
-                    prefilling[slot] = True
                     if sample:
                         req_gens[row] = request_generator(seed, i, dev)
-                state = admit_chunked(state, slot_ids, prompts, lengths,
-                                      gens, req_gens, prios=prios)
+                if admission == "chunked":
+                    state = admit_chunked(state, slot_ids, prompts,
+                                          lengths, gens, req_gens,
+                                          prios=prios)
+                    for slot, _ in adm:
+                        cursor_host[slot] = 0
+                        prefilling[slot] = True
+                else:
+                    t_stall = time.perf_counter()
+                    state, caches = stall_admit(state, caches, adm,
+                                                prompts, lengths, slot_ids,
+                                                req_gens, prios)
+                    stall_s += time.perf_counter() - t_stall
                 if audit is not None:
                     audit(caches, list(slot_req), {})
                 if debug:
                     _check_paged_invariants(caches)
+            if admission == "stall" and adm:
+                # admitted requests of one token, or whose first token is
+                # EOS, finish without decoding
+                just_done = state.done.cpu().numpy()
+                fin = [s for s in range(slots)
+                       if slot_req[s] is not None and just_done[s]]
+                if fin:
+                    now_s = time.perf_counter() - t0
+                    for s in fin:
+                        finish(s, now_s)
+                    to_release.extend(fin)
+                    continue
             if all(s is None for s in slot_req):
                 if not queue:
                     break
@@ -658,4 +814,8 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     wall = time.perf_counter() - t0
     return ServeResult(completed=completed, wall_s=wall, steps=step,
                        segments=segments, admission_rounds=rounds,
-                       page_util=page_util, prefill_tokens=prefill_tokens)
+                       page_util=page_util, prefill_stall_s=stall_s,
+                       prefill_tokens=prefill_tokens,
+                       capture_s=graphs.capture_s if graphs else 0.0,
+                       graph_bytes=graphs.graph_bytes if graphs else 0,
+                       alloc_bytes=graphs.alloc_bytes if graphs else 0)

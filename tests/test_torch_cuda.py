@@ -492,3 +492,106 @@ def test_cuda_int8_matmul_refuses_what_it_cannot_load():
     assert launch(*ptrs, 8, 128, 4096, 1664, 128, 1, 1, stream) == 1
     assert launch(*ptrs, 8, 128, 4096, 1664, 128, 0, 0, stream) == 0
     torch.cuda.synchronize()
+
+
+def _smoke_decode_start(cfg, model, prompts, paged):
+    """The decode loop's carry after a prefill of ``prompts``."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_caches
+    b, s = prompts.shape
+    caches = init_caches(cfg, b, s + 12, paged=paged, page_size=16,
+                         device="cuda")
+    logits, caches = make_prefill_step(cfg)(model, prompts, caches)
+    return (torch.argmax(logits, dim=-1).to(torch.int32),
+            torch.full((b,), s, dtype=torch.int32, device="cuda"),
+            torch.zeros((b,), dtype=torch.bool, device="cuda"),
+            torch.zeros((), dtype=torch.int32, device="cuda"), caches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+def test_cuda_captured_decode_step_equals_eager(paged):
+    """A decode step captured in a CUDA graph (``CapturedSteps``) gives the
+    eager step's bits over 8 replays on the smoke-width model: tokens,
+    positions and every layer's KV state; each call counts one launch of
+    the decode kernel per layer (the warm-up launches, the capture does
+    not, every replay adds what the capture saw), and the static buffers
+    are the first carry's own tensors."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import (CapturedSteps, make_decode_body,
+                                          tree_leaves)
+    from repro_torch.models import init_model
+    cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+    name = "ita_attention_decode_paged" if paged else "ita_attention_decode"
+    body = make_decode_body(cfg, model, None, 1.0, sample=False, eos_id=None,
+                            pad_id=0)
+    graphs = CapturedSteps("cuda")
+    with torch.inference_mode():
+        eager = _smoke_decode_start(cfg, model, prompts, paged)
+        captured = _smoke_decode_start(cfg, model, prompts, paged)
+        first = tree_leaves(captured)
+        for step in range(9):                  # warm-up + capture, 8 replays
+            eager, _ = body(eager)
+            K.reset_launches()
+            captured, _ = graphs.run("decode", body, captured)
+            torch.cuda.synchronize()
+            assert K.LAUNCHES[name] == cfg.n_layers, (step, K.LAUNCHES)
+            assert sum(K.LAUNCHES.values()) == cfg.n_layers
+            for a, b in zip(tree_leaves(eager), tree_leaves(captured),
+                            strict=True):
+                assert torch.equal(a, b), step
+    assert list(graphs.graphs) == ["decode"] and graphs.capture_s > 0
+    # the first carry is the static buffers: no KV pool was copied
+    assert all(s is t for s, t in zip(graphs.static, first, strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(), dict(paged=True),
+                                dict(eos="row 0", early_exit=True),
+                                dict(sampled=True)],
+                         ids=["ring", "paged", "eos", "sampled"])
+def test_cuda_fused_generate_counts_replays_and_equals_stepwise(kw):
+    """``generate(loop="fused")`` on the card: the tokens of
+    ``loop="stepwise"`` (sampled: the same draws from generators of one
+    seed, the graph's registered with it), and the decode kernel's
+    counter at one launch per layer and step, the steps replayed from
+    the graph included, in the capturing call and in the call that
+    replays the kept graph (a sampled call captures its own)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime.generate import generate
+    cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20),
+                            generator=torch.Generator().manual_seed(2))
+    name = "ita_attention_decode_paged" if kw.get("paged") \
+        else "ita_attention_decode"
+    kw = dict(kw)
+    if kw.pop("eos", None):
+        kw["eos_id"] = int(generate(model, cfg, prompts, 10).tokens[0, 3])
+    sampled = kw.pop("sampled", False)
+    runs = {}
+    for loop in ("stepwise", "fused", "fused again"):
+        if sampled:
+            kw.update(temperature=0.8, generator=torch.Generator(
+                "cuda").manual_seed(5))
+        K.reset_launches()
+        runs[loop] = generate(model, cfg, prompts, 10, loop=loop.split()[0],
+                              **kw)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == \
+            cfg.n_layers * runs[loop].decode_steps, (loop, K.LAUNCHES)
+    for loop in ("fused", "fused again"):
+        assert torch.equal(runs[loop].tokens, runs["stepwise"].tokens)
+        assert runs[loop].decode_steps == runs["stepwise"].decode_steps
+        assert runs[loop].n_decode_tokens == runs["stepwise"].n_decode_tokens
+    assert (runs["fused again"].capture_s > 0) == sampled

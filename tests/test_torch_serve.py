@@ -1,23 +1,31 @@
 """The port's continuous-batching server (``serve_continuous``, chunked
-admission over the paged int8 pool) against the JAX package and against
-itself, on the CPU, on the ``serveloop-smoke`` config of
+and stall admission over the paged int8 pool) against the JAX package
+and against itself, on the CPU, on the ``serveloop-smoke`` config of
 ``tests/test_serve_loop.py`` (weights made by the JAX package and loaded
-with ``from_jax_params``).
+with ``from_jax_params``). On the CPU a greedy serve runs its steps
+through ``CapturedSteps`` without a graph (the static buffers, copy-in
+and copy-back of the card's captured steps).
 
 - Greedy tokens of every served request equal the JAX package's
-  ``serve_continuous`` on the same seeded trace (the JAX serve runs once,
+  ``serve_continuous`` on the same seeded trace (the JAX serves run once,
   module-scoped), and equal the port's solo ``generate()`` with the
   ``ita_onepass_pallas`` pin — with the serve pinned too, and unpinned
-  (decode steps through the paged decode kernel).
+  (decode steps through the paged decode kernel); under stall admission
+  (pinned, as the JAX package's tests run it) too, with chunked ≡ stall
+  ≡ solo over prompts that span several chunks, and over pages smaller
+  than the scratch ring's block. The unpinned stall serve equals the
+  JAX package's unpinned stall serve (its prefill is another exactness
+  family than solo ``generate()``, so it is not held to that).
 - The mixed step's logits are within 5e-2 of the JAX package's (float
   projections round differently in XLA and torch, which can move an int8
   step of 0.05: the bound of ``tests/test_torch_generate.py``).
 - EOS cuts sequences; the decode-maximal budget is never exceeded and the
-  head prefilling slot progresses; no page or slot is double-booked;
-  sampled outputs do not depend on arrival order and equal solo
-  ``generate()`` with the request's generator; ``generate(paged=True)``
-  equals the ring path; the entry points refuse to drop to the CPU; the
-  options of later slices raise ``NotImplementedError``.
+  head prefilling slot progresses; no page or slot is double-booked
+  (either admission); sampled outputs do not depend on arrival order and
+  equal solo ``generate()`` with the request's generator (either
+  admission); ``generate(paged=True)`` equals the ring path; the entry
+  points refuse to drop to the CPU; the options of later slices raise
+  ``NotImplementedError``.
 
 The reference runs with an exact ``exp2`` (``tests/test_torch_kernels.py``,
 ROADMAP §C).
@@ -40,7 +48,8 @@ from repro.runtime.generate import ServeRequest as JRequest
 from repro.runtime.generate import serve_continuous as j_serve
 from repro_torch.configs.base import ModelConfig as TConfig
 from repro_torch.launch.steps import (ServeSlotState, admit_chunked,
-                                      make_serve_segment, request_generator)
+                                      admit_stall, make_serve_segment,
+                                      request_generator)
 from repro_torch.models import forward as t_forward
 from repro_torch.models import from_jax_params, init_caches
 from repro_torch.runtime.generate import (ServeRequest, generate,
@@ -100,14 +109,26 @@ def _solo(model, r, cfg=CFG, **kw):
                     max_len=MAX_LEN, device="cpu", **kw).tokens[0].numpy()
 
 
+def _j_serve(params, reqs, cfg=JCFG, **kw):
+    res = j_serve(params, cfg, [JRequest(r.prompt, r.gen, r.arrival)
+                                for r in reqs], **{**SERVE, **kw})
+    return {c.index: np.asarray(c.tokens) for c in res.completed}
+
+
 @pytest.fixture(scope="module")
 def jax_serve(weights):
     """The JAX package's serve of the 7-request trace (run once)."""
     params, _ = weights
     reqs = _trace(7, np.random.default_rng(3))
-    res = j_serve(params, JCFG, [JRequest(r.prompt, r.gen, r.arrival)
-                                 for r in reqs], **SERVE)
-    return reqs, {c.index: np.asarray(c.tokens) for c in res.completed}
+    return reqs, _j_serve(params, reqs)
+
+
+@pytest.fixture(scope="module")
+def jax_stall_serve(weights, jax_serve):
+    """The JAX package's stall serve of the same trace (run once)."""
+    params, _ = weights
+    reqs, _ = jax_serve
+    return _j_serve(params, reqs, admission="stall")
 
 
 @pytest.mark.parametrize("cfg", [CFG, UNPINNED], ids=["pinned", "unpinned"])
@@ -126,6 +147,109 @@ def test_serve_matches_jax_serve_and_solo_generate(weights, jax_serve, cfg):
         np.testing.assert_array_equal(
             c.tokens, _solo(model, reqs[c.index]),
             err_msg=f"request {c.index} differs from solo generate()")
+
+
+def test_stall_serve_matches_jax_stall_serve_and_solo(weights, jax_serve,
+                                                      jax_stall_serve):
+    _, model = weights
+    reqs, _ = jax_serve
+    res = _serve(model, reqs, admission="stall")
+    assert len(res.completed) == len(reqs) == len(jax_stall_serve)
+    assert res.total_tokens == sum(r.gen for r in reqs)
+    assert res.prefill_stall_s > 0.0 and res.steps > 0
+    assert res.prefill_tokens == sum(r.prompt.size for r in reqs)
+    for c in res.completed:
+        assert c.first_token_s >= c.arrived_s
+        np.testing.assert_array_equal(
+            c.tokens, jax_stall_serve[c.index],
+            err_msg=f"request {c.index} differs from the JAX stall serve")
+        np.testing.assert_array_equal(
+            c.tokens, _solo(model, reqs[c.index]),
+            err_msg=f"request {c.index} differs from solo generate()")
+
+
+def test_unpinned_stall_serve_matches_jax_unpinned_stall_serve(weights,
+                                                              jax_serve):
+    """Stall admission without the onepass pin: the admission prefill takes
+    the config's own prefill path into the scratch ring (not the onepass
+    kernel that solo ``generate()`` decodes against), so the port is held
+    to the JAX package's unpinned stall serve, token for token, and not
+    to solo ``generate()``."""
+    params, model = weights
+    reqs, _ = jax_serve
+    want = _j_serve(params, reqs, dataclasses.replace(JCFG,
+                                                      attention_backend=""),
+                    admission="stall")
+    res = _serve(model, reqs, cfg=UNPINNED, admission="stall")
+    assert len(res.completed) == len(reqs) == len(want)
+    assert res.prefill_stall_s > 0.0
+    for c in res.completed:
+        np.testing.assert_array_equal(
+            c.tokens, want[c.index],
+            err_msg=f"request {c.index} differs from the JAX stall serve")
+
+
+def test_chunked_equals_stall_equals_solo(weights):
+    """The parity sweep of ``tests/test_serve_loop.py`` (causal GQA): prompt
+    chunks narrower than the page and prompts spanning several chunks,
+    served chunked and stalled, equal solo ``generate()`` and the JAX
+    package's stall serve."""
+    params, model = weights
+    prng = np.random.default_rng(11)
+    reqs = [ServeRequest(
+        prompt=prng.integers(0, CFG.vocab_size, n).astype(np.int32),
+        gen=4, arrival=2 * i) for i, n in enumerate((9, 60, 33))]
+    kw = dict(slots=2, segment=5, max_len=256, chunk_size=16)
+    want = _j_serve(params, reqs, admission="stall", **kw)
+    for admission in ("chunked", "stall"):
+        res = _serve(model, reqs, admission=admission, **kw)
+        assert len(res.completed) == len(reqs)
+        assert (res.prefill_stall_s > 0) == (admission == "stall")
+        for c in res.completed:
+            np.testing.assert_array_equal(c.tokens, want[c.index],
+                                          err_msg=f"{admission} {c.index}")
+            solo = generate(model, CFG,
+                            torch.as_tensor(reqs[c.index].prompt)[None], 4,
+                            max_len=256, device="cpu").tokens[0].numpy()
+            np.testing.assert_array_equal(c.tokens, solo,
+                                          err_msg=f"{admission} {c.index}")
+
+
+def test_stall_serve_small_pages_wide_scratch(weights):
+    """Stall admission with pages smaller than the ring block: the scratch
+    ring is block-aligned wider than the prompt pad and the pool's
+    window, and the adoption bounds the lengths, not the scratch width —
+    prompts over several small pages equal solo paged ``generate()`` on
+    the same page size."""
+    _, model = weights
+    prng = np.random.default_rng(9)
+    reqs = [ServeRequest(prompt=prng.integers(0, CFG.vocab_size,
+                                              130 + 8 * i).astype(np.int32),
+                         gen=3) for i in range(3)]
+    res = serve_continuous(model, CFG, reqs, slots=2, segment=4,
+                           max_len=192, page_size=64, admission="stall",
+                           debug_invariants=True, device="cpu")
+    assert len(res.completed) == len(reqs)
+    for c in res.completed:
+        solo = generate(model, CFG, torch.as_tensor(reqs[c.index].prompt)
+                        [None], 3, max_len=192, paged=True, page_size=64,
+                        device="cpu")
+        np.testing.assert_array_equal(c.tokens, solo.tokens[0].numpy(),
+                                      err_msg=f"request {c.index}")
+
+
+def test_admit_stall_enters_the_decode_phase():
+    """``admit_stall`` writes the admitted rows in the decode phase
+    (cursor == plen == pos == length, the sampled first token, done and
+    rem as given) and drops padding rows."""
+    state = ServeSlotState.init(3, 8)
+    state = admit_stall(state, [2, -1, 0], [5, 1, 7], [[11], [99], [13]],
+                        [False, True, True], [3, 9, 0])
+    assert state.pos.tolist() == state.plen.tolist() \
+        == state.cursor.tolist() == [7, 0, 5]
+    assert state.tok[:, 0].tolist() == [13, 0, 11]
+    assert state.done.tolist() == [True, True, False]
+    assert state.rem.tolist() == [0, 0, 3]
 
 
 def test_mixed_step_logits_match_jax(weights):
@@ -216,9 +340,10 @@ def test_mixed_scheduler_budget_and_progress(weights, seed):
                                   err_msg="a prefilling slot starved")
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_scheduler_never_double_books_page_or_slot(weights, seed):
-    _, model = weights
+def _audited_serve(model, seed, admission="chunked"):
+    """The double-booking audit of ``tests/test_serve_loop.py``: every
+    admission round's pools hold no page in two slots' held prefixes and
+    no request in two slots; every request equals solo ``generate()``."""
     reqs = _trace(8, np.random.default_rng(seed), max_gen=7, spread=4)
     audits = []
 
@@ -237,14 +362,28 @@ def test_scheduler_never_double_books_page_or_slot(weights, seed):
     # page_size 32 -> up to 4 pages per sequence; the pool holds 3 slots'
     # worth + 1, so admission waits on pages
     res = _serve(model, reqs, page_size=32, num_pages=3 * 4 + 2,
-                 chunk_size=8, audit=audit, debug_invariants=True)
+                 chunk_size=8, audit=audit, debug_invariants=True,
+                 admission=admission)
     assert audits and len(res.completed) == len(reqs)
     for c in res.completed:
         np.testing.assert_array_equal(c.tokens, _solo(model, reqs[c.index]))
 
 
-def test_sampled_serving_independent_of_arrival_order(weights):
+@pytest.mark.parametrize("seed", [0, 1])
+def test_scheduler_never_double_books_page_or_slot(weights, seed):
     _, model = weights
+    _audited_serve(model, seed)
+
+
+def test_stall_scheduler_never_double_books_page_or_slot(weights):
+    _, model = weights
+    _audited_serve(model, 2, admission="stall")
+
+
+def _sampled_arrival_order(model, admission):
+    """Sampled serving draws each request from its own generator: the
+    tokens do not depend on arrival order and equal solo ``generate()``
+    given the request's generator."""
     prng = np.random.default_rng(5)
     prompts = [prng.integers(0, CFG.vocab_size,
                              int(prng.integers(3, 12))).astype(np.int32)
@@ -255,7 +394,7 @@ def test_sampled_serving_independent_of_arrival_order(weights):
         reqs = [ServeRequest(prompt=prompts[i], gen=gens[i],
                              arrival=arrivals[i]) for i in range(5)]
         res = _serve(model, reqs, slots=2, chunk_size=6, temperature=0.8,
-                     seed=42)
+                     seed=42, admission=admission)
         return {c.index: c.tokens for c in res.completed}
 
     a, b = run([0, 0, 1, 5, 9]), run([9, 4, 0, 0, 2])
@@ -265,6 +404,16 @@ def test_sampled_serving_independent_of_arrival_order(weights):
                      temperature=0.8,
                      generator=request_generator(42, i, "cpu"))
         np.testing.assert_array_equal(a[i], solo, err_msg=f"request {i}")
+
+
+def test_sampled_serving_independent_of_arrival_order(weights):
+    _, model = weights
+    _sampled_arrival_order(model, "chunked")
+
+
+def test_sampled_stall_serving_independent_of_arrival_order(weights):
+    _, model = weights
+    _sampled_arrival_order(model, "stall")
 
 
 @pytest.mark.parametrize("cfg", [CFG, UNPINNED], ids=["pinned", "unpinned"])
@@ -304,7 +453,7 @@ def test_serve_does_not_fall_back_to_cpu(weights, monkeypatch):
     dict(prefix_sharing=True), dict(preemption=True), dict(faults=object()),
     dict(aging_steps=4), dict(journal_dir="journal"),
     dict(snapshot_every=2), dict(resume=True), dict(drain=object()),
-    dict(drain_timeout=1.0), dict(admission="stall")],
+    dict(drain_timeout=1.0)],
     ids=lambda o: next(iter(o)))
 def test_unported_serve_options_raise(weights, option):
     _, model = weights
@@ -319,3 +468,22 @@ def test_serve_cli_continuous_on_cpu():
                       "--segment", "4", "--chunk-size", "8", "--batch", "2"])
     assert len(res.completed) == 4
     assert all(2 <= c.tokens.size <= 4 for c in res.completed)
+
+
+def test_serve_cli_stall_and_stepwise_on_cpu():
+    from repro_torch.launch import serve
+    # pinned: unpinned, the stall prefill streams in torch ops, another
+    # exactness family than the mixed step's onepass kernel
+    args = ["--smoke", "--device", "cpu", "--prompt-len", "12", "--gen",
+            "4", "--batch", "2", "--attention-backend", "ita_onepass_pallas"]
+    stall = serve.main(args + ["--continuous", "--requests", "4",
+                               "--segment", "4", "--admission", "stall"])
+    chunked = serve.main(args + ["--continuous", "--requests", "4",
+                                 "--segment", "4"])
+    assert stall.prefill_stall_s > 0 and len(stall.completed) == 4
+    want = {c.index: c.tokens for c in chunked.completed}
+    for c in stall.completed:
+        np.testing.assert_array_equal(c.tokens, want[c.index])
+    fused = serve.main(args)
+    stepwise = serve.main(args + ["--loop", "stepwise"])
+    assert torch.equal(fused.tokens, stepwise.tokens)
