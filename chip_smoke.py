@@ -192,6 +192,25 @@ TWOPASS = ("ita_attention_twopass_qk_da", "ita_attention_twopass_av_en")
 SERVE = dict(slots=4, requests=12, plen=(128, 1024), gen=(16, 48),
              gap=(0, 6), page_size=128, chunk_size=96, segment=16,
              num_pages=24)
+# the prefix and overload serves: one shared system prefix of two full
+# pages (numpy seed 11) before every prompt; the overload serve's classes,
+# aging and fault plan. A kill at the round of step 24 (step 32) and a
+# 10-page pressure spike at the round of step 16, where class-1 request 2
+# heads the queue with the pool nearly full: it preempts class-0 request
+# 0 (a CPU rehearsal of the schedule, which weights do not change without
+# EOS: request 0 by priority, request 1 by the kill, in the 12-request
+# serve and in its first six)
+SYSTEM_PREFIX = 256
+OVERLOAD_PLAN = dict(seed=0, kill_steps=(24,), pressure_steps=(16,),
+                     pressure_pages=10, straggle_steps=(64,), straggle_s=0.05)
+AGING_STEPS = 32
+# phase 6: the stall serve's ragged B2 prefill and decode-shaped B3 call
+STALL_PREFILL = "ita_attention_onepass/stall_prefill"
+STALL_DECODE = "ita_attention_onepass_paged/stall_decode"
+# sub-rows of the kernels line: (kernel, key)
+SUBROWS = {ONEPASS_DECODE: ("ita_attention_onepass", "decode"),
+           STALL_PREFILL: ("ita_attention_onepass", "stall_prefill"),
+           STALL_DECODE: ("ita_attention_onepass_paged", "stall_decode")}
 
 
 def log(msg):
@@ -1126,10 +1145,10 @@ def full_width_serve(model, cfg, checks):
                 f"{c.tokens[first]} vs {want[first]}")
     log(f"[serve] every request's tokens equal solo generate() "
         f"(ita_onepass_pallas pin, max_len {max_len})")
-    stall = stall_serve(model, cfg_pin, reqs, res, checks)
+    stall, stall_captured = stall_serve(model, cfg_pin, reqs, res, checks)
     recs = sampled_serve(model, cfg, reqs, res, launches, max_len)
 
-    captured = {}
+    captured = dict(stall_captured)
     for name, rec in recs.items():
         idx, (args, kw, out) = busiest(rec)
         checks.compare(name, out, K.paged_attention_plain(*args, **kw),
@@ -1144,6 +1163,9 @@ def full_width_serve(model, cfg, checks):
             f"launch over the layer-0 calls of all {n} steps that launched "
             f"it (5 launches each); {card_line()}")
     profile_serve(model, cfg, reqs)
+    launches = {**launches,
+                STALL_PREFILL: stall["launches"]["ita_attention_onepass"],
+                STALL_DECODE: stall["launches"]["ita_attention_onepass_paged"]}
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
             "ttft_p50": res.ttft_quantile(0.5),
             "ttft_p90": res.ttft_quantile(0.9),
@@ -1208,7 +1230,7 @@ def stall_serve(model, cfg_pin, reqs, chunked, checks):
     must equal the chunked serve's (which equal solo ``generate()``).
     Layer 0's B2 call of the busiest round (every round runs eagerly) and
     layer 0's B3 call of the first decode step (its eager warm-up) are
-    held against their plain versions."""
+    held against their plain versions and returned for phase 6."""
     import numpy as np
     import torch
 
@@ -1270,7 +1292,303 @@ def stall_serve(model, cfg_pin, reqs, chunked, checks):
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
             "ttft_p50": res.ttft_quantile(0.5),
             "ttft_p90": res.ttft_quantile(0.9),
-            "prefill_stall_s": res.prefill_stall_s, "launches": launches}
+            "prefill_stall_s": res.prefill_stall_s, "launches": launches}, {
+        STALL_PREFILL: recs["ita_attention_onepass"].kept[idx],
+        STALL_DECODE: recs["ita_attention_onepass_paged"].kept[0]}
+
+
+def prefixed_trace(cfg, reqs):
+    """The served trace with one shared ``SYSTEM_PREFIX``-token prefix
+    (numpy seed 11) before every prompt."""
+    import numpy as np
+    system = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, SYSTEM_PREFIX).astype(np.int32)
+    return [dataclasses.replace(r, prompt=np.concatenate([system, r.prompt]))
+            for r in reqs]
+
+
+def serve_kw(**more):
+    return dict(slots=SERVE["slots"], segment=SERVE["segment"],
+                page_size=SERVE["page_size"], num_pages=SERVE["num_pages"],
+                chunk_size=SERVE["chunk_size"], debug_invariants=True,
+                device=DEV, **more)
+
+
+def hold_to(res, want, label):
+    """Every request of ``res`` has the tokens of ``want`` (index ->
+    tokens)."""
+    import numpy as np
+    for c in res.completed:
+        if not np.array_equal(c.tokens, want[c.index]):
+            first = int(np.flatnonzero(c.tokens != want[c.index])[0])
+            raise AssertionError(f"{label}: request {c.index}'s tokens "
+                                 f"differ at {first}")
+
+
+def solo_tokens(model, cfg, reqs, max_len, **kw):
+    """Each request alone through ``generate()`` (onepass pin, fused loop)
+    at the serve's ``max_len``: index -> tokens."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+    cfg_pin = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    return {i: generate(model, cfg_pin, torch.as_tensor(r.prompt)[None],
+                        r.gen, max_len=max_len, device=DEV,
+                        **{k: f(i) for k, f in kw.items()}
+                        ).tokens[0].cpu().numpy()
+            for i, r in enumerate(reqs)}
+
+
+def serve_line(res):
+    return (f"prefix_hits {res.prefix_hits}, shared_prefix_tokens "
+            f"{res.shared_prefix_tokens}, prefill_tokens "
+            f"{res.prefill_tokens}, {res.steps} steps, {res.segments} "
+            f"segments, {res.admission_rounds} rounds, wall {res.wall_s:.3f} "
+            f"s, {res.tok_s:.2f} tok/s, TTFT p50 "
+            f"{res.ttft_quantile(0.5):.3f} s")
+
+
+def prefix_serve(model, cfg, reqs):
+    """The trace with a shared system prefix, served with
+    ``prefix_sharing=True`` (its steps replayed from CUDA graphs) and
+    without: every request's tokens equal in both and equal solo
+    ``generate()``; at least one admission adopted shared pages; the
+    allocator invariants, pins included, held in every layer after every
+    round and after each serve. Returns the prefixed trace and its solo
+    tokens."""
+    from repro_torch.runtime.generate import serve_continuous
+    preqs = prefixed_trace(cfg, reqs)
+    reset_launches()
+    on = serve_continuous(model, cfg, preqs, prefix_sharing=True,
+                          **serve_kw())
+    launches = read_launches()
+    off = serve_continuous(model, cfg, preqs, **serve_kw())
+    if any(launches[name] <= 0 for name in PAGED):
+        raise AssertionError(f"prefix serve: a paged kernel did not run: "
+                             f"{launches}")
+    if on.prefix_hits <= 0 or off.prefix_hits != 0 \
+            or len(on.completed) != len(preqs) != len(off.completed):
+        raise AssertionError(f"prefix serve: {on.prefix_hits} hits, "
+                             f"{len(on.completed)} completed")
+    max_len = max(r.prompt.size + r.gen for r in preqs)
+    solo = solo_tokens(model, cfg, preqs, max_len)
+    hold_to(on, solo, "prefix serve vs solo generate()")
+    hold_to(off, solo, "prefix-off serve vs solo generate()")
+    log(f"[prefix] {len(preqs)} requests behind one {SYSTEM_PREFIX}-token "
+        f"system prefix: every request's tokens equal with sharing on, off "
+        f"and solo generate() (onepass pin, max_len {max_len}); allocator "
+        f"invariants with pins held in all {cfg.n_layers} layers after every "
+        f"round and after each serve; launches {launches}")
+    log(f"[prefix] sharing on: {serve_line(on)}; {card_line()}")
+    log(f"[prefix] sharing off: {serve_line(off)}; {card_line()}")
+    return preqs, solo, max_len
+
+
+def recording_injector():
+    """``ServeFaultInjector`` replaced by a subclass that keeps each
+    instance, so the serve's injector can be read after it."""
+    from repro_torch.runtime import fault_tolerance as FT
+    made = []
+
+    class Kept(FT.ServeFaultInjector):
+        def __init__(self, plan):
+            super().__init__(plan)
+            made.append(self)
+    FT.ServeFaultInjector = Kept
+    return made, lambda: setattr(FT, "ServeFaultInjector",
+                                 Kept.__mro__[1])
+
+
+def overload_serve(model, cfg, preqs, solo, max_len, checks):
+    """The prefixed trace under overload: requests ``i % 3 == 2`` in class
+    1, the rest class 0, with preemption, prefix sharing, aging and the
+    seeded ``OVERLOAD_PLAN``. At least two preemptions, at least one of
+    them by priority (more preemptions than kills); every request's
+    greedy tokens equal solo ``generate()``. Then the first six requests
+    sampled (temperature 0.8, seed 11; eager steps) under the same plan:
+    at least one is preempted, and each equals solo fused ``generate()``
+    drawing from its generator; layer 0's B3 call of an adopted row's
+    first mixed step (its chunk starts at the shared pages' end) is held
+    to its plain version."""
+    from repro_torch.launch.steps import request_generator
+    from repro_torch.runtime.fault_tolerance import ServeFaultPlan
+    from repro_torch.runtime.generate import serve_continuous
+    oreqs = [dataclasses.replace(r, priority=int(i % 3 == 2))
+             for i, r in enumerate(preqs)]
+    plan = ServeFaultPlan(**OVERLOAD_PLAN)
+    kw = serve_kw(prefix_sharing=True, preemption=True, faults=plan,
+                  aging_steps=AGING_STEPS)
+    made, restore = recording_injector()
+    try:
+        res = serve_continuous(model, cfg, oreqs, **kw)
+    finally:
+        restore()
+    inj = made[-1]
+    if len(res.completed) != len(oreqs) or res.preemptions < 2 \
+            or inj.kills_requested < 1 \
+            or res.preemptions <= inj.kills_requested:
+        raise AssertionError(f"overload serve: {res.preemptions} "
+                             f"preemptions, {inj.kills_requested} kills, "
+                             f"{len(res.completed)} completed")
+    hold_to(res, solo, "overload serve vs solo generate()")
+    victims = {c.index: c.priority for c in res.completed if c.preemptions}
+    log(f"[overload] plan {OVERLOAD_PLAN}, aging_steps {AGING_STEPS}, "
+        f"classes 1 for i % 3 == 2: {res.preemptions} preemptions "
+        f"({inj.kills_requested} kill, {inj.pressure_events} pressure "
+        f"spike, {inj.straggle_events} injected sleep), preempted requests "
+        f"(index: class) {victims}, straggler_segments "
+        f"{res.straggler_segments}; every request's greedy tokens equal "
+        f"solo generate(); invariants with pins held in all "
+        f"{cfg.n_layers} layers after every round")
+    log(f"[overload] {serve_line(res)}; class_summary "
+        f"{json.dumps(res.class_summary())}; {card_line()}")
+
+    # sampled, first six requests: all layer-0 B3 calls kept (eager steps)
+    n_layers = cfg.n_layers
+    rec = recording(("ita_attention_onepass_paged",),
+                    keep=range(0, n_layers * 8192, n_layers))
+    rec = rec["ita_attention_onepass_paged"]
+    adopted, seen = [], [None] * SERVE["slots"]
+
+    def audit(caches, slot_req, pins):
+        # a slot newly taken whose stream starts past 0 adopted pages
+        pos = caches[0]["mix"].pos.tolist()
+        for s, i in enumerate(slot_req):
+            if i is not None and i != seen[s] and pos[s] > 0:
+                adopted.append((rec.calls, s, pos[s]))
+        seen[:] = slot_req
+    made, restore = recording_injector()
+    try:
+        sampled = serve_continuous(model, cfg, oreqs[:6], temperature=0.8,
+                                   seed=11, audit=audit, **kw)
+    finally:
+        restore()
+        unrecord({"ita_attention_onepass_paged": rec})
+    gens = solo_tokens(model, cfg, oreqs[:6],
+                       max(r.prompt.size + r.gen for r in oreqs[:6]),
+                       temperature=lambda i: 0.8,
+                       generator=lambda i: request_generator(11, i, DEV))
+    hold_to(sampled, gens, "sampled overload serve vs solo generate()")
+    pre = {c.index: c.preemptions for c in sampled.completed if c.preemptions}
+    if not pre:
+        raise AssertionError("sampled overload serve: nothing preempted")
+    idx, what = first_adopted_call(rec, adopted, n_layers)
+    check_recorded(checks, "ita_attention_onepass_paged", rec, idx, what)
+    log(f"[overload] sampled (temperature 0.8, seed 11; steps eager), "
+        f"requests 0-5 under the same plan: {sampled.preemptions} "
+        f"preemptions ({made[-1].kills_requested} kill), preempted "
+        f"(index: times) {pre}; every request's tokens equal solo fused "
+        f"generate() drawing from its generator; {serve_line(sampled)}; "
+        f"B3 over adopted pages ({what}) bit-exact vs plain; {card_line()}")
+    return {"tok_s": res.tok_s, "wall_s": res.wall_s,
+            "preemptions": res.preemptions}
+
+
+def first_adopted_call(rec, adopted, n_layers):
+    """The first kept layer-0 B3 call in which a row that adopted shared
+    pages prefills its first chunk: its ``q_offset`` is the adopted token
+    count (> 0) and its ``q_len`` > 0. Returns ``(index, label)``."""
+    import torch
+    for calls, slot, pos in adopted:
+        for idx in sorted(i for i in rec.kept if i >= calls):
+            _, kw, _ = rec.kept[idx]
+            hq = kw.get("hq") or kw.get("kv_rep", 1)
+
+            def row(x):
+                return int(torch.as_tensor(x).reshape(-1)[::hq][slot])
+            if row(kw["q_len"]) > 0:
+                if row(kw["q_offset"]) != pos:
+                    break          # this row's first chunk is not kept
+                return idx, (f"layer 0 of step {idx // n_layers}, slot "
+                             f"{slot}: "
+                             f"q_offset {pos} over shared pages, q_len "
+                             f"{row(kw['q_len'])}")
+    raise AssertionError(f"no adopted row's first mixed step was kept "
+                         f"({adopted})")
+
+
+def cow_step(model, cfg, checks):
+    """Copy-on-write inside a captured mixed step, at full width. Slot 0
+    prefills a 256-token prompt into both pages of a 2-page window and
+    finishes (its pages stay); slot 1 adopts its first page and prefills
+    a 320-token stream of the same leading tokens in 64-token chunks, so
+    its third step wraps onto the shared page and copies it first. The
+    steps replayed from a CUDA graph (the copy in the second replay) give
+    the eager steps' bits in every tensor of the carry; layer 0's B3 call
+    right after the copy (eager) is held to its plain version; the
+    copied page belongs to slot 1 alone and the invariants hold."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
+                                          admit_chunked, make_serve_segment,
+                                          tree_leaves)
+    from repro_torch.models import init_caches
+    from repro_torch.runtime.generate import _adopt_prefix_slots
+    page, chunk, n_layers = 128, 64, cfg.n_layers
+    stream = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, 320)).astype(np.int32)
+
+    def seg(segment, graphs=None):
+        return make_serve_segment(cfg, segment=segment, sample=False,
+                                  eos_id=None, pad_id=0, chunk=chunk,
+                                  budget=chunk + 1, graphs=graphs)
+
+    def start():
+        caches = init_caches(cfg, 2, 2 * page, paged=True, page_size=page,
+                             num_pages=6, device=DEV)
+        state = admit_chunked(ServeSlotState.init(2, 320, DEV), [0],
+                              stream, [256], [1])
+        _, _, _, state, caches, _ = seg(4)(model, state, caches, 1.0)
+        shared = caches[0]["mix"].page_table[0, 0].item()
+        caches = _adopt_prefix_slots(caches, [1], [[shared, 0]], [1],
+                                     [page])
+        state = admit_chunked(state, [1], stream, [320], [4], shared=[page])
+        return caches, state, shared
+
+    with torch.inference_mode():
+        eager, graph = start(), start()
+        shared = eager[2]
+        carry_e, carry_g = eager[:2], graph[:2]
+        step_e, graphs = seg(1), CapturedSteps(DEV)
+        step_g = seg(1, graphs)
+        # calls counted: eager step 1, the graph's warm-up, eager steps 2
+        # and 3 (replays and the capture never reach Python)
+        rec = recording(("ita_attention_onepass_paged",),
+                        keep=(3 * n_layers,))
+        try:
+            for i in range(3):
+                toks_e, _, _, st_e, c_e, _ = step_e(model, carry_e[1],
+                                                    carry_e[0], 1.0)
+                carry_e = (c_e, st_e)
+                toks_g, _, _, st_g, c_g, _ = step_g(model, carry_g[1],
+                                                    carry_g[0], 1.0)
+                carry_g = (c_g, st_g)
+                torch.cuda.synchronize()
+                for a, b in zip(tree_leaves((carry_e, toks_e)),
+                                tree_leaves((carry_g, toks_g)), strict=True):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"COW step {i}: the captured "
+                                             f"step differs from eager")
+        finally:
+            unrecord(rec)
+    pool = carry_e[0][0]["mix"]
+    table, ref = pool.page_table.tolist(), pool.ref_count.tolist()
+    if table[0][0] != shared or table[1][0] == shared or ref[shared] != 1:
+        raise AssertionError(f"no copy on write: tables {table}, shared "
+                             f"page {shared} refcount {ref[shared]}")
+    for c in carry_e[0]:
+        c["mix"].check_invariants()
+    check_recorded(checks, "ita_attention_onepass_paged",
+                   rec["ita_attention_onepass_paged"], 3 * n_layers,
+                   "layer 0 of the step that copied a shared page")
+    log(f"[cow] slot 1 wrapped onto page {shared}, shared with slot 0, in "
+        f"its third mixed step and copied it to page {table[1][0]}: the "
+        f"step replayed from a CUDA graph equals the eager step in every "
+        f"tensor (pools, tables, refcounts, free stacks, slot state, "
+        f"tokens) over 3 steps; layer 0's B3 call after the copy bit-exact "
+        f"vs plain; invariants held in all {n_layers} layers; "
+        f"{card_line()}")
 
 
 # ---------------------------------------------------------------------------
@@ -1608,9 +1926,12 @@ def streaming_ms(bind):
 def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
     """One row per kernel. B2's row also carries its decode-shaped call
     (``decode``: times, bound and launches of run (b)'s sq-1 calls) and
-    the launches of its prefill calls; each paged kernel's row its mean
+    the stall serve's ragged admission prefill (``stall_prefill``), with
+    the launches of its own prefill calls; B3's row the stall serve's
+    decode-shaped call (``stall_decode``); each sub-row its excess,
+    launches x (graph - bound). Each paged kernel's row carries its mean
     time per launch over the serve (``serve_mean_ms``)."""
-    rows, decode = [], None
+    rows, sub = [], {}
     for name, shape, bind, call_fn, plain_fn, (bms, by) in timing_entries(
             captured, softmax_inputs):
         ms = kernel_ms(bind)
@@ -1629,10 +1950,11 @@ def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
                 f"per kv row): kernel {streaming['ms']:.4f} ms back to "
                 f"back, {streaming['graph_ms']:.4f} ms in a CUDA graph, "
                 f"against {graph:.4f} ms with its geometry; {card_line()}")
-        if name == ONEPASS_DECODE:
-            decode = {"ms": ms, "graph_ms": graph, "plain_ms": plain,
-                      "bound_ms": bms, "bound_by": by,
-                      "launches": launches[name]}
+        if name in SUBROWS:
+            sub[name] = {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+                         "bound_ms": bms, "bound_by": by,
+                         "launches": launches[name],
+                         "excess_ms": launches[name] * (graph - bms)}
             continue
         source, replaces = SOURCES[name]
         rows.append({"name": name, "route": "cuda", "source": source,
@@ -1645,10 +1967,13 @@ def time_kernels(captured, softmax_inputs, launches, checks, serve_mean):
         if name in DECODE:
             rows[-1]["streaming_ms"] = streaming["ms"]
             rows[-1]["streaming_graph_ms"] = streaming["graph_ms"]
+    for name, (kernel, key) in SUBROWS.items():
+        row = next(r for r in rows if r["name"] == kernel)
+        row[key] = sub[name]
     for row in rows:
         if row["name"] == "ita_attention_onepass":
-            row["decode"] = decode
-            row["prefill_launches"] = row["launches"] - decode["launches"]
+            row["prefill_launches"] = row["launches"] \
+                - row["decode"]["launches"]
     return rows
 
 # ---------------------------------------------------------------------------
@@ -1976,6 +2301,9 @@ def main():
     served, serve_launches, serve_captured = full_width_serve(model, cfg,
                                                               checks)
     captured.update(serve_captured)
+    preqs, solo, max_len = prefix_serve(model, cfg, serve_trace(cfg))
+    overload = overload_serve(model, cfg, preqs, solo, max_len, checks)
+    cow_step(model, cfg, checks)
     # ring and twopass kernels: the generate() runs; paged kernels: the
     # serve; the softmax: its run on run (c)'s A
     rows = time_kernels(captured, softmax_inputs,
@@ -1994,7 +2322,9 @@ def main():
         f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
         f"{served['wall_s']:.3f} s; stall serve {served['stall']['tok_s']:.2f} "
         f"tok/s, wall {served['stall']['wall_s']:.3f} s, prefill stall "
-        f"{served['stall']['prefill_stall_s']:.3f} s; stepwise decode "
+        f"{served['stall']['prefill_stall_s']:.3f} s; overload serve "
+        f"{overload['tok_s']:.2f} tok/s, wall {overload['wall_s']:.3f} s, "
+        f"{overload['preemptions']} preemptions; stepwise decode "
         f"(a) (b) (c) {', '.join(f'{x:.1f}' for x in metrics['stepwise_decode_tok_s'])}"
         f" tok/s; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")

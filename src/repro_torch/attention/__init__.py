@@ -18,12 +18,13 @@ from repro_torch.attention.registry import (Backend,  # noqa: F401
                                             list_backends, register_backend)
 from repro_torch.attention.spec import AttentionSpec, QuantScales  # noqa: F401
 from repro_torch.attention.state import (KVCacheState,  # noqa: F401
-                                         PagedKVState)
+                                         PagedKVState, PrefixIndex)
 
 from repro_torch.attention import backends as _backends  # noqa: F401,E402
 
 __all__ = [
     "AttentionSpec", "QuantScales", "KVCacheState", "PagedKVState",
+    "PrefixIndex",
     "Backend", "BackendUnsupported", "dispatch", "list_backends",
     "backend_reasons", "register_backend", "get_backend", "all_backends",
 ]

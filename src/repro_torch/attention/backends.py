@@ -110,7 +110,7 @@ def _chunked_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
     if spec.mode == "train":
         raise NotImplementedError(
             "the QAT train forward (ita_ste + fake_quant) comes with the "
-            "training slice of the port (ROADMAP A10)")
+            "training slice of the port (ROADMAP, \"Training\")")
     out = streaming_attention(
         _quantize(q, scales.s_q, 2), _quantize(k, scales.s_k, 2),
         _quantize(v, scales.s_v, 2), impl="ita_int", scale=_qscale(spec, q),

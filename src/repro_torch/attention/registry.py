@@ -26,7 +26,8 @@ SupportsFn = Callable[[AttentionSpec], bool | str]
 
 # JAX-package backends still to be ported, and where they come in.
 _BACKENDS_SLICE = ("the dispatch backends with the baseline softmaxes of "
-                   "core/softmax.py (ROADMAP A4)")
+                   "core/softmax.py (ROADMAP, \"The rest of core/softmax.py, "
+                   "then the other dispatch backends\")")
 UNPORTED = {name: _BACKENDS_SLICE
             for name in ("ita_direct_xla", "ibert_xla", "float_xla")}
 

@@ -28,14 +28,20 @@ into a copy padded by one sink entry that is cut off again (``scatter_drop``).
 Ring writes of dead rows write back the value they would overwrite.
 Every scatter is duplicate-free outside the sink, so results are
 deterministic on the card, and no operation reads a value back to the
-host. Per-head cache scales (``k_scale``/``v_scale``) and prefix
-sharing (``adopt_prefix``, ``incref_pages``/``decref_pages``,
-``PrefixIndex``) come with later slices.
+host. Per-head cache scales (``k_scale``/``v_scale``) come with a later
+slice.
+
+Prefix sharing: ``adopt_prefix`` points a fresh row's leading table
+entries at pages another request wrote, ``incref_pages``/``decref_pages``
+pin and unpin pages for the host ``PrefixIndex`` (chain-hashed page-
+aligned prompt chunks -> physical page), and copy-on-write in the append
+paths guards shared pages.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -329,14 +335,76 @@ class PagedKVState:
         pos = torch.where(finished, 0, new.pos)
         return dataclasses.replace(new, page_table=_i32(pt), pos=_i32(pos))
 
+    # -- prefix sharing ---------------------------------------------------
+
+    def adopt_prefix(self, rows, pages, n_pages, n_tokens) -> "PagedKVState":
+        """Point row ``rows[i]``'s first ``n_pages[i]`` table entries at
+        the existing pages ``pages[i, :n_pages[i]]`` (+1 refcount each)
+        and start its stream at ``pos = n_tokens[i]``: the shared-prefix
+        admission, whose leading prompt pages are another request's bytes
+        and are never prefilled again. ``rows[i] < 0`` is a dropped dummy
+        entry. Target rows must be fresh (released). ``n_tokens`` equals
+        ``n_pages * page_size``: sharing is page-granular."""
+        b, dev = self.batch, self.pos.device
+
+        def i32(x):
+            return torch.as_tensor(x, dtype=torch.int32, device=dev)
+        rows = i32(rows).reshape(-1)
+        n = rows.shape[0]
+        pages = i32(pages).reshape(n, -1)
+        n_pages, n_tokens = i32(n_pages).reshape(n), i32(n_tokens).reshape(n)
+        valid = rows >= 0
+        rowsq = torch.where(valid, rows, b)
+        cols = self._ar(pages.shape[1])[None, :]
+        take = valid[:, None] & (cols < n_pages[:, None]) \
+            & (pages != PARKING_PAGE)
+        dcol = torch.where(take, cols, self.pages_per_seq)
+        pt = scatter_drop(self.page_table,
+                          (rowsq[:, None].expand_as(dcol), dcol), pages)
+        ref = scatter_drop(self.ref_count,
+                           (torch.where(take, pages, self.num_pages),),
+                           torch.ones_like(pages), accumulate=True)
+        pos = scatter_drop(self.pos, (rowsq,),
+                           n_tokens * valid.to(torch.int32))
+        return dataclasses.replace(self, page_table=pt, ref_count=ref,
+                                   pos=pos)
+
+    def _page_ids(self, pages, lo):
+        """Flat int32 ``pages`` with every id outside ``[lo, num_pages)``
+        sent to the sink entry ``num_pages``."""
+        pages = torch.as_tensor(pages, dtype=torch.int32,
+                                device=self.pos.device).reshape(-1)
+        return torch.where((pages >= lo) & (pages < self.num_pages), pages,
+                           self.num_pages)
+
+    def incref_pages(self, pages) -> "PagedKVState":
+        """+1 refcount per entry of ``pages`` (flat; negative = padding,
+        dropped): the prefix index's pin, which keeps a registered page
+        alive after its row releases it."""
+        idx = self._page_ids(pages, PARKING_PAGE + 1)
+        return dataclasses.replace(self, ref_count=scatter_drop(
+            self.ref_count, (idx,), torch.ones_like(idx), accumulate=True))
+
+    def decref_pages(self, pages) -> "PagedKVState":
+        """Drop one reference per entry of ``pages`` (flat; negative =
+        padding): the index's unpin or eviction. Pages reaching zero
+        return to the free stack; duplicates decrement once each."""
+        idx = self._page_ids(pages, 0)
+        dec = scatter_drop(torch.zeros_like(self.ref_count), (idx,),
+                           torch.ones_like(idx), accumulate=True)
+        return self._decref(dec)
+
     def _cow(self, first, n_new, max_width: int) -> "PagedKVState":
         """Copy-on-write the pages the rows are about to overwrite: a
         logical page holding write slots ``[first[b], first[b]+n_new[b])``
         whose physical page is shared (refcount > 1) is copied to a
         freshly popped page first; the row repoints its table entry and
-        drops its reference. ``max_width`` bounds ``n_new``. Without
-        sharing (this slice of the port) no page qualifies and the call
-        changes nothing."""
+        drops its reference. ``max_width`` bounds ``n_new``. A pristine
+        page abandoned by every holder in one call returns to the free
+        stack once. The serve never lets a sharing row wrap onto its
+        shared pages, so there no page qualifies; the copy fires in the
+        tests and in ``chip_smoke.py``'s wrapping step. It runs inside
+        captured steps: device ops only."""
         ps, cs = self.page_size, self.capacity
         npps, P = self.pages_per_seq, self.num_pages
         b = first.shape[0]
@@ -537,3 +605,125 @@ class PagedKVState:
             assert (p in free_set) ^ (counts[p] >= 1), (
                 f"page {p}: free={p in free_set}, references={counts[p]} "
                 f"(every page must be free xor referenced)")
+
+
+# ---------------------------------------------------------------------------
+# Prefix index (host side)
+# ---------------------------------------------------------------------------
+
+class PrefixIndex:
+    """Host map from prompt prefixes to the physical pages that hold their
+    K/V bytes (``repro.attention.state.PrefixIndex``), behind serve-time
+    prefix sharing.
+
+    Entry ``j`` keys on a chain hash of the prompt's ``j``-th
+    ``page_size``-token chunk and chunk ``j - 1``'s key, so a hit for page
+    ``j`` means the whole leading ``(j + 1) * page_size`` tokens match; a
+    lookup walks the chain and returns the longest registered prefix. One
+    page id is valid for every layer's pool because the per-layer
+    allocators run the same op sequence. The index holds one pin (+1
+    refcount, ``PagedKVState.incref_pages``) per registered page;
+    ``evict_lru`` hands back the oldest unprotected pages for the caller
+    to unpin. A page's bytes are a function of its chunk's tokens and
+    page-aligned position only, which the chain key encodes."""
+
+    def __init__(self, page_size: int):
+        self.page_size = int(page_size)
+        self._entries: dict = {}        # chain key -> physical page id
+        self._page_key: dict = {}       # physical page id -> chain key
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    @property
+    def pinned_pages(self):
+        """Every registered (pinned) physical page id."""
+        return list(self._page_key)
+
+    def _chain_keys(self, tokens, n_chunks: int):
+        # blake2b, not hash(): hash() is salted per process, and a
+        # restored index must resolve the same prompts in a new process
+        toks = np.ascontiguousarray(np.asarray(tokens, np.int64).reshape(-1))
+        prev = b"prefix-chain-v1:%d" % self.page_size   # chain seed
+        keys = []
+        for j in range(n_chunks):
+            chunk = toks[j * self.page_size:(j + 1) * self.page_size]
+            prev = hashlib.blake2b(prev + chunk.tobytes(),
+                                   digest_size=16).digest()
+            keys.append(prev.hex())
+        return keys
+
+    def lookup(self, tokens, max_tokens: int | None = None):
+        """Physical page ids of the longest registered page-aligned prefix
+        of ``tokens`` covering at most ``max_tokens`` tokens (possibly
+        empty); the hits move to the young end of the LRU order."""
+        n_tok = int(np.asarray(tokens).size)
+        if max_tokens is not None:
+            n_tok = min(n_tok, int(max_tokens))
+        pages = []
+        for key in self._chain_keys(tokens, n_tok // self.page_size):
+            page = self._entries.get(key)
+            if page is None:
+                break
+            del self._entries[key]                # LRU touch: re-insert
+            self._entries[key] = page
+            pages.append(page)
+        return pages
+
+    def register(self, tokens, page_ids):
+        """Register the pages behind ``tokens``' leading full chunks
+        (``page_ids[j]`` holds chunk ``j``). Known chunks are skipped;
+        registration stops at the parking page or at a page that serves
+        another key, so the chain stays walkable. Returns the newly
+        indexed pages, which the caller pins before the donor releases
+        them."""
+        page_ids = [int(p) for p in np.asarray(page_ids).reshape(-1)]
+        new = []
+        for key, page in zip(self._chain_keys(tokens, len(page_ids)),
+                             page_ids, strict=True):
+            if page == PARKING_PAGE:
+                break
+            if key in self._entries:
+                continue                          # chunk already indexed
+            if page in self._page_key:
+                break                             # page serves another key
+            self._entries[key] = page
+            self._page_key[page] = key
+            new.append(page)
+        return new
+
+    def state_dict(self) -> dict:
+        """A JSON-serializable snapshot, entries oldest first (the dict's
+        insertion order is the LRU order)."""
+        return {"page_size": self.page_size,
+                "entries": [[key, int(page)]
+                            for key, page in self._entries.items()]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Rebuild the index from ``state_dict()``; raises ``ValueError``
+        on another page size (the chain seed depends on it)."""
+        if int(state["page_size"]) != self.page_size:
+            raise ValueError(
+                f"prefix index snapshot has page_size "
+                f"{state['page_size']}, pool uses {self.page_size}")
+        self._entries, self._page_key = {}, {}
+        for key, page in state["entries"]:
+            self._entries[str(key)] = int(page)
+            self._page_key[int(page)] = str(key)
+
+    def evict_lru(self, n: int, protected=frozenset()):
+        """Drop up to ``n`` least recently used entries whose page is not
+        ``protected`` (pages an active request adopted keep their pin).
+        Returns the evicted pages for the caller to unpin. Evicting a
+        chain's head orphans its tail, which stays evictable."""
+        evicted = []
+        for key in list(self._entries):
+            if len(evicted) >= n:
+                break
+            page = self._entries[key]
+            if page in protected:
+                continue
+            del self._entries[key]
+            del self._page_key[page]
+            evicted.append(page)
+        return evicted

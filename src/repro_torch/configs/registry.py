@@ -2,7 +2,8 @@
 
 This slice of the port registers the dense decoder of its main path,
 ``qwen2-7b`` (and its ``qwen2-smoke`` width); the other architectures of
-``repro.configs.registry`` come with the blocks they need (ROADMAP A6).
+``repro.configs.registry`` come with the blocks they need (ROADMAP,
+"Model breadth").
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (this slice registers "
             f"{ARCH_IDS}; the other architectures come with their blocks, "
-            f"ROADMAP A6)")
+            f"ROADMAP, \"Model breadth\")")
     cfg = _MODULES[arch].SMOKE if smoke else _MODULES[arch].CONFIG
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

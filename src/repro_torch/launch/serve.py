@@ -26,8 +26,13 @@ chunked prefill (``--chunk-size``, ``--token-budget``) between
 ``--segment``-step segments, and reports sustained tok/s, latency and
 TTFT. ``--admission stall`` admits by a stop-the-world prefill into a
 ring scratch copied into pool pages (the A/B reference; its stop time is
-reported as prefill-stall). The JAX CLI's prefix-sharing, preemption
-and journal options come with later slices of the port.
+reported as prefill-stall). ``--system-prompt-len N`` prepends one
+shared N-token prefix to every prompt and ``--prefix-sharing`` shares
+its pages through the pool; ``--priority-classes N`` draws each
+request's SLO class from [0, N), ``--preemption`` evicts lower classes
+under pool or slot pressure, ``--overload`` multiplies the arrival rate
+and ``--aging-steps`` turns on starvation aging. The JAX CLI's journal
+options come with a later slice of the port.
 """
 
 from __future__ import annotations
@@ -99,6 +104,27 @@ def main(argv=None):
     ap.add_argument("--token-budget", type=int, default=None,
                     help="per-step token budget of the decode-maximal "
                          "scheduler (default slots - 1 + chunk_size)")
+    ap.add_argument("--prefix-sharing", action="store_true",
+                    help="share identical page-aligned prompt prefixes "
+                         "across requests through the paged pool "
+                         "(chunked admission only)")
+    ap.add_argument("--system-prompt-len", type=int, default=0,
+                    help="prepend one common prefix of this many tokens "
+                         "to every --continuous request")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="SLO classes for --continuous: each request draws "
+                         "a class in [0, N) (higher = more urgent); "
+                         "per-class p95 TTFT and latency are reported")
+    ap.add_argument("--preemption", action="store_true",
+                    help="under pool or slot pressure, evict lower-class "
+                         "requests, which re-enter the queue carrying "
+                         "their generated prefix (equal tokens)")
+    ap.add_argument("--overload", type=float, default=1.0,
+                    help="multiply --rate by this factor (arrivals faster "
+                         "than service exercise --preemption)")
+    ap.add_argument("--aging-steps", type=int, default=None,
+                    help="starvation aging: a waiting request's class "
+                         "grows by one every N virtual steps")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -151,23 +177,29 @@ def main(argv=None):
 
 def _continuous(args, cfg, model, dev):
     rng = np.random.default_rng(args.seed)
-    rate = max(args.rate, 1e-6)
+    rate = max(args.rate, 1e-6) * max(args.overload, 1e-6)
     arrivals = np.cumsum(rng.exponential(1.0 / rate,
                                          args.requests)).astype(int)
+    system = rng.integers(0, cfg.vocab_size,
+                          args.system_prompt_len).astype(np.int32)
     reqs = [ServeRequest(
-        prompt=rng.integers(0, cfg.vocab_size, int(rng.integers(
-            max(1, args.prompt_len // 2), args.prompt_len + 1))
-        ).astype(np.int32),
+        prompt=np.concatenate([system, rng.integers(
+            0, cfg.vocab_size, int(rng.integers(
+                max(1, args.prompt_len // 2), args.prompt_len + 1))
+        ).astype(np.int32)]),
         gen=int(rng.integers(max(2, args.gen // 4), args.gen + 1)),
-        arrival=int(t)) for t in arrivals]
+        arrival=int(t),
+        priority=int(rng.integers(0, max(1, args.priority_classes))))
+        for t in arrivals]
     res = serve_continuous(
         model, cfg, reqs, slots=args.batch, segment=args.segment,
-        max_len=args.prompt_len + args.gen, page_size=args.page_size,
-        temperature=args.temperature,
+        max_len=args.system_prompt_len + args.prompt_len + args.gen,
+        page_size=args.page_size, temperature=args.temperature,
         seed=args.seed if args.temperature > 0 else None,
         eos_id=args.eos_id, admission=args.admission,
         chunk_size=args.chunk_size, token_budget=args.token_budget,
-        device=dev)
+        prefix_sharing=args.prefix_sharing, preemption=args.preemption,
+        aging_steps=args.aging_steps, device=dev)
     util = max((u for _, u in res.page_util), default=0.0)
     print(f"[serve] arch={cfg.name} continuous slots={args.batch} "
           f"segment={args.segment} page_size={args.page_size} "
@@ -183,6 +215,24 @@ def _continuous(args, cfg, model, dev):
           f"{res.ttft_quantile(0.5) * 1e3:.0f} ms p95 "
           f"{res.ttft_quantile(0.95) * 1e3:.0f} ms; prefill-stall "
           f"{res.prefill_stall_frac:.0%}; peak page util {util:.0%}")
+    if args.prefix_sharing:
+        print(f"[serve] prefix sharing: {res.prefix_hits}/"
+              f"{len(res.completed)} hits ({res.prefix_hit_rate:.0%}), "
+              f"{res.shared_prefix_tokens} prompt tokens adopted from "
+              f"shared pages ({res.prefill_tokens} prefilled)")
+    if args.preemption or args.priority_classes > 1:
+        print(f"[serve] preemptions: {res.preemptions}")
+        summary = res.class_summary()
+        for prio in sorted(summary, reverse=True):
+            d = summary[prio]
+            aging = (f", aging bound {d['aging_bound_steps']} steps"
+                     if "aging_bound_steps" in d else "")
+            print(f"[serve]   class {prio}: {d['n']} requests, "
+                  f"{d['preemptions']} preemptions, p95 TTFT "
+                  f"{d['p95_ttft_s'] * 1e3:.0f} ms, p95 latency "
+                  f"{d['p95_latency_s'] * 1e3:.0f} ms, p95 admission delay "
+                  f"{d['p95_admit_delay_steps']} steps, max "
+                  f"{d['max_admit_delay_steps']}{aging}")
     return res
 
 

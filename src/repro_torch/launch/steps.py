@@ -349,9 +349,11 @@ class ServeSlotState:
     Prompt token ids wait in ``prompt_buf`` and are prefilled chunk by
     chunk inside the segments (``cursor`` < ``plen`` marks the prefill
     phase). ``prio`` is the slot's SLO class: it orders the mixed body's
-    prompt-chunk grants. ``pgen`` is the preemption generation (kept for
-    the preemption slice). ``gens`` holds each slot's sampling generator
-    (host objects; ``None`` when serving greedily) in place of the JAX
+    prompt-chunk grants. ``pgen`` is the slot's preemption generation:
+    ``preempt_rows`` bumps it, and the host credits a segment's read-back
+    tokens to a slot's occupant only under the generation it was
+    dispatched with. ``gens`` holds each slot's sampling generator (host
+    objects; ``None`` when serving greedily) in place of the JAX
     package's per-slot PRNG keys."""
 
     tok: torch.Tensor           # (B, 1) int32 — last sampled token
@@ -402,14 +404,17 @@ def _place_generators(state, slot_ids, req_gens):
 
 
 def admit_chunked(state, slot_ids, prompts, lengths, gens, req_gens=None,
-                  prios=None):
+                  shared=None, prios=None):
     """Chunked admission is only this state write (plus the host's page
-    reservation): enqueue the prompt ids and arm the slots' phase state
-    (``cursor`` and ``pos`` at 0); the segments prefill page-native.
-    ``slot_ids`` (n,) (-1 = padding), ``prompts`` (n, prompt_pad),
-    ``lengths``/``gens`` (n,); ``req_gens`` the n rows' sampling
-    generators (or None); ``prios`` (n,) the SLO classes (None = class
-    0)."""
+    reservation): enqueue the prompt ids and arm the slots' phase state;
+    the segments prefill page-native. ``slot_ids`` (n,) (-1 = padding),
+    ``prompts`` (n, prompt_pad), ``lengths``/``gens`` (n,); ``req_gens``
+    the n rows' sampling generators (or None); ``shared`` (n,) the prompt
+    tokens each row's adopted prefix pages already hold
+    (``PagedKVState.adopt_prefix`` in the same round): ``cursor`` and
+    ``pos`` start there (None = 0); ``prios`` (n,) the SLO classes (None
+    = class 0, still written, so a freed slot never keeps a stale
+    class)."""
     dev = state.pos.device
 
     def col(x):
@@ -417,14 +422,15 @@ def admit_chunked(state, slot_ids, prompts, lengths, gens, req_gens=None,
     slot_ids = col(slot_ids)
     rows = admit_rows(state, slot_ids)
     lengths = col(lengths)
+    start = torch.zeros_like(lengths) if shared is None else col(shared)
     prio = torch.zeros_like(lengths) if prios is None else col(prios)
 
     def put(t, v):
         return scatter_drop(t, (rows,), v)
     return dataclasses.replace(
         state, prompt_buf=put(state.prompt_buf, col(prompts)),
-        plen=put(state.plen, lengths), cursor=put(state.cursor, 0),
-        pos=put(state.pos, 0), tok=put(state.tok, 0),
+        plen=put(state.plen, lengths), cursor=put(state.cursor, start),
+        pos=put(state.pos, start), tok=put(state.tok, 0),
         done=put(state.done, False), rem=put(state.rem, col(gens)),
         prio=put(state.prio, prio),
         gens=_place_generators(state, slot_ids, req_gens))
@@ -456,6 +462,45 @@ def admit_stall(state, slot_ids, lengths, tok0, new_done, new_rem,
         done=put(state.done, col(new_done, torch.bool)),
         rem=put(state.rem, col(new_rem)), prio=put(state.prio, prio),
         gens=_place_generators(state, slot_ids, req_gens))
+
+
+def preempt_rows(state, mask):
+    """Evict every slot in ``mask`` (B,) bool from the batch in one state
+    write: the victims' phase state zeroes and ``done`` rises, so the
+    next segment's bodies mask them out like finished slots and never
+    touch their (host-released) pages; ``pgen`` rises, so read-back
+    output is never credited to a later occupant. ``gens`` stays: the
+    host snapshots a victim's generator state before preempting and
+    restores it at re-admission, so a resumed sampled request draws what
+    it would have drawn unpreempted."""
+    mask = torch.as_tensor(mask, dtype=torch.bool, device=state.pos.device)
+    keep = ~mask
+    zero = torch.zeros_like(state.pos)
+    return dataclasses.replace(
+        state, tok=torch.where(mask[:, None], 0, state.tok),
+        pos=torch.where(keep, state.pos, zero),
+        done=state.done | mask,
+        rem=torch.where(keep, state.rem, zero),
+        cursor=torch.where(keep, state.cursor, zero),
+        plen=torch.where(keep, state.plen, zero),
+        prio=torch.where(keep, state.prio, zero),
+        pgen=state.pgen + mask.to(torch.int32))
+
+
+def aged_priority(prio: int, waited: int, aging_steps: int | None,
+                  max_class: int) -> int:
+    """Starvation aging (a host scheduler helper): a waiting request's
+    effective SLO class grows by one every ``aging_steps`` virtual steps,
+    capped at ``max_class + 1``, one above the trace's highest class, so
+    a fully aged request outranks every fresh arrival, and capped
+    requests tie (FIFO) and never preempt one another. A class-``c``
+    request reaches the cap after ``aging_steps * (max_class + 1 - c)``
+    steps of waiting. ``None`` or non-positive ``aging_steps`` is the
+    identity."""
+    if aging_steps is None or aging_steps <= 0:
+        return prio
+    return min(prio + max(int(waited), 0) // int(aging_steps),
+               max_class + 1)
 
 
 def sample_token_rows(logits, gens, temperature, *, sample: bool,

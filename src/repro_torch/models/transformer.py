@@ -41,7 +41,7 @@ def _check_ported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: this slice of the port builds dense decoders of "
             f"{_PORTED_KINDS} blocks with SwiGLU and RMSNorm; the other "
-            f"blocks come with later slices (ROADMAP A6)")
+            f"blocks come with later slices (ROADMAP, \"Model breadth\")")
 
 
 class Block(nn.Module):

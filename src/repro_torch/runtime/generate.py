@@ -299,8 +299,10 @@ class ServeRequest:
     units = decode steps (the scheduler's clock); ``gen`` counts every
     generated token including the one sampled from the prompt.
     ``priority`` is the request's SLO class (higher = more urgent): it
-    orders admission and the mixed steps' prompt-chunk budget.
-    ``request_id`` names the request for the journal (ROADMAP A8)."""
+    orders admission and the mixed steps' prompt-chunk budget, and picks
+    preemption victims (strictly lower classes only). ``request_id``
+    names the request for the journal (ROADMAP, "Journal, snapshot,
+    recovery and drain")."""
     prompt: Any                      # (S,) int token ids
     gen: int
     arrival: int = 0
@@ -312,13 +314,14 @@ class ServeRequest:
 class CompletedRequest:
     index: int                       # position in the submitted trace
     arrival: int                     # virtual (step) arrival time
-    admitted_step: int               # step count when admitted
+    admitted_step: int               # step count when first admitted
     finished_step: int               # step count when the slot freed
     arrived_s: float                 # wall clock when first admittable
     finished_s: float                # wall clock at the freeing boundary
     tokens: Any                      # (gen,) int32 generated ids
     first_token_s: float = 0.0       # wall clock of the first emitted token
     priority: int = 0                # the request's SLO class
+    preemptions: int = 0             # times this request was evicted
 
     @property
     def latency_s(self) -> float:
@@ -341,6 +344,12 @@ class ServeResult:
     prefill_stall_s: float = 0.0     # wall spent in stop-the-world prefill
                                      # (0 under chunked admission)
     prefill_tokens: int = 0          # prompt tokens prefilled
+    shared_prefix_tokens: int = 0    # prompt tokens skipped by adoption
+    prefix_hits: int = 0             # admissions that adopted >= 1 page
+    preemptions: int = 0             # victim evictions (fault kills too)
+    straggler_segments: int = 0      # segments the watchdog flagged slow
+    aging_steps: int | None = None   # starvation-aging period (None = off)
+    max_class: int = 0               # highest SLO class in the trace
     capture_s: float = 0.0           # of wall_s: capturing the serve steps
     graph_bytes: int = 0             # device memory of their graph pools
     alloc_bytes: int = 0             # allocated memory the captures added
@@ -348,6 +357,11 @@ class ServeResult:
     @property
     def total_tokens(self) -> int:
         return sum(int(np.asarray(c.tokens).size) for c in self.completed)
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of completed requests admitted with a shared prefix."""
+        return self.prefix_hits / max(len(self.completed), 1)
 
     @property
     def tok_s(self) -> float:
@@ -377,23 +391,74 @@ class ServeResult:
 
     def admission_delay_quantile(self, q: float,
                                  priority: int | None = None):
-        """Virtual-time TTFT proxy: decode steps from arrival to
+        """Virtual-time TTFT proxy: decode steps from arrival to first
         admission (deterministic, no wall clock)."""
         return self._quantile(
             (c.admitted_step - c.arrival for c in self._of_class(priority)),
             q)
+
+    def class_summary(self) -> dict:
+        """Per SLO class: count, preemptions suffered, p95 TTFT, latency
+        and admission delay, the worst admission delay, and with aging
+        on, ``aging_bound_steps``: the wait after which a request of the
+        class reaches the priority cap and no new arrival overtakes it."""
+        out = {}
+        for c in self.completed:
+            d = out.setdefault(c.priority, {"n": 0, "preemptions": 0})
+            d["n"] += 1
+            d["preemptions"] += c.preemptions
+        for prio, d in out.items():
+            d["p95_ttft_s"] = self.ttft_quantile(0.95, priority=prio)
+            d["p95_latency_s"] = self.latency_quantile(0.95, priority=prio)
+            d["p95_admit_delay_steps"] = self.admission_delay_quantile(
+                0.95, priority=prio)
+            d["max_admit_delay_steps"] = max(
+                (c.admitted_step - c.arrival for c in self._of_class(prio)),
+                default=0)
+            if self.aging_steps is not None:
+                d["aging_bound_steps"] = self.aging_steps * (
+                    self.max_class + 1 - prio)
+        return out
+
+
+def _each_pool(caches, fn):
+    """``caches`` with ``fn`` applied to every layer's pool."""
+    return [dict(c, mix=fn(c["mix"])) for c in caches]
 
 
 def _release_slots(caches, finished):
     """Hand every finished slot's pages (all layers) back to the pools."""
     finished = torch.as_tensor(finished, dtype=torch.bool,
                                device=caches[0]["mix"].pos.device)
-    return [dict(c, mix=c["mix"].release(finished)) for c in caches]
+    return _each_pool(caches, lambda p: p.release(finished))
 
 
-def _check_paged_invariants(caches):
+def _adopt_prefix_slots(caches, slot_ids, pages, n_pages, n_tokens):
+    """Point admitted slots' leading table entries at the shared prefix
+    pages in every layer's pool (the allocators run in lockstep, so one
+    page id means the same page in all of them). Rows of slot -1 or with
+    ``n_pages`` 0 change nothing."""
+    return _each_pool(caches, lambda p: p.adopt_prefix(slot_ids, pages,
+                                                       n_pages, n_tokens))
+
+
+def _pin_pages(caches, pages):
+    """+1 refcount on ``pages`` in every layer's pool: the prefix index's
+    registration pin."""
+    return _each_pool(caches, lambda p: p.incref_pages(pages))
+
+
+def _unpin_pages(caches, pages):
+    """Drop the index pin on ``pages`` in every layer's pool; pages that
+    reach refcount 0 return to the free stacks."""
+    return _each_pool(caches, lambda p: p.decref_pages(pages))
+
+
+def _check_paged_invariants(caches, pins=None):
+    """``check_invariants`` on every layer's pool, ``pins`` the host's
+    {page: count} pin ledger (a readback per layer: debug only)."""
     for c in caches:
-        c["mix"].check_invariants()
+        c["mix"].check_invariants(pins=pins)
 
 
 def _adopt_prompts(caches, scratch, slot_ids, lengths):
@@ -439,19 +504,6 @@ def _validate_serve_cfg(cfg, admission: str = "chunked", chunk: int = 1):
 
 ADMISSIONS = ("chunked", "stall")
 
-# serve_continuous options of the JAX package that later slices port
-_UNPORTED_SERVE = {
-    "prefix_sharing": "prefix sharing with PrefixIndex (ROADMAP A8)",
-    "preemption": "preemption, SLO classes and aging (ROADMAP A8)",
-    "faults": "fault injection with preemption (ROADMAP A8)",
-    "aging_steps": "preemption, SLO classes and aging (ROADMAP A8)",
-    "journal_dir": "journal, snapshot and recovery (ROADMAP A8)",
-    "snapshot_every": "journal, snapshot and recovery (ROADMAP A8)",
-    "resume": "journal, snapshot and recovery (ROADMAP A8)",
-    "drain": "journal, snapshot, recovery and drain (ROADMAP A8)",
-    "drain_timeout": "journal, snapshot, recovery and drain (ROADMAP A8)",
-}
-
 
 def _next_pow2(n: int) -> int:
     p = 1
@@ -469,6 +521,7 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                      token_budget: int | None = None,
                      prefix_sharing: bool = False,
                      preemption: bool = False, faults=None,
+                     straggler_factor: float = 2.0,
                      debug_invariants: bool | None = None,
                      audit=None, journal_dir: str | None = None,
                      snapshot_every: int = 0, resume: bool = False,
@@ -502,50 +555,105 @@ def serve_continuous(model, cfg, requests, *, slots: int,
       request of one token, or whose first token is EOS, finishes in its
       admission round.
 
-    Admission order: SLO class, then
+    Admission order: SLO class (aged, with ``aging_steps``), then
     arrival, then trace position; the head of the queue waits for pages
     (no overtaking). ``audit`` (testing hook) is called after every
     admission round with the caches, the slot->request map and the pin
-    ledger (empty). ``debug_invariants`` (or env ``ITA_PAGED_DEBUG=1``)
-    checks the allocator invariants after every round.
+    ledger. ``debug_invariants`` (or env ``ITA_PAGED_DEBUG=1``) checks
+    the allocator invariants of every layer after every round.
+
+    ``prefix_sharing=True`` (chunked only) shares identical prompt
+    prefixes through the pool: every full page of prompt tokens a slot
+    prefills is registered in a host ``PrefixIndex`` and pinned (+1
+    refcount) so it outlives its request, and a later admission whose
+    prompt walks the same chain adopts those pages
+    (``PagedKVState.adopt_prefix``) instead of reserving and prefilling
+    them. At least one prompt token always prefills (the first sampled
+    token needs live logits), and only requests that cannot wrap their
+    window (``len + gen <= capacity``) share or donate, so serving never
+    overwrites an adopted page. Under page pressure the index evicts idle
+    pins (LRU, pages of active adopters protected) before the head of the
+    queue waits.
+
+    ``preemption=True`` (chunked only) lets admission make room for a
+    higher-class arrival when the pool or the slots are full: victims of
+    strictly lower (aged) class, lowest class first, then most reserved
+    pages, are evicted all together or not at all (``steps.
+    preempt_rows``); their pages go back (pinned prefix pages lose a
+    reference, never freed) and their requests re-enter the queue
+    carrying the prompt plus every token generated so far, to be
+    re-prefilled through chunked admission with the budget left. A
+    victim's sampling generator state is kept at eviction and restored at
+    re-admission, so greedy and sampled tokens equal an unpreempted
+    serve's. Only requests whose whole stream fits the window are
+    preemptable. ``faults`` (a ``runtime.fault_tolerance.ServeFaultPlan``,
+    chunked only) injects seeded kills (the same eviction, whatever
+    ``preemption``), phantom page pressure on one round's budget, sleeps
+    before segments and crashes (``SimulatedCrash``). A segment's wall
+    time, from before its injected sleep to its readback, feeds a
+    ``StragglerWatchdog`` at ``straggler_factor`` times the moving median
+    (``ServeResult.straggler_segments``). ``aging_steps`` raises a
+    waiting request's class by one every that many virtual steps, capped
+    one above the trace's highest class, which bounds the low class's
+    admission delay (``class_summary()``).
 
     Greedy serving equals generating each request alone (``generate``
     with the ``ita_onepass_pallas`` pin, the same ``max_len``), under
-    either admission: the chunks stream the same KV tile schedule when
-    ``page_size`` equals the fused ``block_kv`` (128), and the projections
-    give a token the same bits in any batch (``models.layers.linear``).
-    On the card a greedy serve replays its steps from two CUDA graphs,
-    the mixed step's and the decode step's (``steps.CapturedSteps``,
-    captured at their first use in the serve; ``capture_s``).
-    ``temperature > 0`` with a ``seed`` samples each request from its own
-    generator (``steps.request_generator(seed, index)``), independent of
-    arrival order and co-scheduled traffic; a sampled step reads its
-    emitting rows back to the host to draw from their generators, so
-    sampled serving runs its steps eagerly.
+    either admission, with prefix sharing and through preemption: the
+    chunks stream the same KV tile schedule when ``page_size`` equals the
+    fused ``block_kv`` (128), and the projections give a token the same
+    bits in any batch (``models.layers.linear``), so a page's bytes
+    depend on its tokens and page-aligned position only. On the card a
+    greedy serve replays its steps from two CUDA graphs, the mixed
+    step's and the decode step's (``steps.CapturedSteps``, captured at
+    their first use in the serve; ``capture_s``); admission, adoption,
+    pins and evictions run eagerly between segments and the next step
+    copies their tensors into the graphs' buffers. ``temperature > 0``
+    with a ``seed`` samples each request from its own generator
+    (``steps.request_generator(seed, index)``), independent of arrival
+    order and co-scheduled traffic; a sampled step reads its emitting
+    rows back to the host to draw from their generators, so sampled
+    serving runs its steps eagerly.
 
-    The options of ``_UNPORTED_SERVE`` come with later slices and raise
+    The journal options (``journal_dir``, ``snapshot_every``, ``resume``,
+    ``drain``, ``drain_timeout``) come with a later slice and raise
     ``NotImplementedError``. ``device`` (default the card; raises when
     CUDA is missing) must hold the model.
     """
+    from repro_torch.attention import PrefixIndex
     from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
                                           admit_chunked, admit_stall,
-                                          make_prefill_step,
-                                          make_serve_segment,
+                                          aged_priority, make_prefill_step,
+                                          make_serve_segment, preempt_rows,
                                           request_generator,
                                           sample_token_rows)
     from repro_torch.models import init_caches
+    from repro_torch.runtime.fault_tolerance import (ServeFaultInjector,
+                                                     SimulatedCrash)
+    from repro_torch.runtime.watchdog import StragglerWatchdog
 
-    given = dict(prefix_sharing=prefix_sharing, preemption=preemption,
-                 faults=faults, aging_steps=aging_steps,
-                 journal_dir=journal_dir, snapshot_every=snapshot_every,
-                 resume=resume, drain=drain, drain_timeout=drain_timeout)
-    for name, value in given.items():
+    # the JAX package's journal options: a later slice ports them
+    journal = dict(journal_dir=journal_dir, snapshot_every=snapshot_every,
+                   resume=resume, drain=drain, drain_timeout=drain_timeout)
+    for name, value in journal.items():
         if value not in (None, False, 0):
             raise NotImplementedError(
                 f"serve_continuous({name}=...) is not ported yet: it comes "
-                f"with {_UNPORTED_SERVE[name]}")
+                f"with the journal, snapshot and recovery slice (ROADMAP, "
+                f"\"Journal, snapshot, recovery and drain\")")
     if admission not in ADMISSIONS:
         raise ValueError(f"admission={admission!r} not in {ADMISSIONS}")
+    if (preemption or faults is not None) and admission != "chunked":
+        raise ValueError(
+            "preemption / fault injection require admission='chunked' "
+            "(victims resume through chunked re-prefill of their "
+            "prompt + generated prefix)")
+    if prefix_sharing and admission != "chunked":
+        raise ValueError(
+            "prefix_sharing requires admission='chunked' (stall-mode "
+            "prefill bypasses the page-native write path)")
+    if aging_steps is not None and aging_steps <= 0:
+        raise ValueError(f"aging_steps={aging_steps} must be positive")
     dev = resolve_device(device)
     if model.embed.device != dev:
         raise ValueError(f"the model lives on {model.embed.device}, not on "
@@ -555,6 +663,10 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     requests = list(requests)
     if not requests:
         return ServeResult([], 0.0, 0, 0, 0, [])
+    injector = ServeFaultInjector(faults) if faults is not None else None
+    watchdog = StragglerWatchdog(factor=straggler_factor)
+    may_preempt = preemption or (injector is not None
+                                 and injector.plan.may_kill)
     prompts_np = [np.asarray(r.prompt, np.int32).reshape(-1)
                   for r in requests]
     prompt_pad = max(p.size for p in prompts_np)
@@ -571,7 +683,37 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     pool_pages = geo.num_pages - 1                 # minus parking
     pages_per_seq = geo.pages_per_seq
     capacity = pages_per_seq * page_size
+
+    # pending streams: what admission prefills per request — the prompt,
+    # or after a preemption the prompt + generated prefix with the budget
+    # left. The page need is the same across resumes, so only requests
+    # whose whole stream fits the window are resumable, and the prompt
+    # buffer holds up to plen + gen - 1 tokens for them
+    pending = {i: (p, int(r.gen)) for i, (p, r) in enumerate(
+        zip(prompts_np, requests, strict=True))}
     prio_req = [int(r.priority) for r in requests]
+    resumable = [p.size + r.gen <= capacity
+                 for p, r in zip(prompts_np, requests, strict=True)]
+    max_class = max(prio_req, default=0)
+    if may_preempt:
+        prompt_pad = max(p.size + (r.gen - 1 if resumable[i] else 0)
+                         for i, (p, r) in enumerate(
+                             zip(prompts_np, requests, strict=True)))
+
+    def eff_prio(i, at_step):
+        return aged_priority(prio_req[i], at_step - requests[i].arrival,
+                             aging_steps, max_class)
+
+    index = None
+    if prefix_sharing:
+        geos = {(c["mix"].num_pages, c["mix"].page_size,
+                 c["mix"].pages_per_seq) for c in caches}
+        if len(geos) > 1:
+            raise ValueError(
+                f"prefix_sharing needs one uniform pool geometry across "
+                f"all attention layers (one physical page id must mean "
+                f"the same logical page everywhere), got {sorted(geos)}")
+        index = PrefixIndex(page_size)
     debug = debug_invariants if debug_invariants is not None \
         else bool(os.environ.get("ITA_PAGED_DEBUG"))
     chunk = max(1, min(chunk_size, capacity))
@@ -623,14 +765,25 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     # scheduler state (host)
     queue = sorted(range(len(requests)), key=lambda i: requests[i].arrival)
     slot_req = [None] * slots                      # request index per slot
+    slot_pgen = [0] * slots                        # host mirror of pgen
     reserved = [0] * slots                         # pages reserved per slot
     plen_host = [0] * slots                        # prompt length per slot
     cursor_host = [0] * slots                      # host mirror of cursor
     prefilling = [False] * slots                   # host mirror of phase
+    slot_prompt = [None] * slots                   # admitted pending stream
     arrived_wall, first_tok, admitted_step = {}, {}, {}
     emitted = {i: [] for i in range(len(requests))}
+    preempt_count = {}                             # request -> evictions
+    resume_gen = {}                                # request -> generator state
+    n_preempts = straggler_segs = 0
     completed, page_util = [], []
-    prefill_tokens, stall_s = 0, 0.0
+    # prefix sharing (all empty when index is None)
+    pins = {}                                      # page -> 1 (index pins)
+    slot_shared = [[] for _ in range(slots)]       # adopted pages per slot
+    slot_shareable = [False] * slots               # row may donate pages
+    reg_done = [0] * slots                         # prompt pages registered
+    prefill_tokens = shared_tokens = prefix_hits = 0
+    stall_s = 0.0
     state = ServeSlotState.init(slots, prompt_pad, dev)
     step = segments = rounds = 0
     to_release = []                                # slots freed, pages held
@@ -667,6 +820,15 @@ def serve_continuous(model, cfg, requests, *, slots: int,
         _sync(dev)
         return state, caches
 
+    def clear(slot):
+        slot_req[slot] = None
+        reserved[slot] = 0
+        prefilling[slot] = False
+        slot_prompt[slot] = None
+        slot_shared[slot] = []
+        slot_shareable[slot] = False
+        reg_done[slot] = 0
+
     def finish(slot, now_s):
         i = slot_req[slot]
         completed.append(CompletedRequest(
@@ -675,26 +837,111 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             arrived_s=arrived_wall[i], finished_s=now_s,
             first_token_s=first_tok.get(i, now_s),
             tokens=np.asarray(emitted[i][:requests[i].gen], np.int32),
-            priority=prio_req[i]))
-        slot_req[slot] = None
-        reserved[slot] = 0
-        prefilling[slot] = False
+            priority=prio_req[i], preemptions=preempt_count.get(i, 0)))
+        clear(slot)
+
+    def preempt_slot(slot):
+        # evict the slot's request on the host: keep its generator state,
+        # re-enqueue it as prompt + generated prefix with the budget left;
+        # the caller clears the device rows (one preempt_rows) and
+        # releases the pages
+        nonlocal n_preempts
+        i = slot_req[slot]
+        if sample:
+            resume_gen[i] = state.gens[slot].get_state()
+        g = len(emitted[i])
+        pending[i] = (np.concatenate([prompts_np[i],
+                                      np.asarray(emitted[i], np.int32)]),
+                      requests[i].gen - g)
+        preempt_count[i] = preempt_count.get(i, 0) + 1
+        n_preempts += 1
+        clear(slot)
+        cursor_host[slot] = plen_host[slot] = 0
+        slot_pgen[slot] += 1
+        queue.append(i)
+        queue.sort(key=lambda j: (requests[j].arrival, j))
+        to_release.append(slot)
 
     with torch.inference_mode():
         while queue or any(s is not None for s in slot_req):
             now_s = time.perf_counter() - t0
+            if injector is not None and injector.want_crash(step):
+                raise SimulatedCrash(step, "round-boundary")
             for i in queue:
                 if requests[i].arrival <= step:
                     arrived_wall.setdefault(i, now_s)
-            # -- admission: arrived requests into free, page-backed slots
+            victims = []
+            if injector is not None and injector.want_kill(step):
+                # a forced kill: a seeded pick among the live resumable
+                # slots, evicted as a preemption (and admittable again
+                # this very round)
+                live = [s for s in range(slots) if slot_req[s] is not None
+                        and resumable[slot_req[s]]]
+                if live:
+                    s = live[int(injector.rng.integers(len(live)))]
+                    preempt_slot(s)
+                    victims.append(s)
+            # -- admission: arrived requests into free, page-backed slots.
+            # Reservations and index pins both count against the pool
+            # (a pinned page inside an active donor's reservation counts
+            # twice: conservative); injected pressure takes phantom pages
             free_slots = [s for s in range(slots) if slot_req[s] is None]
-            page_budget = pool_pages - sum(reserved)
-            adm = []
+            phantom = injector.phantom_pages(step) if injector is not None \
+                else 0
+            page_budget = pool_pages - sum(reserved) - len(pins) - phantom
+            adm, adm_shared, evict_batch = [], {}, []
+            # admission order: aged class, arrival, trace position (a
+            # snapshot: this round's victims are candidates next round)
             cand = sorted((i for i in queue if requests[i].arrival <= step),
-                          key=lambda j: (-prio_req[j], requests[j].arrival,
-                                         j))
+                          key=lambda j: (-eff_prio(j, step),
+                                         requests[j].arrival, j))
             for i in cand:
-                need = pages_for(i)
+                if not free_slots and not preemption:
+                    break
+                prompt_i, gen_i = pending[i]
+                plen_i = prompt_i.size
+                sh_pages = []
+                if index is not None and plen_i + gen_i <= capacity:
+                    # at most plen - 1 tokens: the last prompt token must
+                    # prefill live for the first token's logits
+                    sh_pages = index.lookup(prompt_i, max_tokens=plen_i - 1)
+                need = min(-(-(plen_i + gen_i) // page_size),
+                           pages_per_seq) - len(sh_pages)
+                if need > page_budget and index is not None and len(index):
+                    # evict idle pins (LRU) before preempting or waiting;
+                    # pages active slots adopted, or this request will,
+                    # keep theirs
+                    protected = {p for lst in slot_shared for p in lst}
+                    protected |= set(sh_pages)
+                    evicted = index.evict_lru(need - page_budget, protected)
+                    for p in evicted:
+                        pins.pop(p, None)
+                    evict_batch.extend(evicted)
+                    page_budget += len(evicted)
+                if preemption and (need > page_budget or not free_slots):
+                    # evict strictly lower-class victims, lowest class
+                    # first, then most reserved pages, until the
+                    # candidate fits; all or nothing
+                    cast = sorted(
+                        (s for s in range(slots)
+                         if slot_req[s] is not None
+                         and eff_prio(slot_req[s], step) < eff_prio(i, step)
+                         and resumable[slot_req[s]]),
+                        key=lambda s: (eff_prio(slot_req[s], step),
+                                       -reserved[s], s))
+                    gain, picked = 0, []
+                    for s in cast:
+                        if need <= page_budget + gain \
+                                and (free_slots or picked):
+                            break
+                        picked.append(s)
+                        gain += reserved[s]
+                    if need <= page_budget + gain and (free_slots or picked):
+                        for s in picked:
+                            preempt_slot(s)
+                            victims.append(s)
+                            free_slots.append(s)
+                        page_budget += gain
                 if not free_slots or need > page_budget:
                     break                          # head-of-line: keep order
                 slot = free_slots.pop(0)
@@ -702,9 +949,24 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 slot_req[slot] = i
                 reserved[slot] = need
                 page_budget -= need
-                admitted_step.setdefault(i, step)
+                admitted_step.setdefault(i, step)  # first admission: TTFT
                 adm.append((slot, i))
-                prefill_tokens += prompts_np[i].size
+                adm_shared[slot] = sh_pages
+                slot_prompt[slot] = prompt_i
+                slot_shared[slot] = list(sh_pages)
+                slot_shareable[slot] = (index is not None
+                                        and plen_i + gen_i <= capacity)
+                reg_done[slot] = len(sh_pages)     # adopted: already indexed
+                sh_toks = len(sh_pages) * page_size
+                prefill_tokens += plen_i - sh_toks
+                shared_tokens += sh_toks
+                prefix_hits += bool(sh_pages)
+            if victims:
+                # the victims' rows are cleared before any release,
+                # adoption or admission, and before the next segment
+                mask = np.zeros((slots,), bool)
+                mask[victims] = True
+                state = preempt_rows(state, mask)
             if adm and to_release:
                 # deferred page hand-back, right before the pages are
                 # needed (the host reservation keeps the budget exact)
@@ -712,6 +974,11 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 mask[to_release] = True
                 caches = _release_slots(caches, mask)
                 to_release = []
+            if evict_batch:
+                # unpin evicted entries even when the head still waits, so
+                # the pin ledger and the refcounts never diverge
+                caches = _unpin_pages(caches, np.asarray(evict_batch,
+                                                         np.int32))
             if adm:
                 rounds += 1
                 prompts = np.zeros((slots, prompt_pad), np.int32)
@@ -721,21 +988,39 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 slot_ids = np.full((slots,), -1, np.int32)
                 req_gens = [None] * slots
                 for row, (slot, i) in enumerate(adm):
-                    p = prompts_np[i]
+                    p, g = pending[i]
                     prompts[row, :p.size] = p
                     lengths[row] = p.size
-                    gens[row] = requests[i].gen
-                    prios[row] = prio_req[i]
+                    gens[row] = g
+                    prios[row] = eff_prio(i, step)
                     slot_ids[row] = slot
                     plen_host[slot] = p.size
                     if sample:
+                        # a resumed request continues the stream it left
                         req_gens[row] = request_generator(seed, i, dev)
+                        if i in resume_gen:
+                            req_gens[row].set_state(resume_gen.pop(i))
                 if admission == "chunked":
+                    shared_rows = np.zeros((slots,), np.int32)
+                    if index is not None:
+                        adopt_pages = np.zeros((slots, pages_per_seq),
+                                               np.int32)
+                        adopt_n = np.zeros((slots,), np.int32)
+                        for row, (slot, i) in enumerate(adm):
+                            sh = adm_shared[slot]
+                            adopt_pages[row, :len(sh)] = sh
+                            adopt_n[row] = len(sh)
+                            shared_rows[row] = len(sh) * page_size
+                        if adopt_n.any():
+                            caches = _adopt_prefix_slots(
+                                caches, slot_ids, adopt_pages, adopt_n,
+                                shared_rows)
+                    # the segments prefill from the first unshared token
                     state = admit_chunked(state, slot_ids, prompts,
                                           lengths, gens, req_gens,
-                                          prios=prios)
-                    for slot, _ in adm:
-                        cursor_host[slot] = 0
+                                          shared=shared_rows, prios=prios)
+                    for row, (slot, _) in enumerate(adm):
+                        cursor_host[slot] = int(shared_rows[row])
                         prefilling[slot] = True
                 else:
                     t_stall = time.perf_counter()
@@ -744,9 +1029,9 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                                                 req_gens, prios)
                     stall_s += time.perf_counter() - t_stall
                 if audit is not None:
-                    audit(caches, list(slot_req), {})
+                    audit(caches, list(slot_req), dict(pins))
                 if debug:
-                    _check_paged_invariants(caches)
+                    _check_paged_invariants(caches, pins=dict(pins))
             if admission == "stall" and adm:
                 # admitted requests of one token, or whose first token is
                 # EOS, finish without decoding
@@ -766,7 +1051,13 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 continue
 
             # -- one segment: mixed while any slot is mid-prompt (sized to
-            # the chunks left), pure decode otherwise
+            # the chunks left), pure decode otherwise. Its wall time runs
+            # from before an injected sleep to the readback's sync
+            t_seg = time.perf_counter()
+            if injector is not None:
+                pause = injector.straggle(step)
+                if pause > 0.0:
+                    time.sleep(pause)              # injected straggler
             if any(prefilling):
                 # bounded below by the largest single prompt (one chunk
                 # per slot per step) and by the total prefill work over
@@ -781,6 +1072,7 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                 fn = seg_fn(min(segment, _next_pow2(max(need, 1))))
             else:
                 fn = seg_fn(0)
+            owner = [(slot_req[s], slot_pgen[s]) for s in range(slots)]
             toks, emits, _, state, caches, _ = fn(model, state, caches, temp)
             segments += 1
             step += segment
@@ -789,20 +1081,52 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             page_util.append((step, sum(reserved) / max(pool_pages, 1)))
             back = torch.cat([toks, emits.to(torch.int32),
                               state.done.to(torch.int32)[:, None],
-                              state.cursor[:, None]], dim=1).cpu().numpy()
+                              state.cursor[:, None], state.pgen[:, None]],
+                             dim=1).cpu().numpy()
             toks_np, emits_np = back[:, :segment], back[:, segment:2 * segment]
-            done_np, cursor_np = back[:, -2], back[:, -1]
+            done_np, cursor_np, pgen_np = back[:, -3], back[:, -2], back[:, -1]
+            if injector is not None and injector.want_crash_after(step):
+                raise SimulatedCrash(step, "mid-segment")
+            straggler_segs += watchdog.observe(
+                time.perf_counter() - t_seg).straggler
             now_s = time.perf_counter() - t0
             for s in range(slots):
-                if slot_req[s] is None:
-                    continue
-                i = slot_req[s]
+                i, gen_s = owner[s]
+                if i is None or int(pgen_np[s]) != gen_s:
+                    continue       # a victim's row: nothing to credit
                 row = toks_np[s][emits_np[s] != 0].tolist()
                 if row:
                     first_tok.setdefault(i, now_s)
                     emitted[i].extend(row)
                 cursor_host[s] = int(cursor_np[s])
                 prefilling[s] = cursor_host[s] < plen_host[s]
+            if index is not None:
+                # register every newly completed full page of prompt
+                # tokens (no-wrap donors never rewrite it), before the
+                # release below, so a request that just finished still
+                # donates; one readback of layer 0's page table serves
+                # every layer (the pools run in lockstep)
+                reg = []
+                for s in range(slots):
+                    if slot_req[s] is None or not slot_shareable[s]:
+                        continue
+                    full = min(cursor_host[s], plen_host[s]) // page_size
+                    if full > reg_done[s]:
+                        reg.append((s, full))
+                if reg:
+                    table = _first_paged(caches).page_table.cpu().numpy()
+                    new_pins = []
+                    for s, full in reg:
+                        # the slot's pending stream: a resumed slot's pages
+                        # hash under prompt + generated prefix, which a
+                        # later re-admission adopts back
+                        new_pins.extend(index.register(slot_prompt[s],
+                                                       table[s, :full]))
+                        reg_done[s] = full
+                    if new_pins:
+                        pins.update((p, 1) for p in new_pins)
+                        caches = _pin_pages(caches,
+                                            np.asarray(new_pins, np.int32))
             fin = [s for s in range(slots)
                    if slot_req[s] is not None and done_np[s]]
             for s in fin:
@@ -810,12 +1134,16 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             to_release.extend(fin)
 
     if debug:
-        _check_paged_invariants(caches)
+        _check_paged_invariants(caches, pins=dict(pins))
     wall = time.perf_counter() - t0
     return ServeResult(completed=completed, wall_s=wall, steps=step,
                        segments=segments, admission_rounds=rounds,
                        page_util=page_util, prefill_stall_s=stall_s,
                        prefill_tokens=prefill_tokens,
+                       shared_prefix_tokens=shared_tokens,
+                       prefix_hits=prefix_hits, preemptions=n_preempts,
+                       straggler_segments=straggler_segs,
+                       aging_steps=aging_steps, max_class=max_class,
                        capture_s=graphs.capture_s if graphs else 0.0,
                        graph_bytes=graphs.graph_bytes if graphs else 0,
                        alloc_bytes=graphs.alloc_bytes if graphs else 0)

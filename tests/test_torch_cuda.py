@@ -595,3 +595,64 @@ def test_cuda_fused_generate_counts_replays_and_equals_stepwise(kw):
         assert runs[loop].decode_steps == runs["stepwise"].decode_steps
         assert runs[loop].n_decode_tokens == runs["stepwise"].n_decode_tokens
     assert (runs["fused again"].capture_s > 0) == sampled
+
+
+@pytest.mark.cuda
+def test_cuda_captured_mixed_step_copies_shared_page_on_write():
+    """Copy-on-write inside a captured mixed step (smoke width, 32-token
+    pages, a 2-page window): slot 0 prefills 64 tokens and finishes, its
+    pages kept; slot 1 adopts its first page and prefills a 96-token
+    stream of the same leading tokens in 16-token chunks, so its third
+    step wraps onto the shared page and copies it. Replayed from a CUDA
+    graph (the copy in the second replay), every tensor of the carry and
+    the tokens equal the eager steps'; the copy happened (slot 1's first
+    page is its own, the shared page's refcount back to 1) and the
+    invariants hold in every layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
+                                          admit_chunked, make_serve_segment,
+                                          tree_leaves)
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.runtime.generate import _adopt_prefix_slots
+    cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    page, chunk = 32, 16
+    stream = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (1, 96)).astype(np.int32)
+
+    def seg(segment, graphs=None):
+        return make_serve_segment(cfg, segment=segment, sample=False,
+                                  eos_id=None, pad_id=0, chunk=chunk,
+                                  budget=chunk + 1, graphs=graphs)
+
+    def start():
+        caches = init_caches(cfg, 2, 2 * page, paged=True, page_size=page,
+                             num_pages=6, device="cuda")
+        state = admit_chunked(ServeSlotState.init(2, 96, "cuda"), [0],
+                              stream, [2 * page], [1])
+        _, _, _, state, caches, _ = seg(4)(model, state, caches, 1.0)
+        shared = caches[0]["mix"].page_table[0, 0].item()
+        caches = _adopt_prefix_slots(caches, [1], [[shared, 0]], [1],
+                                     [page])
+        state = admit_chunked(state, [1], stream, [96], [4], shared=[page])
+        return caches, state, shared
+
+    with torch.inference_mode():
+        (c_e, s_e, shared), (c_g, s_g, _) = start(), start()
+        step_e, step_g = seg(1), seg(1, CapturedSteps("cuda"))
+        for i in range(3):
+            t_e, _, _, s_e, c_e, _ = step_e(model, s_e, c_e, 1.0)
+            t_g, _, _, s_g, c_g, _ = step_g(model, s_g, c_g, 1.0)
+            torch.cuda.synchronize()
+            for a, b in zip(tree_leaves((c_e, s_e, t_e)),
+                            tree_leaves((c_g, s_g, t_g)), strict=True):
+                assert torch.equal(a, b), i
+    pool = c_g[0]["mix"]
+    table = pool.page_table.tolist()
+    assert table[0][0] == shared and table[1][0] != shared, table
+    assert pool.ref_count[shared].item() == 1
+    for c in c_g:
+        c["mix"].check_invariants()

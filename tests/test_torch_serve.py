@@ -24,8 +24,10 @@ and copy-back of the card's captured steps).
   (either admission); sampled outputs do not depend on arrival order and
   equal solo ``generate()`` with the request's generator (either
   admission); ``generate(paged=True)`` equals the ring path; the entry
-  points refuse to drop to the CPU; the options of later slices raise
-  ``NotImplementedError``.
+  points refuse to drop to the CPU; the journal options of a later slice
+  raise ``NotImplementedError``; the reference's refusals of an undersized
+  pool, unservable requests and configs and mismatched ``caches=`` hold
+  with its error text.
 
 The reference runs with an exact ``exp2`` (``tests/test_torch_kernels.py``,
 ROADMAP §C).
@@ -450,15 +452,75 @@ def test_serve_does_not_fall_back_to_cpu(weights, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    dict(prefix_sharing=True), dict(preemption=True), dict(faults=object()),
-    dict(aging_steps=4), dict(journal_dir="journal"),
-    dict(snapshot_every=2), dict(resume=True), dict(drain=object()),
-    dict(drain_timeout=1.0)],
+    dict(journal_dir="journal"), dict(snapshot_every=2), dict(resume=True),
+    dict(drain=object()), dict(drain_timeout=1.0)],
     ids=lambda o: next(iter(o)))
 def test_unported_serve_options_raise(weights, option):
     _, model = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
+    with pytest.raises(NotImplementedError, match="ROADMAP|not ported") as e:
         _serve(model, _trace(2, np.random.default_rng(0)), **option)
+    assert "journal, snapshot and recovery" in str(e.value)
+
+
+def test_generate_refuses_undersized_paged_pool(weights):
+    """``tests/test_serve_loop.py``: lockstep ``generate()`` refuses a pool
+    it could overdraw mid-loop, and runs an adequate one."""
+    _, model = weights
+    prompts = torch.from_numpy(np.random.default_rng(8).integers(
+        0, CFG.vocab_size, (2, 12)).astype(np.int32))
+    with pytest.raises(ValueError, match="num_pages"):
+        generate(model, CFG, prompts, 16, max_len=64, paged=True,
+                 page_size=16, num_pages=4, device="cpu")
+    res = generate(model, CFG, prompts, 4, max_len=32, paged=True,
+                   page_size=16, num_pages=5, device="cpu")
+    assert res.tokens.shape == (2, 4)
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(reqs=[(8, 500)], max_len=64, page_size=32, num_pages=2), "pages"),
+    (dict(reqs=[(80, 2)], max_len=64, page_size=32), "prompt length"),
+    (dict(reqs=[(4, 2)], slots=4, token_budget=2), "token_budget"),
+    (dict(reqs=[(4, 2)], admission="bogus"), "admission"),
+    (dict(reqs=[(4, 2)], cfg="softcap"), "paged decode"),
+], ids=["pool", "prompt", "budget", "admission", "softcap"])
+def test_serve_rejects_unservable_requests_and_configs(weights, case, match):
+    """``tests/test_serve_loop.py``'s refusals, with the reference's error
+    text: a request whose window needs more pages than the pool has, a
+    prompt longer than the window, a token budget below the slots, an
+    unknown admission, and a config (attention softcap, unpinned) that no
+    paged decode backend serves. (The reference's ``rglru`` case needs a
+    block the port does not build yet.)"""
+    _, model = weights
+    case = dict(case)
+    reqs = [ServeRequest(prompt=np.zeros(n, np.int32), gen=g, arrival=0)
+            for n, g in case.pop("reqs")]
+    cfg = dataclasses.replace(CFG, attn_softcap=30.0, attention_backend="") \
+        if case.pop("cfg", None) else CFG
+    kw = dict(slots=2, segment=4, max_len=MAX_LEN, device="cpu")
+    with pytest.raises(ValueError, match=match):
+        serve_continuous(model, cfg, reqs, **{**kw, **case})
+
+
+def test_paged_caches_validation_names_fields(weights):
+    """``tests/test_serve_loop.py``: reused paged ``caches=`` must match the
+    call's batch (named) and max_len (the ``page_table`` field named);
+    pool and page size are the caller's choice."""
+    _, model = weights
+    prompts = torch.from_numpy(np.random.default_rng(9).integers(
+        0, CFG.vocab_size, (2, 12)).astype(np.int32))
+    kw = dict(max_len=MAX_LEN, device="cpu")
+
+    def pool(batch, max_len=MAX_LEN, **more):
+        return init_caches(CFG, batch, max_len, paged=True, page_size=64,
+                           device="cpu", **more)
+    assert generate(model, CFG, prompts, 4, caches=pool(2),
+                    **kw).tokens.shape == (2, 4)
+    with pytest.raises(ValueError, match="batch"):
+        generate(model, CFG, prompts, 4, caches=pool(3), **kw)
+    with pytest.raises(ValueError, match="page_table"):
+        generate(model, CFG, prompts, 4, caches=pool(2, MAX_LEN + 64), **kw)
+    assert generate(model, CFG, prompts, 4, caches=pool(2, num_pages=5),
+                    **kw).tokens.shape == (2, 4)
 
 
 def test_serve_cli_continuous_on_cpu():
