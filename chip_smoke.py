@@ -86,7 +86,26 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    and steps must equal the greedy serve's and each request's tokens
    solo ``generate()`` drawing from the request's generator. Then
    profile a serve of the trace's first two requests (device busy
-   share, kernels launched).
+   share, kernels launched). Then the trace behind a shared 256-token
+   system prefix, sharing on and off; the overload serve (classes,
+   preemption, aging, a fault plan; greedy, then its first six
+   requests sampled); a captured mixed step that copies a shared page on
+   write. Then crash-safe serving: (i) the chunked serve with a
+   write-ahead journal and without, in two on/off pairs, equal tokens,
+   walls and tok/s of each; (ii) the prefixed trace with sharing,
+   preemption and a snapshot of the pools and the prefix index every 4
+   segments through ``serve_with_recovery``, crashed at a round boundary
+   after a snapshot and then mid-segment (after the readback, before the
+   journal flush), the third attempt warm-restored from the snapshot:
+   two crashes, the calm tokens, the first B3 and B4p calls after each
+   restore held to their plain versions, the paged kernels' launches
+   counted over the three attempts, the snapshot's bytes and the
+   caller's time per snapshot, ``recovery_s`` and the recapture time;
+   (iii) a byte of the newest snapshot flipped: a cold start with the
+   calm tokens; (iv) the first six requests sampled, crashed
+   mid-segment and recovered from their journaled CUDA generator states:
+   the calm sampled tokens; (v) a drain at step 48, then a resume: the
+   union of both runs is the calm tokens, nothing served twice.
 6. Time each kernel on the main path's inputs with CUDA events (median):
    the bound kernel alone, launched back to back (``ms``) and from a
    CUDA graph (``graph_ms``, device time without the host's work per
@@ -204,6 +223,13 @@ SYSTEM_PREFIX = 256
 OVERLOAD_PLAN = dict(seed=0, kill_steps=(24,), pressure_steps=(16,),
                      pressure_pages=10, straggle_steps=(64,), straggle_s=0.05)
 AGING_STEPS = 32
+# crash-safe serving: a snapshot every 4 segments (64 steps); attempt 1 of
+# the recovered prefix serve crashes at the round of step 80 (after its
+# first snapshot), attempt 2 after the readback of step 80 (after its
+# own); the drain stops admitting at step 48
+SNAPSHOT_EVERY = 4
+CRASHES = (80, 80)
+DRAIN_AFTER = 48
 # phase 6: the stall serve's ragged B2 prefill and decode-shaped B3 call
 STALL_PREFILL = "ita_attention_onepass/stall_prefill"
 STALL_DECODE = "ita_attention_onepass_paged/stall_decode"
@@ -1169,7 +1195,9 @@ def full_width_serve(model, cfg, checks):
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
             "ttft_p50": res.ttft_quantile(0.5),
             "ttft_p90": res.ttft_quantile(0.9),
-            "mean_ms": served_mean, "stall": stall}, launches, captured
+            "mean_ms": served_mean, "stall": stall,
+            "tokens": {c.index: c.tokens for c in res.completed}}, \
+        launches, captured
 
 
 def sampled_serve(model, cfg, reqs, greedy, launches, max_len):
@@ -1308,10 +1336,10 @@ def prefixed_trace(cfg, reqs):
 
 
 def serve_kw(**more):
-    return dict(slots=SERVE["slots"], segment=SERVE["segment"],
-                page_size=SERVE["page_size"], num_pages=SERVE["num_pages"],
-                chunk_size=SERVE["chunk_size"], debug_invariants=True,
-                device=DEV, **more)
+    return {**dict(slots=SERVE["slots"], segment=SERVE["segment"],
+                   page_size=SERVE["page_size"], num_pages=SERVE["num_pages"],
+                   chunk_size=SERVE["chunk_size"], debug_invariants=True,
+                   device=DEV), **more}
 
 
 def hold_to(res, want, label):
@@ -1481,7 +1509,7 @@ def overload_serve(model, cfg, preqs, solo, max_len, checks):
         f"generate() drawing from its generator; {serve_line(sampled)}; "
         f"B3 over adopted pages ({what}) bit-exact vs plain; {card_line()}")
     return {"tok_s": res.tok_s, "wall_s": res.wall_s,
-            "preemptions": res.preemptions}
+            "preemptions": res.preemptions, "sampled_tokens": gens}
 
 
 def first_adopted_call(rec, adopted, n_layers):
@@ -1589,6 +1617,261 @@ def cow_step(model, cfg, checks):
         f"tokens) over 3 steps; layer 0's B3 call after the copy bit-exact "
         f"vs plain; invariants held in all {n_layers} layers; "
         f"{card_line()}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5, crash-safe serving: journal, snapshots, recovery, drain
+# ---------------------------------------------------------------------------
+
+def recorded_after_restore(names):
+    """``Recorder``s in place of the ops wrappers ``names`` that keep the
+    first call after every ``Checkpointer.restore`` (the warm restore's
+    first read of the restored pools). Returns ``(recs, undo)``."""
+    from repro_torch.checkpoint import checkpointing as CK
+    recs = recording(names, keep=())
+    restore = CK.Checkpointer.restore
+
+    def marked(self, *args, **kw):
+        out = restore(self, *args, **kw)
+        for rec in recs.values():
+            rec.keep.add(rec.calls)
+        return out
+    CK.Checkpointer.restore = marked
+
+    def undo():
+        CK.Checkpointer.restore = restore
+        unrecord(recs)
+    return recs, undo
+
+
+def timed_journal():
+    """``ServeJournal.flush`` and ``close`` wrapped to sum their wall time
+    (``close`` holds the last flush and the final fsync). Returns
+    ``(spent, undo)``, ``spent`` mapping each name to [calls, seconds]."""
+    from repro_torch.runtime.journal import ServeJournal
+    spent = {"flush": [0, 0.0], "close": [0, 0.0]}
+    originals = {name: getattr(ServeJournal, name) for name in spent}
+
+    def timed(name):
+        def run(self):
+            t = time.perf_counter()
+            try:
+                return originals[name](self)
+            finally:
+                spent[name][0] += 1
+                spent[name][1] += time.perf_counter() - t
+        return run
+    for name in spent:
+        setattr(ServeJournal, name, timed(name))
+    return spent, lambda: [setattr(ServeJournal, name, fn)
+                           for name, fn in originals.items()]
+
+
+def journal_overhead(model, cfg, reqs, want):
+    """The phase's chunked serve with a journal (in a temporary directory)
+    and without, in two pairs (on, off; off, on): tokens equal the
+    journal-off serve's; walls and tok/s of each, the journal-on overhead
+    from the fastest of each side, and the wall the journal's own writes
+    took on the caller."""
+    import tempfile
+
+    from repro_torch.runtime.generate import serve_continuous
+    runs = {"on": [], "off": []}
+    spent, undo = timed_journal()
+    try:
+        for side in ("on", "off", "off", "on"):
+            with tempfile.TemporaryDirectory() as d:
+                res = serve_continuous(
+                    model, cfg, reqs, **serve_kw(
+                        debug_invariants=False,
+                        journal_dir=d if side == "on" else None))
+            if len(res.completed) != len(reqs):
+                raise AssertionError(f"journal {side}: {len(res.completed)} "
+                                     f"of {len(reqs)} requests completed")
+            hold_to(res, want, f"journal-{side} serve vs the chunked serve")
+            runs[side].append(res)
+    finally:
+        undo()
+    best = {side: min(r.wall_s for r in rs) for side, rs in runs.items()}
+    for side, rs in runs.items():
+        log(f"[journal] journal {side}: walls "
+            f"{', '.join(f'{r.wall_s:.3f}' for r in rs)} s, tok/s "
+            f"{', '.join(f'{r.tok_s:.2f}' for r in rs)}, capture "
+            f"{', '.join(f'{r.capture_s:.3f}' for r in rs)} s; "
+            f"{card_line()}")
+    log(f"[journal] {len(reqs)} requests, every token equal with the journal "
+        f"on and off; journal-on overhead (fastest walls) "
+        f"{(best['on'] / best['off'] - 1) * 100:.2f}%; the journal's writes "
+        f"on the caller over both journal-on serves: {spent['flush'][0]} "
+        f"flushes in {spent['flush'][1] * 1e3:.3f} ms, {spent['close'][0]} "
+        f"closes (last flush and fsync) in {spent['close'][1] * 1e3:.3f} "
+        f"ms; {card_line()}")
+    return best
+
+
+def crash_and_warm_restore(model, cfg, preqs, solo, checks):
+    """The prefixed trace, sharing and preemption on, a snapshot every
+    ``SNAPSHOT_EVERY`` segments, through ``serve_with_recovery``: attempt
+    1 crashes at the round of step ``CRASHES[0]`` (after a snapshot),
+    attempt 2 after the readback of step ``CRASHES[1]`` (after its own
+    snapshot, before the flush), attempt 3 runs clean from a warm restore.
+    Tokens equal the calm prefix serve's (solo ``generate()``); B3's and
+    B4p's first calls after each restore are held to their plain
+    versions; the paged kernels ran (counters zeroed just before, read
+    just after)."""
+    import tempfile
+
+    from repro_torch.runtime.fault_tolerance import ServeFaultPlan
+    from repro_torch.runtime.journal import serve_with_recovery
+    plans = (ServeFaultPlan(crash_steps=(CRASHES[0],)),
+             ServeFaultPlan(crash_after_steps=(CRASHES[1],)))
+    recs, undo = recorded_after_restore(PAGED)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            reset_launches()
+            res, crashes = serve_with_recovery(
+                model, cfg, preqs, journal_dir=d, plans=plans,
+                **serve_kw(prefix_sharing=True, preemption=True,
+                           snapshot_every=SNAPSHOT_EVERY))
+            launches = read_launches()
+    finally:
+        undo()
+    if crashes != 2 or not res.restored_from_snapshot \
+            or len(res.completed) != len(preqs):
+        raise AssertionError(f"crash and warm restore: {crashes} crashes, "
+                             f"restored {res.restored_from_snapshot}, "
+                             f"{len(res.completed)} completed")
+    if any(launches[name] <= 0 for name in PAGED):
+        raise AssertionError(f"recovered serve: a paged kernel did not run: "
+                             f"{launches}")
+    hold_to(res, solo, "recovered prefix serve vs the calm prefix serve")
+    for name, rec in recs.items():
+        if not rec.kept:
+            raise AssertionError(f"{name}: no call after a restore kept")
+        for idx in sorted(rec.kept):
+            check_recorded(checks, name, rec, idx,
+                           f"first call after a warm restore (call {idx})")
+    per_snap = res.snapshot_s / max(res.snapshots, 1)
+    log(f"[recovery] plans {[p.crash_steps or p.crash_after_steps for p in plans]}"
+        f" (round boundary, then mid-segment): {crashes} crashes survived, "
+        f"warm restore from the snapshot of the pools and the prefix index; "
+        f"every token equal to the calm prefix serve; the first B3 and B4p "
+        f"calls after each restore bit-exact vs plain; launches {launches}")
+    log(f"[recovery] last attempt: recovery_s {res.recovery_s:.4f} (replay "
+        f"+ restore), recapture (capture_s) {res.capture_s:.3f} s, "
+        f"replayed_tokens {res.replayed_tokens}, {res.snapshots} snapshots "
+        f"of {res.snapshot_bytes} bytes, caller blocked "
+        f"{per_snap * 1e3:.2f} ms per snapshot (device->host copy, crc32); "
+        f"{serve_line(res)}; {card_line()}")
+    return {"recovery_s": res.recovery_s, "capture_s": res.capture_s,
+            "snapshot_bytes": res.snapshot_bytes, "snapshot_ms": per_snap * 1e3,
+            "replayed_tokens": res.replayed_tokens}
+
+
+def corrupt_snapshot(model, cfg, preqs, solo):
+    """The first six prefixed requests, sharing on, a snapshot every
+    ``SNAPSHOT_EVERY`` segments, crashed at the round of step
+    ``CRASHES[0]``; a byte of the newest snapshot's first leaf flipped;
+    the resume starts cold (``restored_from_snapshot`` false) with the
+    calm tokens."""
+    import os
+    import tempfile
+
+    from repro_torch.runtime.fault_tolerance import ServeFaultPlan
+    from repro_torch.runtime.fault_tolerance import SimulatedCrash
+    from repro_torch.runtime.generate import serve_continuous
+    kw = serve_kw(prefix_sharing=True, snapshot_every=SNAPSHOT_EVERY)
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            serve_continuous(model, cfg, preqs[:6], journal_dir=d,
+                             faults=ServeFaultPlan(crash_steps=(CRASHES[0],)),
+                             **kw)
+            raise AssertionError("corrupt snapshot: the serve did not crash")
+        except SimulatedCrash:
+            pass
+        snaps = sorted(os.listdir(os.path.join(d, "snapshots")))
+        leaf = os.path.join(d, "snapshots", snaps[-1], "leaf_00000.npy")
+        raw = bytearray(open(leaf, "rb").read())
+        raw[-1] ^= 0xFF
+        open(leaf, "wb").write(bytes(raw))
+        res = serve_continuous(model, cfg, preqs[:6], journal_dir=d,
+                               resume=True, **kw)
+    if not res.recovered or res.restored_from_snapshot \
+            or len(res.completed) != 6:
+        raise AssertionError(f"corrupt snapshot: recovered {res.recovered}, "
+                             f"restored {res.restored_from_snapshot}")
+    hold_to(res, solo, "cold start after a corrupt snapshot")
+    log(f"[recovery] corrupt snapshot ({snaps[-1]}, a byte of leaf 0 "
+        f"flipped): cold start from the journal, every token equal; "
+        f"replayed_tokens {res.replayed_tokens}, recovery_s "
+        f"{res.recovery_s:.4f}; {serve_line(res)}; {card_line()}")
+
+
+def sampled_recovery(model, cfg, preqs, want):
+    """The first six prefixed requests sampled (temperature 0.8, seed 11;
+    eager steps), sharing on, snapshots, crashed after the readback of
+    step ``CRASHES[1]`` and recovered: tokens equal the calm sampled
+    serve's (the journaled states of the requests' CUDA generators)."""
+    import tempfile
+
+    from repro_torch.runtime.fault_tolerance import ServeFaultPlan
+    from repro_torch.runtime.journal import serve_with_recovery
+    with tempfile.TemporaryDirectory() as d:
+        res, crashes = serve_with_recovery(
+            model, cfg, preqs[:6], journal_dir=d,
+            plans=(ServeFaultPlan(crash_after_steps=(CRASHES[1],)),),
+            **serve_kw(prefix_sharing=True, snapshot_every=SNAPSHOT_EVERY,
+                       temperature=0.8, seed=11))
+    if crashes != 1 or len(res.completed) != 6:
+        raise AssertionError(f"sampled recovery: {crashes} crashes, "
+                             f"{len(res.completed)} completed")
+    hold_to(res, want, "sampled recovery vs the calm sampled serve")
+    log(f"[recovery] sampled (temperature 0.8, seed 11), requests 0-5, "
+        f"crashed after the readback of step {CRASHES[1]}: every token "
+        f"equal to the calm sampled serve; restored_from_snapshot "
+        f"{res.restored_from_snapshot}, replayed_tokens "
+        f"{res.replayed_tokens}; {serve_line(res)}; {card_line()}")
+
+
+def drain_and_resume(model, cfg, preqs, solo):
+    """The first six prefixed requests drained at step ``DRAIN_AFTER`` (no
+    more admissions; in-flight requests finish), then resumed: each run's
+    tokens equal the calm ones, together they cover every request, and
+    the resume serves none twice."""
+    import tempfile
+
+    from repro_torch.runtime.generate import serve_continuous
+    from repro_torch.runtime.journal import ServeDrain
+    kw = serve_kw(prefix_sharing=True)
+    with tempfile.TemporaryDirectory() as d:
+        drained = serve_continuous(model, cfg, preqs[:6], journal_dir=d,
+                                   drain=ServeDrain(after_steps=DRAIN_AFTER),
+                                   **kw)
+        rest = serve_continuous(model, cfg, preqs[:6], journal_dir=d,
+                                resume=True, **kw)
+    done = {c.index for c in drained.completed}
+    again = {c.index for c in rest.completed if not c.replayed}
+    if not drained.drained or not 0 < len(done) < 6 \
+            or len(rest.completed) != 6 or again & done:
+        raise AssertionError(f"drain: drained {drained.drained}, done "
+                             f"{sorted(done)}, served again {sorted(again)}")
+    hold_to(drained, solo, "drained serve")
+    hold_to(rest, solo, "resume after the drain")
+    log(f"[recovery] drain at step {DRAIN_AFTER}: requests {sorted(done)} "
+        f"finished in {drained.steps} steps, the resume served "
+        f"{sorted(again)} (replayed_tokens {rest.replayed_tokens}); every "
+        f"token equal to the calm serve; {card_line()}")
+
+
+def recovery_phase(model, cfg, reqs, chunked, preqs, solo, sampled, checks):
+    """Crash-safe serving at full width (module docstring, phase 5)."""
+    best = journal_overhead(model, cfg, reqs, chunked)
+    out = crash_and_warm_restore(model, cfg, preqs, solo, checks)
+    corrupt_snapshot(model, cfg, preqs, solo)
+    sampled_recovery(model, cfg, preqs, sampled)
+    drain_and_resume(model, cfg, preqs, solo)
+    return {**out, "journal_on_wall_s": best["on"],
+            "journal_off_wall_s": best["off"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2304,6 +2587,8 @@ def main():
     preqs, solo, max_len = prefix_serve(model, cfg, serve_trace(cfg))
     overload = overload_serve(model, cfg, preqs, solo, max_len, checks)
     cow_step(model, cfg, checks)
+    recovery = recovery_phase(model, cfg, serve_trace(cfg), served["tokens"],
+                              preqs, solo, overload["sampled_tokens"], checks)
     # ring and twopass kernels: the generate() runs; paged kernels: the
     # serve; the softmax: its run on run (c)'s A
     rows = time_kernels(captured, softmax_inputs,
@@ -2324,7 +2609,12 @@ def main():
         f"tok/s, wall {served['stall']['wall_s']:.3f} s, prefill stall "
         f"{served['stall']['prefill_stall_s']:.3f} s; overload serve "
         f"{overload['tok_s']:.2f} tok/s, wall {overload['wall_s']:.3f} s, "
-        f"{overload['preemptions']} preemptions; stepwise decode "
+        f"{overload['preemptions']} preemptions; journal on/off wall "
+        f"{recovery['journal_on_wall_s']:.3f}/"
+        f"{recovery['journal_off_wall_s']:.3f} s, snapshot "
+        f"{recovery['snapshot_bytes']} bytes, {recovery['snapshot_ms']:.2f} "
+        f"ms on the caller, recovery_s {recovery['recovery_s']:.4f}, "
+        f"recapture {recovery['capture_s']:.3f} s; stepwise decode "
         f"(a) (b) (c) {', '.join(f'{x:.1f}' for x in metrics['stepwise_decode_tok_s'])}"
         f" tok/s; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")

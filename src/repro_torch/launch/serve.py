@@ -31,13 +31,22 @@ shared N-token prefix to every prompt and ``--prefix-sharing`` shares
 its pages through the pool; ``--priority-classes N`` draws each
 request's SLO class from [0, N), ``--preemption`` evicts lower classes
 under pool or slot pressure, ``--overload`` multiplies the arrival rate
-and ``--aging-steps`` turns on starvation aging. The JAX CLI's journal
-options come with a later slice of the port.
+and ``--aging-steps`` turns on starvation aging. ``--journal-dir DIR``
+journals the serve (a write-ahead log of admissions, emitted tokens and
+completions, flushed at every segment boundary) and ``--snapshot-every
+N`` snapshots the paged pools and the prefix index every N segments
+into ``DIR/snapshots``; after a crash (``kill -9``) the same command
+with ``--resume`` finishes the trace with the tokens the serve would
+have given uncrashed. With a journal, SIGTERM drains the serve: no more
+admissions, in-flight requests finish (or, past ``--drain-timeout``
+seconds, stop at the next boundary with their progress journaled), and
+``--resume`` serves the rest.
 """
 
 from __future__ import annotations
 
 import argparse
+import signal
 
 import numpy as np
 import torch
@@ -49,6 +58,7 @@ from repro_torch.models import init_model
 from repro_torch.models.attention import make_spec
 from repro_torch.runtime.generate import (ServeRequest, generate,
                                           serve_continuous)
+from repro_torch.runtime.journal import ServeDrain
 
 
 def main(argv=None):
@@ -125,6 +135,29 @@ def main(argv=None):
     ap.add_argument("--aging-steps", type=int, default=None,
                     help="starvation aging: a waiting request's class "
                          "grows by one every N virtual steps")
+    ap.add_argument("--journal-dir", default=None,
+                    help="write-ahead request journal and snapshots here "
+                         "(--continuous): admissions, emitted tokens and "
+                         "completions are journaled at every segment "
+                         "boundary (group commit, bounded fsync lag), so a "
+                         "crashed serve resumes with equal tokens under "
+                         "--resume")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="snapshot the paged pools and the prefix index "
+                         "every N segments into <journal-dir>/snapshots "
+                         "(0 = off); a usable snapshot warm-starts "
+                         "--resume, a corrupt one falls back to a cold "
+                         "start from the journal")
+    ap.add_argument("--resume", action="store_true",
+                    help="replay <journal-dir>/journal.jsonl before "
+                         "serving: finished requests return without being "
+                         "served twice, unfinished ones resume from their "
+                         "last journaled boundary (equal tokens)")
+    ap.add_argument("--drain-timeout", type=float, default=None,
+                    help="on SIGTERM, stop admitting and let in-flight "
+                         "requests finish; after this many seconds stop at "
+                         "the next segment boundary with their progress "
+                         "journaled for --resume")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -191,15 +224,27 @@ def _continuous(args, cfg, model, dev):
         arrival=int(t),
         priority=int(rng.integers(0, max(1, args.priority_classes))))
         for t in arrivals]
-    res = serve_continuous(
-        model, cfg, reqs, slots=args.batch, segment=args.segment,
-        max_len=args.system_prompt_len + args.prompt_len + args.gen,
-        page_size=args.page_size, temperature=args.temperature,
-        seed=args.seed if args.temperature > 0 else None,
-        eos_id=args.eos_id, admission=args.admission,
-        chunk_size=args.chunk_size, token_budget=args.token_budget,
-        prefix_sharing=args.prefix_sharing, preemption=args.preemption,
-        aging_steps=args.aging_steps, device=dev)
+    drain = old_handler = None
+    if args.journal_dir is not None:
+        drain = ServeDrain()
+        old_handler = signal.signal(signal.SIGTERM,
+                                    lambda *_: drain.request())
+    try:
+        res = serve_continuous(
+            model, cfg, reqs, slots=args.batch, segment=args.segment,
+            max_len=args.system_prompt_len + args.prompt_len + args.gen,
+            page_size=args.page_size, temperature=args.temperature,
+            seed=args.seed if args.temperature > 0 else None,
+            eos_id=args.eos_id, admission=args.admission,
+            chunk_size=args.chunk_size, token_budget=args.token_budget,
+            prefix_sharing=args.prefix_sharing, preemption=args.preemption,
+            journal_dir=args.journal_dir,
+            snapshot_every=args.snapshot_every, resume=args.resume,
+            drain=drain, drain_timeout=args.drain_timeout,
+            aging_steps=args.aging_steps, device=dev)
+    finally:
+        if drain is not None:
+            signal.signal(signal.SIGTERM, old_handler)
     util = max((u for _, u in res.page_util), default=0.0)
     print(f"[serve] arch={cfg.name} continuous slots={args.batch} "
           f"segment={args.segment} page_size={args.page_size} "
@@ -220,6 +265,15 @@ def _continuous(args, cfg, model, dev):
               f"{len(res.completed)} hits ({res.prefix_hit_rate:.0%}), "
               f"{res.shared_prefix_tokens} prompt tokens adopted from "
               f"shared pages ({res.prefill_tokens} prefilled)")
+    if args.journal_dir is not None:
+        n_rep = sum(1 for c in res.completed if c.replayed)
+        print(f"[serve] journal: dir={args.journal_dir} "
+              f"recovered={res.recovered} "
+              f"snapshot_restore={res.restored_from_snapshot} "
+              f"replayed {n_rep} requests / {res.replayed_tokens} "
+              f"tokens, recovery {res.recovery_s * 1e3:.0f} ms, "
+              f"snapshot {res.snapshot_bytes / 2**20:.1f} MiB"
+              + (" [drained]" if res.drained else ""))
     if args.preemption or args.priority_classes > 1:
         print(f"[serve] preemptions: {res.preemptions}")
         summary = res.class_summary()

@@ -300,9 +300,11 @@ class ServeRequest:
     generated token including the one sampled from the prompt.
     ``priority`` is the request's SLO class (higher = more urgent): it
     orders admission and the mixed steps' prompt-chunk budget, and picks
-    preemption victims (strictly lower classes only). ``request_id``
-    names the request for the journal (ROADMAP, "Journal, snapshot,
-    recovery and drain")."""
+    preemption victims (strictly lower classes only). ``request_id`` is
+    the request's stable identity in the journal: re-submitting the same
+    id after a crash dedupes against it (a completed request is replayed,
+    not served twice). Unset, it is ``req-<trace index>``; ids are unique
+    per trace."""
     prompt: Any                      # (S,) int token ids
     gen: int
     arrival: int = 0
@@ -322,6 +324,7 @@ class CompletedRequest:
     first_token_s: float = 0.0       # wall clock of the first emitted token
     priority: int = 0                # the request's SLO class
     preemptions: int = 0             # times this request was evicted
+    replayed: bool = False           # rebuilt from the journal, not served
 
     @property
     def latency_s(self) -> float:
@@ -348,6 +351,15 @@ class ServeResult:
     prefix_hits: int = 0             # admissions that adopted >= 1 page
     preemptions: int = 0             # victim evictions (fault kills too)
     straggler_segments: int = 0      # segments the watchdog flagged slow
+    drained: bool = False            # a graceful drain cut the serve short
+    recovered: bool = False          # this serve resumed from a journal
+    restored_from_snapshot: bool = False   # warm pool/index restore hit
+    replayed_tokens: int = 0         # tokens recovered from the journal
+    snapshot_bytes: int = 0          # last snapshot's leaf bytes
+    recovery_s: float = 0.0          # wall spent in replay + restore
+    snapshots: int = 0               # snapshots taken
+    snapshot_s: float = 0.0          # caller wall blocked in them (device
+                                     # -> host copy, checksums)
     aging_steps: int | None = None   # starvation-aging period (None = off)
     max_class: int = 0               # highest SLO class in the trace
     capture_s: float = 0.0           # of wall_s: capturing the serve steps
@@ -615,32 +627,46 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     rows back to the host to draw from their generators, so sampled
     serving runs its steps eagerly.
 
-    The journal options (``journal_dir``, ``snapshot_every``, ``resume``,
-    ``drain``, ``drain_timeout``) come with a later slice and raise
-    ``NotImplementedError``. ``device`` (default the card; raises when
-    CUDA is missing) must hold the model.
+    **Crash safety** (``runtime.journal``): ``journal_dir`` turns on a
+    write-ahead request journal — admissions, each request's emitted
+    tokens and (sampling) generator state, flushed at every segment
+    boundary, and completions — and, with ``snapshot_every=N``, a
+    ``Checkpointer`` snapshot of the paged pools and the prefix index
+    every N segments. ``resume=True`` replays the journal first:
+    completed requests (matched by ``ServeRequest.request_id``) come back
+    as replayed ``CompletedRequest``s without being served twice, and
+    every unfinished request is rebuilt as a pending ``prompt ++
+    emitted`` stream with its journaled generator state and re-admitted
+    through the preemption resume, so greedy and sampled tokens equal a
+    serve that never crashed. A usable snapshot (checksums, version and
+    geometry checked, every row released, the allocator invariants
+    checked against the pins) warm-starts the pools and the prefix index
+    before the first segment, so the captured steps bind to the restored
+    pools; any snapshot problem falls back to a cold start from the
+    journal, never to other tokens. ``drain`` (a ``journal.ServeDrain``)
+    stops admission and lets in-flight work finish — or, past
+    ``drain_timeout`` seconds, stops at the next boundary with its
+    progress journaled — then takes a final snapshot. ``device``
+    (default the card; raises when CUDA is missing) must hold the model.
     """
     from repro_torch.attention import PrefixIndex
+    from repro_torch.checkpoint.checkpointing import (CheckpointCorrupt,
+                                                      Checkpointer)
     from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
                                           admit_chunked, admit_stall,
                                           aged_priority, make_prefill_step,
                                           make_serve_segment, preempt_rows,
                                           request_generator,
-                                          sample_token_rows)
+                                          sample_token_rows, tree_leaves)
     from repro_torch.models import init_caches
     from repro_torch.runtime.fault_tolerance import (ServeFaultInjector,
                                                      SimulatedCrash)
+    from repro_torch.runtime.journal import (JOURNAL_VERSION, ServeJournal,
+                                             check_fingerprint,
+                                             generator_state, prompt_digest,
+                                             state_hex)
     from repro_torch.runtime.watchdog import StragglerWatchdog
 
-    # the JAX package's journal options: a later slice ports them
-    journal = dict(journal_dir=journal_dir, snapshot_every=snapshot_every,
-                   resume=resume, drain=drain, drain_timeout=drain_timeout)
-    for name, value in journal.items():
-        if value not in (None, False, 0):
-            raise NotImplementedError(
-                f"serve_continuous({name}=...) is not ported yet: it comes "
-                f"with the journal, snapshot and recovery slice (ROADMAP, "
-                f"\"Journal, snapshot, recovery and drain\")")
     if admission not in ADMISSIONS:
         raise ValueError(f"admission={admission!r} not in {ADMISSIONS}")
     if (preemption or faults is not None) and admission != "chunked":
@@ -695,7 +721,101 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     resumable = [p.size + r.gen <= capacity
                  for p, r in zip(prompts_np, requests, strict=True)]
     max_class = max(prio_req, default=0)
-    if may_preempt:
+
+    # -- write-ahead journal and its replay (runtime.journal) -------------
+    journal = fingerprint = None
+    seed_emitted, seed_gens = {}, {}     # index -> journaled tokens, state
+    replayed_completed, done_replayed = [], set()
+    replayed_tokens, recovered, recovery_s = 0, False, 0.0
+    rids = [r.request_id if r.request_id is not None else f"req-{i:06d}"
+            for i, r in enumerate(requests)]
+    if len(set(rids)) != len(rids):
+        dup = sorted({r for r in rids if rids.count(r) > 1})
+        raise ValueError(f"duplicate request_id(s): {dup} — journal "
+                         f"dedupe needs ids unique per trace")
+    if journal_dir is not None:
+        t_rec = time.perf_counter()
+        os.makedirs(journal_dir, exist_ok=True)
+        jpath = os.path.join(journal_dir, "journal.jsonl")
+        fingerprint = {
+            "journal_version": JOURNAL_VERSION, "arch": cfg.name,
+            "page_size": int(page_size), "max_len": int(max_len),
+            "temperature": float(temperature), "sample": bool(sample),
+            "eos_id": eos_id, "pad_id": int(pad_id),
+            # a generator's state is its device type's (mt19937 on the
+            # CPU, a Philox seed and offset on the card), and the two draw
+            # other tokens: a resume across them is refused
+            "key": [int(seed), dev.type] if sample else None}
+        jreplay = None
+        if resume and os.path.exists(jpath) and os.path.getsize(jpath):
+            jreplay = ServeJournal.replay(jpath)
+            if jreplay.header is None:
+                raise ValueError(
+                    f"{jpath}: no intact header record — not a serve "
+                    f"journal (or its very first write was torn)")
+            check_fingerprint(jreplay.header["fingerprint"], fingerprint)
+            recovered = True
+        journal = ServeJournal(jpath, fingerprint=fingerprint,
+                               fresh=jreplay is None)
+        for i, r in enumerate(requests):
+            digest = prompt_digest(prompts_np[i])
+            sub = jreplay.submits.get(rids[i]) if jreplay else None
+            if sub is not None:
+                # the same id must mean the same request: a digest or
+                # shape mismatch is id reuse, not a resume
+                if (sub["digest"] != digest or sub["gen"] != int(r.gen)
+                        or sub["i"] != i):
+                    raise ValueError(
+                        f"request_id {rids[i]!r} reused for a different "
+                        f"request (journal has index {sub['i']}, gen "
+                        f"{sub['gen']}, digest {sub['digest']})")
+            else:
+                journal.append({"t": "submit", "rid": rids[i], "i": i,
+                                "digest": digest, "gen": int(r.gen),
+                                "arrival": int(r.arrival),
+                                "priority": prio_req[i]})
+            if jreplay is None:
+                continue
+            toks = [int(x) for x in jreplay.emitted.get(rids[i], [])]
+            comp = jreplay.completes.get(rids[i])
+            # a torn flush can keep the complete record but lose the same
+            # boundary's progress, so the journaled token count decides: a
+            # short stream resumes and generates its tail again
+            needed = int(comp["n"]) if comp is not None else int(r.gen)
+            if len(toks) >= needed:
+                # finished before the crash: replayed, never served twice
+                comp = comp or {}
+                replayed_tokens += needed
+                replayed_completed.append(CompletedRequest(
+                    index=i, arrival=int(r.arrival),
+                    admitted_step=int(comp.get("admitted_step", 0)),
+                    finished_step=int(comp.get("finished_step", 0)),
+                    arrived_s=float(comp.get("arrived_s", 0.0)),
+                    finished_s=float(comp.get("finished_s", 0.0)),
+                    first_token_s=float(comp.get("first_token_s", 0.0)),
+                    tokens=np.asarray(toks[:needed], np.int32),
+                    priority=prio_req[i],
+                    preemptions=int(comp.get("preemptions", 0)),
+                    replayed=True))
+                done_replayed.add(i)
+            elif toks and resumable[i] \
+                    and (not sample or rids[i] in jreplay.keys):
+                # unfinished: resumed as if preempted at its last
+                # journaled boundary, with the budget left and its
+                # generator state
+                pending[i] = (np.concatenate([prompts_np[i],
+                                              np.asarray(toks, np.int32)]),
+                              int(r.gen) - len(toks))
+                seed_emitted[i] = toks
+                replayed_tokens += len(toks)
+                if sample:
+                    seed_gens[i] = generator_state(jreplay.keys[rids[i]])
+            # else nothing journaled (or not resumable): the request
+            # starts over from its prompt and its sampling stream from
+            # its seed, so its tokens come out the same, generated again
+        journal.flush()
+        recovery_s = time.perf_counter() - t_rec
+    if may_preempt or seed_emitted:
         prompt_pad = max(p.size + (r.gen - 1 if resumable[i] else 0)
                          for i, (p, r) in enumerate(
                              zip(prompts_np, requests, strict=True)))
@@ -763,7 +883,9 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     prefill = make_prefill_step(cfg)
 
     # scheduler state (host)
-    queue = sorted(range(len(requests)), key=lambda i: requests[i].arrival)
+    queue = [i for i in sorted(range(len(requests)),
+                               key=lambda i: requests[i].arrival)
+             if i not in done_replayed]
     slot_req = [None] * slots                      # request index per slot
     slot_pgen = [0] * slots                        # host mirror of pgen
     reserved = [0] * slots                         # pages reserved per slot
@@ -772,11 +894,13 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     prefilling = [False] * slots                   # host mirror of phase
     slot_prompt = [None] * slots                   # admitted pending stream
     arrived_wall, first_tok, admitted_step = {}, {}, {}
-    emitted = {i: [] for i in range(len(requests))}
+    emitted = {i: list(seed_emitted.get(i, [])) for i in range(len(requests))}
+    jhw = {i: len(toks) for i, toks in emitted.items()}  # journaled so far
     preempt_count = {}                             # request -> evictions
-    resume_gen = {}                                # request -> generator state
+    resume_gen = dict(seed_gens)                   # request -> generator state
     n_preempts = straggler_segs = 0
-    completed, page_util = [], []
+    completed, page_util = list(replayed_completed), []
+    drain_since = None                             # wall time a drain began
     # prefix sharing (all empty when index is None)
     pins = {}                                      # page -> 1 (index pins)
     slot_shared = [[] for _ in range(slots)]       # adopted pages per slot
@@ -784,6 +908,67 @@ def serve_continuous(model, cfg, requests, *, slots: int,
     reg_done = [0] * slots                         # prompt pages registered
     prefill_tokens = shared_tokens = prefix_hits = 0
     stall_s = 0.0
+
+    # -- snapshots of the pools and the prefix index, and the warm restore
+    restored_from_snapshot = False
+    snap_ckpt, snap_ord = None, 0
+    n_snapshots, snapshot_s, snapshot_bytes = 0, 0.0, 0
+    snap_geo = {"arch": cfg.name, "slots": int(slots),
+                "page_size": int(page_size), "num_pages": int(geo.k.shape[0]),
+                "pages_per_seq": int(pages_per_seq)}
+    if journal is not None and snapshot_every > 0:
+        snap_ckpt = Checkpointer(os.path.join(journal_dir, "snapshots"),
+                                 keep=2, prefix="serve")
+        snap_ord = snap_ckpt.latest_step() or 0
+    if recovered and snap_ckpt is not None and index is not None:
+        t_rec = time.perf_counter()
+        try:
+            if snap_ckpt.latest_step() is None:
+                raise FileNotFoundError("no serve snapshot on disk")
+            loaded, snap_meta = snap_ckpt.restore(caches, device=dev)
+            extra = snap_meta["extra"]
+            if extra.get("geometry") != snap_geo:
+                raise CheckpointCorrupt(
+                    f"snapshot geometry {extra.get('geometry')} != this "
+                    f"serve's {snap_geo}")
+            if snap_meta["shapes"] != [list(t.shape)
+                                       for t in tree_leaves(caches)]:
+                raise CheckpointCorrupt("snapshot leaf shapes changed")
+            index.load_state_dict(extra["index"])
+            new_pins = {int(p): int(c) for p, c in extra["pins"].items()}
+            # no row of the snapshot survives the crash: release them all,
+            # so the refcounts drop to the index pins, and check the
+            # allocator invariants before trusting any of it
+            loaded = _release_slots(loaded, np.ones((slots,), bool))
+            _check_paged_invariants(loaded, pins=dict(new_pins))
+            caches, pins = loaded, new_pins
+            restored_from_snapshot = True
+        except (CheckpointCorrupt, FileNotFoundError, AssertionError,
+                KeyError, ValueError) as e:
+            # a missing, corrupt or mismatched snapshot costs prefill
+            # work, never correctness: the fresh pools stay, the index
+            # starts empty and the journal alone recovers
+            if not isinstance(e, FileNotFoundError):
+                print(f"[serve] snapshot unusable ({e}); cold start "
+                      f"from journal", flush=True)
+            index = PrefixIndex(page_size)
+        recovery_s += time.perf_counter() - t_rec
+
+    def save_snapshot():
+        # after the boundary's readback, so the copy follows the segment
+        nonlocal snap_ord, n_snapshots, snapshot_s, snapshot_bytes
+        t_snap = time.perf_counter()
+        snap_ord += 1
+        snap_ckpt.save(snap_ord, caches, extra={
+            "kind": "serve", "geometry": snap_geo,
+            "fingerprint": fingerprint,
+            "index": index.state_dict() if index is not None else None,
+            "pins": {str(p): int(c) for p, c in pins.items()}})
+        snapshot_s += time.perf_counter() - t_snap
+        n_snapshots += 1
+        snapshot_bytes = sum(t.numel() * t.element_size()
+                             for t in tree_leaves(caches))
+
     state = ServeSlotState.init(slots, prompt_pad, dev)
     step = segments = rounds = 0
     to_release = []                                # slots freed, pages held
@@ -838,6 +1023,18 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             first_token_s=first_tok.get(i, now_s),
             tokens=np.asarray(emitted[i][:requests[i].gen], np.int32),
             priority=prio_req[i], preemptions=preempt_count.get(i, 0)))
+        if journal is not None:
+            # "n", the finished token count, is what replay trusts (a torn
+            # flush can drop this boundary's progress but keep this)
+            journal.append({
+                "t": "complete", "rid": rids[i],
+                "n": len(emitted[i][:requests[i].gen]),
+                "admitted_step": admitted_step[i], "finished_step": step,
+                "arrival": int(requests[i].arrival),
+                "arrived_s": arrived_wall[i], "finished_s": now_s,
+                "first_token_s": first_tok.get(i, now_s),
+                "priority": prio_req[i],
+                "preemptions": preempt_count.get(i, 0)})
         clear(slot)
 
     def preempt_slot(slot):
@@ -862,11 +1059,57 @@ def serve_continuous(model, cfg, requests, *, slots: int,
         queue.sort(key=lambda j: (requests[j].arrival, j))
         to_release.append(slot)
 
+    def journal_progress():
+        # one progress record per boundary: each request's tokens since
+        # its last record and, sampling, its generator state after those
+        # draws (a live row's own, a preempted request's kept state)
+        slot_of = {slot_req[s]: s for s in range(slots)
+                   if slot_req[s] is not None}
+        deltas, keys = {}, {}
+        for i, toks in emitted.items():
+            if len(toks) <= jhw[i]:
+                continue
+            deltas[rids[i]] = [int(x) for x in toks[jhw[i]:]]
+            if sample:
+                if i in slot_of:
+                    keys[rids[i]] = state_hex(state.gens[slot_of[i]]
+                                              .get_state())
+                elif i in resume_gen:
+                    keys[rids[i]] = state_hex(resume_gen[i])
+            jhw[i] = len(toks)
+        if deltas:
+            rec = {"t": "progress", "d": deltas}
+            if keys:
+                rec["k"] = keys
+            journal.append(rec)
+
+    def crash(where):
+        # a process death: the journal's fsync and the snapshot's write in
+        # flight settle first, so the restart reads settled files (a real
+        # death mid-write leaves a torn tail or a .tmp directory, which
+        # replay and the rename make equal to the write never starting)
+        if journal is not None:
+            journal.wait()
+        if snap_ckpt is not None:
+            snap_ckpt.wait()
+        raise SimulatedCrash(step, where)
+
     with torch.inference_mode():
         while queue or any(s is not None for s in slot_req):
             now_s = time.perf_counter() - t0
             if injector is not None and injector.want_crash(step):
-                raise SimulatedCrash(step, "round-boundary")
+                crash("round-boundary")
+            draining = drain is not None and drain.poll(step)
+            if draining:
+                if drain_since is None:
+                    drain_since = time.perf_counter()
+                if all(s is None for s in slot_req):
+                    break                  # nothing in flight: drained
+                if drain_timeout is not None and \
+                        time.perf_counter() - drain_since >= drain_timeout:
+                    # in-flight progress is journaled through the last
+                    # boundary; a resume picks it up
+                    break
             for i in queue:
                 if requests[i].arrival <= step:
                     arrived_wall.setdefault(i, now_s)
@@ -891,10 +1134,11 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             page_budget = pool_pages - sum(reserved) - len(pins) - phantom
             adm, adm_shared, evict_batch = [], {}, []
             # admission order: aged class, arrival, trace position (a
-            # snapshot: this round's victims are candidates next round)
-            cand = sorted((i for i in queue if requests[i].arrival <= step),
-                          key=lambda j: (-eff_prio(j, step),
-                                         requests[j].arrival, j))
+            # snapshot: this round's victims are candidates next round);
+            # a drain admits nothing
+            cand = [] if draining else sorted(
+                (i for i in queue if requests[i].arrival <= step),
+                key=lambda j: (-eff_prio(j, step), requests[j].arrival, j))
             for i in cand:
                 if not free_slots and not preemption:
                     break
@@ -1086,7 +1330,9 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             toks_np, emits_np = back[:, :segment], back[:, segment:2 * segment]
             done_np, cursor_np, pgen_np = back[:, -3], back[:, -2], back[:, -1]
             if injector is not None and injector.want_crash_after(step):
-                raise SimulatedCrash(step, "mid-segment")
+                # after the readback, before the flush: the lost tokens
+                # are generated again from the previous boundary
+                crash("mid-segment")
             straggler_segs += watchdog.observe(
                 time.perf_counter() - t_seg).straggler
             now_s = time.perf_counter() - t0
@@ -1132,7 +1378,22 @@ def serve_continuous(model, cfg, requests, *, slots: int,
             for s in fin:
                 finish(s, now_s)
             to_release.extend(fin)
+            if journal is not None:
+                # the boundary's group commit: progress, generator states
+                # and completions in one written batch
+                journal_progress()
+                journal.flush()
+                if snap_ckpt is not None and segments % snapshot_every == 0:
+                    save_snapshot()
 
+        if journal is not None:
+            journal_progress()
+            journal.flush()
+            if snap_ckpt is not None:
+                # a clean restart (drain, then resume) warm-starts from it
+                save_snapshot()
+                snap_ckpt.wait()
+            journal.close()
     if debug:
         _check_paged_invariants(caches, pins=dict(pins))
     wall = time.perf_counter() - t0
@@ -1143,6 +1404,11 @@ def serve_continuous(model, cfg, requests, *, slots: int,
                        shared_prefix_tokens=shared_tokens,
                        prefix_hits=prefix_hits, preemptions=n_preempts,
                        straggler_segments=straggler_segs,
+                       drained=drain_since is not None, recovered=recovered,
+                       restored_from_snapshot=restored_from_snapshot,
+                       replayed_tokens=replayed_tokens,
+                       snapshot_bytes=snapshot_bytes, recovery_s=recovery_s,
+                       snapshots=n_snapshots, snapshot_s=snapshot_s,
                        aging_steps=aging_steps, max_class=max_class,
                        capture_s=graphs.capture_s if graphs else 0.0,
                        graph_bytes=graphs.graph_bytes if graphs else 0,

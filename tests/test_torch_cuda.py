@@ -656,3 +656,48 @@ def test_cuda_captured_mixed_step_copies_shared_page_on_write():
     assert pool.ref_count[shared].item() == 1
     for c in c_g:
         c["mix"].check_invariants()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_cuda_journaled_serve_recovers_with_warm_restore(sampled, tmp_path):
+    """A journaled serve on the card (smoke width, prefix sharing, a
+    snapshot every segment) crashed at a round boundary and then
+    mid-segment, recovered by ``serve_with_recovery``: the second restart
+    restores the pools and the prefix index from the snapshot (greedy: the
+    captured steps bind to the restored pools; sampled: eager steps, the
+    journaled states of CUDA generators), and the tokens equal the calm
+    serve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime.fault_tolerance import ServeFaultPlan
+    from repro_torch.runtime.generate import ServeRequest, serve_continuous
+    from repro_torch.runtime.journal import serve_with_recovery
+    cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab_size, 140).astype(np.int32)
+    reqs = [ServeRequest(prompt=np.concatenate(
+        [shared, rng.integers(0, cfg.vocab_size, 4).astype(np.int32)]),
+        gen=10, arrival=i * 2) for i in range(6)]
+    kw = dict(slots=3, segment=4, max_len=256, page_size=128,
+              chunk_size=48, prefix_sharing=True, debug_invariants=True)
+    if sampled:
+        kw.update(temperature=0.8, seed=3)
+    calm = serve_continuous(model, cfg, reqs, **kw)
+    K.reset_launches()
+    res, crashes = serve_with_recovery(
+        model, cfg, reqs, journal_dir=str(tmp_path / "j"), snapshot_every=1,
+        plans=(ServeFaultPlan(crash_steps=(8,)),
+               ServeFaultPlan(crash_after_steps=(16,))), **kw)
+    torch.cuda.synchronize()
+    assert crashes == 2 and res.recovered and res.restored_from_snapshot
+    assert res.snapshot_bytes > 0 and res.replayed_tokens > 0
+    assert K.LAUNCHES["ita_attention_onepass_paged"] > 0
+    want = {c.index: c.tokens for c in calm.completed}
+    assert {c.index for c in res.completed} == set(want)
+    for c in res.completed:
+        assert np.array_equal(c.tokens, want[c.index]), c.index

@@ -432,8 +432,8 @@ def test_preemption_and_faults_require_chunked_admission(weights):
 @pytest.mark.parametrize("where", ["crash_steps", "crash_after_steps"])
 def test_injected_crash_raises(weights, where):
     """``crash_steps`` raises at the top of a round, ``crash_after_steps``
-    after a segment's readback; the journal that recovers from them comes
-    with a later slice."""
+    after a segment's readback (``tests/test_torch_recovery.py`` recovers
+    from both through the journal)."""
     _, model = weights
     reqs = [ServeRequest(prompt=np.arange(6, dtype=np.int32), gen=12)]
     with pytest.raises(SimulatedCrash) as err:

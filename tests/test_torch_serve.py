@@ -24,8 +24,9 @@ and copy-back of the card's captured steps).
   (either admission); sampled outputs do not depend on arrival order and
   equal solo ``generate()`` with the request's generator (either
   admission); ``generate(paged=True)`` equals the ring path; the entry
-  points refuse to drop to the CPU; the journal options of a later slice
-  raise ``NotImplementedError``; the reference's refusals of an undersized
+  points refuse to drop to the CPU; each journal option alone runs as the
+  JAX package's does (``tests/test_torch_recovery.py`` holds the crash
+  recovery); the reference's refusals of an undersized
   pool, unservable requests and configs and mismatched ``caches=`` hold
   with its error text.
 
@@ -451,15 +452,37 @@ def test_serve_does_not_fall_back_to_cpu(weights, monkeypatch):
         serve.main(["--smoke", "--continuous", "--requests", "2"])
 
 
-@pytest.mark.parametrize("option", [
-    dict(journal_dir="journal"), dict(snapshot_every=2), dict(resume=True),
-    dict(drain=object()), dict(drain_timeout=1.0)],
-    ids=lambda o: next(iter(o)))
-def test_unported_serve_options_raise(weights, option):
+@pytest.mark.parametrize("option", ["journal_dir", "snapshot_every",
+                                    "resume", "drain", "drain_timeout"])
+def test_serve_journal_options_validate(weights, option, tmp_path):
+    """Each journal option alone: ``journal_dir`` journals the serve and
+    ``snapshot_every`` snapshots it, with the plain serve's tokens;
+    ``resume=True`` over an empty directory starts fresh; a drain
+    requested at step 0 admits nothing; ``drain_timeout`` without a drain
+    changes nothing, as in the JAX package."""
+    from repro_torch.runtime.journal import ServeDrain, ServeJournal
     _, model = weights
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported") as e:
-        _serve(model, _trace(2, np.random.default_rng(0)), **option)
-    assert "journal, snapshot and recovery" in str(e.value)
+    reqs = _trace(2, np.random.default_rng(0))
+    want = {c.index: c.tokens for c in _serve(model, reqs).completed}
+    d = str(tmp_path / "journal")
+    kw = {"journal_dir": dict(journal_dir=d),
+          "snapshot_every": dict(journal_dir=d, snapshot_every=2),
+          "resume": dict(journal_dir=d, resume=True),
+          "drain": dict(drain=ServeDrain(after_steps=0)),
+          "drain_timeout": dict(drain_timeout=1.0)}[option]
+    res = _serve(model, reqs, **kw)
+    assert not res.recovered and not res.restored_from_snapshot
+    if option == "drain":
+        assert res.drained and res.completed == [] and res.steps == 0
+        return
+    assert not res.drained
+    assert {c.index: c.tokens.tolist() for c in res.completed} \
+        == {i: t.tolist() for i, t in want.items()}
+    if "journal_dir" in kw:
+        rep = ServeJournal.replay(f"{d}/journal.jsonl")
+        assert len(rep.submits) == len(rep.completes) == len(reqs)
+    assert res.snapshots == (res.segments // 2 + 1
+                             if option == "snapshot_every" else 0)
 
 
 def test_generate_refuses_undersized_paged_pool(weights):
