@@ -139,6 +139,28 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    version, and ``torch._int_mm`` (cuBLASLt, the int32 product only;
    back-to-back and in a CUDA graph) on both layouts as the library
    yardstick.
+8. The paper's baselines and the model they serve (the XLA backends):
+   (a) on run (a)'s weights and prompts, ``generate()`` with
+   ``attention_impl="float"`` (bf16 rings; ``float_xla``: the streaming
+   online softmax at prefill, ``direct_float`` at decode) and with
+   ``"ibert"`` (int8 rings; ``ibert_xla`` at both), each fused twice
+   (the capture, then the kept graph's replays: the steady-state
+   figures) and held to stepwise, the backends that served each call
+   site counted (no other may serve, and no fused attention kernel may
+   launch), then profiled for the busy share; the share of tokens equal to run (a)'s
+   ITA tokens and the last prompt position's logits against the float
+   run are printed, not gated. (b) On run (c)'s layer-0 logits (phase
+   4's rows): B6 (paper DI, counted), I-BERT, Softermax, the QAT STE
+   forward and the float oracle on the card; I-BERT must equal I-BERT on
+   the CPU bit for bit; the MAE of each against float is printed. (c)
+   After qwen2-7b is freed: gemma2-27b at full width (46 alternating
+   local-4096/global layers, d 4608, 32/16 heads, GeGLU 36864, vocab
+   256000, softcaps 50 and 30, query scale 144^-0.5; random bf16 weights
+   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) batch 1,
+   prompt 4608, 16 tokens (the local rings wrap); prefill served by
+   ``ita_chunked_xla``, decode by ``ita_direct_xla``, no fused kernel,
+   fused tokens equal stepwise; prefill s, decode tok/s, the replayed
+   step beside the weight-read floor, busy share, peak allocation.
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -148,6 +170,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -989,7 +1012,8 @@ def full_width(model, cfg, checks):
         f"bit-exact vs plain (runs (a), (b), (c); (b) also layer 0 of its "
         f"first decode step)")
     profile_generate(model, cfg, prompts)
-    return {"prefill_s": res_a2.prefill_s, "decode_tok_s":
+    return {"tokens": res_a2.tokens,
+            "prefill_s": res_a2.prefill_s, "decode_tok_s":
             res_a2.decode_tok_s, "pinned_prefill_s": res_b.prefill_s,
             "pinned_decode_tok_s": res_b.decode_tok_s,
             "twopass_prefill_s": res_c2.prefill_s,
@@ -2004,7 +2028,7 @@ def profile_run(label, fn):
     device activity only: host op records would cost more than the run),
     the device's busy share of its wall time (the profiler's own host
     cost inflates the wall time) and the kernels launched. Returns what
-    ``fn`` returned."""
+    ``fn`` returned and the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2031,7 +2055,7 @@ def profile_run(label, fn):
             log(f"[profile] {label}: {kernel} {ms:.2f} ms over {n} "
                 f"launches ({ms / n:.5f} ms each), {ms / busy_ms:.1%} of "
                 f"device time")
-    return out
+    return out, busy_ms / wall_ms
 
 
 def profile_generate(model, cfg, prompts):
@@ -2047,7 +2071,7 @@ def profile_generate(model, cfg, prompts):
 def profile_serve(model, cfg, reqs):
     """The serve's first two requests under the profiler."""
     from repro_torch.runtime.generate import serve_continuous
-    res = profile_run(
+    res, _ = profile_run(
         "serve of requests 0-1, steps replayed from CUDA graphs",
         lambda: serve_continuous(
             model, cfg, reqs[:2], slots=SERVE["slots"],
@@ -2552,6 +2576,308 @@ def int8_matmul_pad(x_q):
     return torch.nn.functional.pad(x_q, (0, 0, 0, max(0, 8 - x_q.shape[0])))
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the paper's baselines and gemma2-27b (the XLA backends)
+# ---------------------------------------------------------------------------
+
+GEMMA2_LONG, GEMMA2_LONG_GEN = 4608, 16  # run (ii): the local rings wrap
+
+
+def served_by(fn):
+    """Call ``fn`` with every registered backend's ``run`` counted by
+    (backend, mode): the backends that served its attention calls. Calls
+    run eagerly (prefill, a stepwise step, a captured step's warm-up and
+    capture) are counted; replays never reach Python. Returns ``(fn's
+    result, {(backend, mode): calls})``."""
+    from repro_torch import attention as ATT
+    seen = {}
+
+    def counted(b):
+        def run(q, k, v, spec, scales, **kw):
+            seen[(b.name, spec.mode)] = seen.get((b.name, spec.mode), 0) + 1
+            return b.run(q, k, v, spec, scales, **kw)
+        return dataclasses.replace(b, run=run)
+    originals = ATT.all_backends()
+    for b in originals:
+        ATT.register_backend(counted(b))
+    try:
+        out = fn()
+    finally:
+        for b in originals:
+            ATT.register_backend(b)
+    return out, seen
+
+
+def check_served(seen, want, label, required=("prefill", "decode")):
+    """``want``: mode -> the one backend that may serve it; each mode of
+    ``required`` must have been served."""
+    modes = {mode for _, mode in seen}
+    if any(want.get(mode) != name for name, mode in seen) \
+            or not modes >= set(required):
+        raise AssertionError(f"{label}: served by {seen}, want {want} "
+                             f"for {required}")
+
+
+def last_logits(model, cfg, prompts):
+    """Logits (float32) of each prompt's last position after a prefill
+    through the ring caches."""
+    import torch
+
+    from repro_torch.models import forward, init_caches
+    from repro_torch.models.layers import unembed
+    with torch.inference_mode():
+        x, _ = forward(model, prompts.to(DEV), cfg, mode="prefill",
+                       caches=init_caches(cfg, prompts.shape[0],
+                                          prompts.shape[1], device=DEV),
+                       skip_unembed=True)
+        return unembed(model.unembed_weight(), x[:, -1:],
+                       cfg.logit_softcap)[:, 0]
+
+
+def baseline_generate(model, cfg, prompts, gen, want_served, label):
+    """``generate()`` fused twice (the first call captures the decode
+    step, the second replays the kept graph: the steady-state figures)
+    and stepwise, each with the launch counters zeroed just before and
+    read just after (no fused attention kernel may launch) and the
+    backends that served it counted; all three give the same tokens.
+    Then one more fused call under the profiler (busy share, device time
+    by kernel). Returns the kept-graph result and its figures."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+
+    def run(loop, required=("prefill", "decode")):
+        reset_launches()
+        res, seen = served_by(lambda: generate(model, cfg, prompts, gen,
+                                               loop=loop, device=DEV))
+        launches = read_launches()
+        moved = {k: n for k, n in launches.items() if n}
+        if moved:
+            raise AssertionError(f"{label} ({loop}): kernels launched "
+                                 f"{moved}")
+        check_served(seen, want_served, f"{label} ({loop})", required)
+        return res, seen
+    first, seen = run("fused")
+    # the kept graph replays every decode step: only prefill reaches Python
+    fused, _ = run("fused", required=("prefill",))
+    step, _ = run("stepwise")
+    tok = fused.tokens
+    if not (torch.equal(tok, step.tokens) and torch.equal(tok, first.tokens)):
+        raise AssertionError(f"{label}: fused and stepwise tokens differ")
+    if tok.shape != (prompts.shape[0], gen) or tok.min() < 0 \
+            or tok.max() >= cfg.vocab_size:
+        raise AssertionError(f"{label}: bad tokens {tuple(tok.shape)}")
+    _, busy = profile_run(f"{label} fused generate", lambda: generate(
+        model, cfg, prompts, gen, device=DEV))
+    step_ms = 1e3 * fused.decode_s / fused.decode_steps
+    log(f"[baselines] {label}: served by {seen} (eager calls of the "
+        f"capturing call); fused, fused again and stepwise tokens "
+        f"identical; prefill {fused.prefill_s:.3f} s, decode "
+        f"{fused.decode_tok_s:.1f} tok/s from the kept graph "
+        f"({step_ms:.2f} ms a step; the capturing call "
+        f"{first.decode_tok_s:.1f} tok/s, capture {first.capture_s:.3f} s)"
+        f" vs {step.decode_tok_s:.1f} stepwise; busy {busy:.1%}; "
+        f"{card_line()}")
+    return fused, {"prefill_s": fused.prefill_s,
+                   "decode_tok_s": fused.decode_tok_s,
+                   "stepwise_decode_tok_s": step.decode_tok_s,
+                   "capture_s": first.capture_s, "busy": busy,
+                   "step_ms": step_ms}
+
+
+def baselines_at_full_width(model, cfg, ita_tokens):
+    """Phase 8a: the float and I-BERT baselines on run (a)'s weights and
+    prompts: bf16 rings through ``float_xla`` (streaming prefill, direct
+    decode), int8 rings through ``ibert_xla`` at both; tokens against
+    run (a)'s ITA tokens and last-position logits against the float
+    run's (printed, not gated)."""
+    prompts = prompt_batch(cfg)
+    out, logits = {}, {}
+    for impl, backend in (("float", "float_xla"), ("ibert", "ibert_xla")):
+        cfg_x = dataclasses.replace(cfg, attention_impl=impl)
+        res, fig = baseline_generate(
+            model, cfg_x, prompts, GEN,
+            {"prefill": backend, "decode": backend}, f"8a qwen2-7b {impl}")
+        fig["same_as_ita"] = (res.tokens == ita_tokens).float().mean().item()
+        out[impl] = fig
+        logits[impl] = last_logits(model, cfg_x, prompts)
+    logits["ita"] = last_logits(model, cfg, prompts)
+    for impl in ("ita", "ibert"):
+        out.setdefault(impl, {})["logit_max_abs_vs_float"] = \
+            (logits[impl] - logits["float"]).abs().max().item()
+    log(f"[baselines] 8a tokens equal to run (a)'s ITA tokens: float "
+        f"{out['float']['same_as_ita']:.3f}, ibert "
+        f"{out['ibert']['same_as_ita']:.3f}; last prompt position's logits "
+        f"max |d| vs float: ITA {out['ita']['logit_max_abs_vs_float']:.4f},"
+        f" I-BERT {out['ibert']['logit_max_abs_vs_float']:.4f}")
+    return out
+
+
+def softmax_family(softmax_inputs, checks):
+    """Phase 8b: the softmax family on run (c)'s layer-0 logits (the rows
+    B6 consumes in phase 4): ITA (B6 through its entry point, paper DI,
+    counters zeroed just before and read just after), I-BERT, Softermax,
+    the QAT STE forward and the float oracle, on the card. I-BERT on the
+    card must equal I-BERT on the CPU bit for bit. The MAEs against float
+    over the causally valid elements are printed."""
+    import torch
+
+    from repro_torch.core import softmax as TS
+    from repro_torch.core.quant import EPS_MAX
+    from repro_torch.kernels.ita_softmax import kernel as SK
+    from repro_torch.kernels.ita_softmax.ops import ita_softmax
+    x, mask8 = softmax_inputs
+    mask = mask8 != 0
+    reset_launches()
+    ita = ita_softmax(x, mask8, block_c=128, adaptive=False)
+    launches = read_launches()
+    want = dict.fromkeys(SOURCES, 0)
+    want["ita_softmax"] = 1
+    if launches != want:
+        raise AssertionError(f"8b softmax launches {launches} != {want}")
+    checks.compare("ita_softmax", ita,
+                   SK.softmax_plain(x, mask8, block_c=128, adaptive=False),
+                   f"8b, {tuple(x.shape)}, paper DI")
+    family = {
+        "float": lambda: TS.softmax_float(x, mask=mask),
+        "ibert": lambda: TS.ibert_softmax(x, mask=mask),
+        "softermax": lambda: TS.softermax(x, mask=mask),
+        "ita_ste": lambda: TS.ita_softmax_ste(x.float() * EPS_MAX,
+                                              mask=mask)}
+    probs = {name: fn() for name, fn in family.items()}
+    probs["ita"] = ita
+    cpu = TS.ibert_softmax(x.cpu(), mask=mask.cpu())
+    if not torch.equal(probs["ibert"].cpu(), cpu):
+        n = (probs["ibert"].cpu() != cpu).sum().item()
+        raise AssertionError(f"8b: I-BERT on the card differs from the CPU "
+                             f"in {n} elements")
+    ref = probs["float"]
+    mae = {name: ((p.float() - ref).abs() * mask).sum().item()
+           / mask.sum().item() for name, p in probs.items()
+           if name != "float"}
+    ms = {name: median_ms(fn, reps=5, warmup=1)
+          for name, fn in family.items()}
+    ms["ita"] = median_ms(lambda: ita_softmax(x, mask8, block_c=128,
+                                              adaptive=False), reps=5,
+                          warmup=1)
+    log(f"[softmax] 8b on run (c)'s layer-0 logits {tuple(x.shape)}, "
+        f"causal: B6 launches {launches['ita_softmax']}; I-BERT card == "
+        f"CPU bit for bit; MAE vs float over the valid elements: "
+        + ", ".join(f"{n} {v:.6f}" for n, v in mae.items())
+        + "; ms (CUDA events, median of 5): "
+        + ", ".join(f"{n} {v:.3f}" for n, v in ms.items())
+        + f"; {card_line()}")
+    return launches["ita_softmax"], {"mae": mae, "ms": ms}
+
+
+def gemma2_at_full_width():
+    """Phase 8c: gemma2-27b at full width (random bf16 weights, seed 0,
+    ITA): (i) batch 4, prompt 512, 32 tokens; (ii) batch 1, prompt 4608,
+    16 tokens, so the 4096-entry local rings wrap and the window binds.
+    Prefill must be served by ``ita_chunked_xla``, decode by
+    ``ita_direct_xla``, no fused attention kernel may launch, and the
+    fused loop's tokens equal the stepwise loop's."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    cfg = get_config("gemma2-27b", attention_impl="ita")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    log(f"[gemma2] {cfg.name} full width: {cfg.n_layers} layers "
+        f"(local {cfg.local_window} / global), d={cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, GeGLU {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; weights {weight_bytes / 1e9:.2f} GB {cfg.dtype},"
+        f" init {time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    served = {"prefill": "ita_chunked_xla", "decode": "ita_direct_xla"}
+    gen = torch.Generator().manual_seed(0)
+    out = {"weights_gb": weight_bytes / 1e9,
+           "floor_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S}
+    for run, (b, plen, n) in (("i", (B, PROMPT, GEN)),
+                              ("ii", (1, GEMMA2_LONG, GEMMA2_LONG_GEN))):
+        prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen)
+        torch.cuda.reset_peak_memory_stats()
+        res, fig = baseline_generate(model, cfg, prompts, n, served,
+                                     f"8c gemma2-27b ({run})")
+        fig["max_alloc_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        logits = last_logits(model, cfg, prompts[:1, -64:])
+        if not torch.isfinite(logits).all() \
+                or logits.abs().max() > cfg.logit_softcap:
+            raise AssertionError(f"8c ({run}): logits not finite or beyond "
+                                 f"the softcap")
+        out[run] = fig
+        log(f"[gemma2] ({run}) batch {b}, prompt {plen}, {n} tokens: prefill"
+            f" {fig['prefill_s']:.3f} s, decode {fig['decode_tok_s']:.1f} "
+            f"tok/s, {fig['step_ms']:.2f} ms a step (kept graph) against a "
+            f"weight-read floor of {out['floor_ms']:.2f} ms "
+            f"({weight_bytes / 1e9:.2f} GB / 3.35 TB/s), busy "
+            f"{fig['busy']:.1%}, max allocated {fig['max_alloc_gb']:.2f} GB;"
+            f" tokens {res.tokens[0, :8].tolist()}; {card_line()}")
+    return out
+
+
+
+def qwen2_phases(checks):
+    """Phases 3-7 and 8a-8b on full-width qwen2-7b. Returns the kernels
+    line's rows and the result line; the model and everything built on it
+    are freed with this frame."""
+    model, cfg = full_width_model()
+    metrics, captured = full_width(model, cfg, checks)
+    softmax_inputs, softmax_launches = full_width_softmax(
+        captured["twopass"][2][1], checks)
+    served, serve_launches, serve_captured = full_width_serve(model, cfg,
+                                                              checks)
+    captured.update(serve_captured)
+    preqs, solo, max_len = prefix_serve(model, cfg, serve_trace(cfg))
+    overload = overload_serve(model, cfg, preqs, solo, max_len, checks)
+    cow_step(model, cfg, checks)
+    recovery = recovery_phase(model, cfg, serve_trace(cfg), served["tokens"],
+                              preqs, solo, overload["sampled_tokens"], checks)
+    baselines = baselines_at_full_width(model, cfg, metrics["tokens"])
+    family_launches, family = softmax_family(softmax_inputs, checks)
+    # ring and twopass kernels: the generate() runs; paged kernels: the
+    # serve; the softmax: its run on run (c)'s A
+    rows = time_kernels(captured, softmax_inputs,
+                        {**serve_launches, **metrics["launches"],
+                         "ita_softmax": softmax_launches + family_launches},
+                        checks,
+                        served["mean_ms"])
+    linear_launches, linear_ops = full_width_linear(model, cfg, checks)
+    rows += time_linear(linear_ops, linear_launches, checks)
+    summary = (
+        f"[result] prefill {metrics['prefill_s']:.4f} s, decode "
+        f"{metrics['decode_tok_s']:.1f} tok/s (unpinned); pinned onepass "
+        f"prefill {metrics['pinned_prefill_s']:.4f} s, decode "
+        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; pinned twopass (paper "
+        f"DI) prefill {metrics['twopass_prefill_s']:.4f} s, decode "
+        f"{metrics['twopass_decode_tok_s']:.1f} tok/s; serve "
+        f"{served['tok_s']:.2f} tok/s sustained, TTFT p50 "
+        f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
+        f"{served['wall_s']:.3f} s; stall serve {served['stall']['tok_s']:.2f} "
+        f"tok/s, wall {served['stall']['wall_s']:.3f} s, prefill stall "
+        f"{served['stall']['prefill_stall_s']:.3f} s; overload serve "
+        f"{overload['tok_s']:.2f} tok/s, wall {overload['wall_s']:.3f} s, "
+        f"{overload['preemptions']} preemptions; journal on/off wall "
+        f"{recovery['journal_on_wall_s']:.3f}/"
+        f"{recovery['journal_off_wall_s']:.3f} s, snapshot "
+        f"{recovery['snapshot_bytes']} bytes, {recovery['snapshot_ms']:.2f} "
+        f"ms on the caller, recovery_s {recovery['recovery_s']:.4f}, "
+        f"recapture {recovery['capture_s']:.3f} s; stepwise decode "
+        f"(a) (b) (c) {', '.join(f'{x:.1f}' for x in metrics['stepwise_decode_tok_s'])}"
+        f" tok/s; phase 8a float prefill "
+        f"{baselines['float']['prefill_s']:.3f} s, decode "
+        f"{baselines['float']['decode_tok_s']:.1f} tok/s, ibert prefill "
+        f"{baselines['ibert']['prefill_s']:.3f} s, decode "
+        f"{baselines['ibert']['decode_tok_s']:.1f} tok/s; 8b MAE vs float "
+        + ", ".join(f"{n} {v:.6f}" for n, v in family["mae"].items())
+        + f"; {card_line()}")
+    return rows, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2577,46 +2903,23 @@ def main():
     check_kernels(checks)
     check_row_invariance()
     smoke_width_reference()
-    model, cfg = full_width_model()
-    metrics, captured = full_width(model, cfg, checks)
-    softmax_inputs, softmax_launches = full_width_softmax(
-        captured["twopass"][2][1], checks)
-    served, serve_launches, serve_captured = full_width_serve(model, cfg,
-                                                              checks)
-    captured.update(serve_captured)
-    preqs, solo, max_len = prefix_serve(model, cfg, serve_trace(cfg))
-    overload = overload_serve(model, cfg, preqs, solo, max_len, checks)
-    cow_step(model, cfg, checks)
-    recovery = recovery_phase(model, cfg, serve_trace(cfg), served["tokens"],
-                              preqs, solo, overload["sampled_tokens"], checks)
-    # ring and twopass kernels: the generate() runs; paged kernels: the
-    # serve; the softmax: its run on run (c)'s A
-    rows = time_kernels(captured, softmax_inputs,
-                        {**serve_launches, **metrics["launches"],
-                         "ita_softmax": softmax_launches}, checks,
-                        served["mean_ms"])
-    linear_launches, linear_ops = full_width_linear(model, cfg, checks)
-    rows += time_linear(linear_ops, linear_launches, checks)
-    log(f"[result] prefill {metrics['prefill_s']:.4f} s, decode "
-        f"{metrics['decode_tok_s']:.1f} tok/s (unpinned); pinned onepass "
-        f"prefill {metrics['pinned_prefill_s']:.4f} s, decode "
-        f"{metrics['pinned_decode_tok_s']:.1f} tok/s; pinned twopass (paper "
-        f"DI) prefill {metrics['twopass_prefill_s']:.4f} s, decode "
-        f"{metrics['twopass_decode_tok_s']:.1f} tok/s; serve "
-        f"{served['tok_s']:.2f} tok/s sustained, TTFT p50 "
-        f"{served['ttft_p50']:.3f} s p90 {served['ttft_p90']:.3f} s, wall "
-        f"{served['wall_s']:.3f} s; stall serve {served['stall']['tok_s']:.2f} "
-        f"tok/s, wall {served['stall']['wall_s']:.3f} s, prefill stall "
-        f"{served['stall']['prefill_stall_s']:.3f} s; overload serve "
-        f"{overload['tok_s']:.2f} tok/s, wall {overload['wall_s']:.3f} s, "
-        f"{overload['preemptions']} preemptions; journal on/off wall "
-        f"{recovery['journal_on_wall_s']:.3f}/"
-        f"{recovery['journal_off_wall_s']:.3f} s, snapshot "
-        f"{recovery['snapshot_bytes']} bytes, {recovery['snapshot_ms']:.2f} "
-        f"ms on the caller, recovery_s {recovery['recovery_s']:.4f}, "
-        f"recapture {recovery['capture_s']:.3f} s; stepwise decode "
-        f"(a) (b) (c) {', '.join(f'{x:.1f}' for x in metrics['stepwise_decode_tok_s'])}"
-        f" tok/s; {card}")
+    rows, summary = qwen2_phases(checks)
+    # phase 8c needs the card to itself: qwen2-7b's weights, graphs and
+    # pools went with qwen2_phases' frame
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[gemma2] after qwen2-7b: allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
+    gemma2 = gemma2_at_full_width()
+    log(summary)
+    log(f"[result] phase 8: " + "; ".join(
+        f"gemma2 ({r}) prefill {gemma2[r]['prefill_s']:.3f} s, decode "
+        f"{gemma2[r]['decode_tok_s']:.1f} tok/s, step "
+        f"{gemma2[r]['step_ms']:.2f} ms (floor {gemma2['floor_ms']:.2f}), "
+        f"busy {gemma2[r]['busy']:.1%}, max allocated "
+        f"{gemma2[r]['max_alloc_gb']:.2f} GB" for r in ("i", "ii"))
+        + f"; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,7 +8,7 @@
     out = ATT.dispatch(q, k, v, spec=spec, scales=scales,
                        q_offset=off, kv_len=n)
 
-Importing the package registers the backends of this slice.
+Importing the package registers the seven backends.
 """
 
 from repro_torch.attention.registry import (Backend,  # noqa: F401

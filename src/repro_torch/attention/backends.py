@@ -1,9 +1,8 @@
-"""The registered attention backends of this slice of the port
-(``repro.attention.backends``).
+"""The registered attention backends (``repro.attention.backends``).
 
-Four implementations of the ITA pipeline (Q·Kᵀ → shift-only softmax →
-A·V), registered under the JAX package's names, in its priority order and
-with its ``supports(spec)`` verdicts:
+Seven implementations of the same pipeline (Q·Kᵀ → softmax → A·V),
+registered under the JAX package's names, in its priority order and with
+its ``supports(spec)`` verdicts:
 
 - ``ita_decode_pallas``  — the fused decode kernel (a single query tile
   over an int8 KV ring; skips KV tiles past the valid prefix).
@@ -13,6 +12,13 @@ with its ``supports(spec)`` verdicts:
   ``ita_decode_pallas`` row for row at equal block_kv.
 - ``ita_twopass_pallas`` — the paper's two-pass dataflow (the int8 A
   matrix written once and read once), prefill only.
+- ``ita_direct_xla``     — one-shot integer path; the decode fallback for
+  specs the fused kernels decline (softcap, custom query scale, long
+  bursts).
+- ``ibert_xla``          — I-BERT's 32-bit polynomial softmax (the paper's
+  accuracy baseline) on the integer pipeline.
+- ``float_xla``          — the float softmax baseline (streaming at
+  prefill, direct at decode).
 
 The names are config keys (``cfg.attention_backend``): ``_pallas`` names
 the JAX counterpart of a backend, whose kernel here is the Hopper kernel
@@ -74,7 +80,9 @@ def _requant_out(out_f, spec: AttentionSpec, scales: QuantScales,
 
 
 def _require_zero_q_offset(q_offset, name):
-    """The streaming q-chunk loop starts at query position 0."""
+    """The streaming q-chunk loop derives its chunk ranges from query
+    position 0: a nonzero q_offset must not be silently ignored. Decode
+    offsets arise only on paths the streaming backends decline."""
     if isinstance(q_offset, int) and q_offset == 0:
         return
     raise ValueError(
@@ -83,8 +91,37 @@ def _require_zero_q_offset(q_offset, name):
 
 
 # ---------------------------------------------------------------------------
-# Streaming backend (plain torch ops, as the JAX package leaves it to XLA)
+# Plain torch backends (the JAX package leaves them to XLA)
 # ---------------------------------------------------------------------------
+
+def _float_supports(spec: AttentionSpec):
+    if not (spec.impl == "float"
+            or (spec.impl == "ibert" and spec.mode == "train")):
+        return ("float softmax serves impl='float' (plus the ibert QAT "
+                "train forward, which the paper trains against)")
+    if spec.ragged_q:
+        return "ragged q_len rides the fused one-pass kernels"
+
+    if spec.layout != "bshd":
+        return "model layout (B,S,H,hd) only"
+    if spec.out_dtype != "float":
+        return "no s_out requant grid in the float path"
+    return True
+
+
+def _float_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
+    scale = _qscale(spec, q)
+    if spec.mode != "decode" and q.shape[1] > 1:
+        _require_zero_q_offset(q_offset, "float_xla")
+        return streaming_attention(
+            q, k, v, impl="float", scale=scale, causal=spec.causal,
+            window=spec.window, kv_len=kv_len, softcap=spec.softcap,
+            q_chunk=opts.get("q_chunk", _DEF_Q_CHUNK),
+            kv_chunk=opts.get("kv_chunk", _DEF_KV_CHUNK))
+    return X.direct_float(q, k, v, scale=scale, cap=spec.softcap,
+                          causal=spec.causal, window=spec.window,
+                          q_offset=q_offset, kv_len=kv_len)
+
 
 def _chunked_supports(spec: AttentionSpec):
     if spec.impl != "ita":
@@ -120,6 +157,55 @@ def _chunked_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
         q_chunk=opts.get("q_chunk", _DEF_Q_CHUNK),
         kv_chunk=opts.get("kv_chunk", _DEF_KV_CHUNK))
     return _requant_out(out, spec, scales, 2)
+
+
+def _direct_supports(spec: AttentionSpec):
+    if spec.impl != "ita":
+        return "one-shot ITA integer arithmetic only"
+    if spec.ragged_q:
+        return "ragged q_len rides the fused one-pass kernels"
+    if spec.mode != "decode":
+        return ("serve-side decode fallback only (train/prefill stream "
+                "through ita_chunked_xla)")
+    if spec.layout != "bshd":
+        return "model layout (B,S,H,hd) only"
+    if spec.scale_kind != "per_tensor":
+        return "per-head scales are not plumbed through the direct XLA path"
+    return True
+
+
+def _direct_int_run(impl, q, k, v, spec, scales, q_offset, kv_len):
+    scales.require("s_q", "s_k", "s_v")
+    out = X.direct_int(
+        _quantize(q, scales.s_q, 2), _quantize(k, scales.s_k, 2),
+        _quantize(v, scales.s_v, 2), s_q=scales.s_q, s_k=scales.s_k,
+        s_v=scales.s_v, scale=_qscale(spec, q), impl=impl,
+        softmax=spec.softmax, cap=spec.softcap, causal=spec.causal,
+        window=spec.window, q_offset=q_offset, kv_len=kv_len)
+    return _requant_out(out, spec, scales, 2)
+
+
+def _direct_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
+    return _direct_int_run("ita", q, k, v, spec, scales, q_offset, kv_len)
+
+
+def _ibert_supports(spec: AttentionSpec):
+    if spec.impl != "ibert":
+        return "serves the I-BERT polynomial softmax pipeline only"
+    if spec.ragged_q:
+        return "ragged q_len rides the fused one-pass kernels"
+    if spec.mode == "train":
+        return ("the ibert QAT train forward uses the float softmax "
+                "baseline (float_xla)")
+    if spec.layout != "bshd":
+        return "model layout (B,S,H,hd) only"
+    if spec.scale_kind != "per_tensor":
+        return "per-head scales are not plumbed through the I-BERT path"
+    return True
+
+
+def _ibert_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
+    return _direct_int_run("ibert", q, k, v, spec, scales, q_offset, kv_len)
 
 
 # ---------------------------------------------------------------------------
@@ -254,3 +340,18 @@ register_backend(Backend(
     supports=_twopass_supports, run=_twopass_run,
     description="paper-faithful two-pass dataflow (A matrix in device "
                 "memory)"))
+register_backend(Backend(
+    name="ita_direct_xla", family="ita_direct",
+    supports=_direct_supports, run=_direct_run,
+    description="one-shot integer decode fallback in torch ops (softcap, "
+                "custom query scale, long bursts)"))
+register_backend(Backend(
+    name="ibert_xla", family="ibert",
+    supports=_ibert_supports, run=_ibert_run,
+    description="I-BERT 32-bit polynomial softmax on the integer "
+                "pipeline (accuracy baseline)"))
+register_backend(Backend(
+    name="float_xla", family="float",
+    supports=_float_supports, run=_float_run,
+    description="float softmax baseline (streaming for prefill, direct "
+                "for decode)"))

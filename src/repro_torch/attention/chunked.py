@@ -1,21 +1,22 @@
-"""Streaming (chunked) ITA integer attention — the ``impl="ita_int"``
-arithmetic of ``repro.attention.chunked.streaming_attention``.
+"""Streaming (chunked) attention (``repro.attention.chunked``): the
+``impl="ita_int"`` and ``impl="float"`` arithmetics of
+``streaming_attention``, so the S×S matrix never materializes.
 
-The paper's DA/DI/EN dataflow at chunk granularity, so the S×S matrix
-never materializes: int8 Q·Kᵀ chunks requantized onto the ITA logit grid,
-integer DA (Σ >>= Δmax >> 5), numerators ``u = min(128 >> k, 127)`` (the
-JAX package clips them to int8 here so the A·V product rides int8
-operands; Σ uses the same clipped numerators), adaptive or paper DI.
+- ``ita_int`` — the paper's DA/DI/EN dataflow at chunk granularity: int8
+  Q·Kᵀ chunks requantized onto the ITA logit grid, integer DA (Σ >>=
+  Δmax >> 5), numerators ``u = min(128 >> k, 127)`` (the JAX package
+  clips them to int8 here so the A·V product rides int8 operands; Σ uses
+  the same clipped numerators), adaptive or paper DI. The unpinned ITA
+  prefill of the serving path.
+- ``float`` — the classic online softmax (exp rescale corrections), the
+  float baseline's prefill (``float_xla``).
 
-This is the unpinned ITA prefill of the serving path. The JAX package
-computes it outside any Pallas kernel, and so does the port: plain torch
-ops, with the integer products taken as exact float32 products
-(``int_matmul``). The chunk schedule (q chunks, the causally reachable kv
-chunks of each, their order) is the JAX package's, because the integer Σ
-shifts make the result depend on it.
-
-The float and QAT (``ita_ste``) arithmetics come with the ``float_xla``
-backend and the training slice.
+The JAX package computes both outside any Pallas kernel, and so does the
+port: plain torch ops, with the integer products taken as exact float32
+products (``int_matmul``). The chunk schedule (q chunks, the causally
+reachable kv chunks of each, their order) is the JAX package's, because
+the integer Σ shifts make the result depend on it. The QAT arithmetic
+(``ita_ste``) comes with the training slice.
 """
 
 from __future__ import annotations
@@ -23,10 +24,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.attention.xla import softcap as _softcap
 from repro_torch.core.quant import EPS_MAX, SOFTMAX_SHIFT
 from repro_torch.kernels.common import (device_tensor, floor_log2,
                                         int_matmul, pow2_neg)
 
+NEG = -1e30
 Q_CHUNK = 512
 KV_CHUNK = 512
 
@@ -60,14 +63,15 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
                         s_v=None, causal=True, window=0, kv_len=None,
                         softcap=0.0, adaptive=True, q_chunk=Q_CHUNK,
                         kv_chunk=KV_CHUNK):
-    """q (B,Sq,H,hd) int8; k/v (B,Skv,G,hd) int8. Returns (B,Sq,H,hd)
-    float32: the ITA attention output dequantized through ``s_v``. The
-    scales are float32 (0-d tensors in the model); ``kv_len`` a scalar.
-    Queries start at position 0."""
-    if impl != "ita_int":
+    """q (B,Sq,H,hd); k/v (B,Skv,G,hd), int8 for ``ita_int``. Returns
+    (B,Sq,H,hd) float32: softmax(QKᵀ)·V in the chosen arithmetic (for
+    ``ita_int`` dequantized through ``s_v``; the scales float32, 0-d
+    tensors in the model). ``kv_len`` a scalar. Queries start at
+    position 0."""
+    if impl not in ("ita_int", "float"):
         raise NotImplementedError(
-            f"impl={impl!r}: this slice ports the ita_int serve arithmetic; "
-            f"float and ita_ste come with float_xla and the training slice")
+            f"impl={impl!r}: the QAT forward (ita_ste) comes with the "
+            f"training slice of the port (ROADMAP, \"Training\")")
     dev = q.device
     b, sq_in, h, hd = q.shape
     skv_in, g = k.shape[1], k.shape[2]
@@ -84,13 +88,16 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     n_q = sq // cq
 
     # (B, G, M, S, hd) queries; (B, G, hd, S) keys; (B, G, S, hd) values
-    q_i = q.to(torch.int8).reshape(b, sq, g, m_, hd).permute(0, 2, 3, 1, 4)
-    k_t = k.to(torch.int8).permute(0, 2, 3, 1)
-    v_i = v.to(torch.int8).permute(0, 2, 1, 3)
-    qk = _f32(s_q, dev) * _f32(s_k, dev)
-    fmult = qk * _f32(np.float32(scale), dev)
-    lmult = fmult / _f32(np.float32(EPS_MAX), dev)
+    is_int = impl == "ita_int"
+    cast = (lambda t: t.to(torch.int8)) if is_int else (lambda t: t.float())
+    q_i = cast(q).reshape(b, sq, g, m_, hd).permute(0, 2, 3, 1, 4)
+    k_t = cast(k).permute(0, 2, 3, 1)
+    v_i = cast(v).permute(0, 2, 1, 3)
+    scale_t = _f32(np.float32(scale), dev)
     eps = _f32(np.float32(EPS_MAX), dev)
+    if is_int:
+        fmult = _f32(s_q, dev) * _f32(s_k, dev) * scale_t
+        lmult = fmult / eps
 
     outs = []
     for iq in range(n_q):
@@ -100,9 +107,11 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
         lo = max(0, (q0 - window + 1) // ckv) if window > 0 else 0
         n_steps = max(hi - lo, 1)
         qc = q_i[:, :, :, q0:q0 + cq]                    # (B,G,M,cq,hd)
-        m = torch.full((b, g, m_, cq, 1), -256, dtype=torch.int32,
-                       device=dev)
-        sig = torch.zeros((b, g, m_, cq, 1), dtype=torch.int32, device=dev)
+        m = (torch.full((b, g, m_, cq, 1), -256, dtype=torch.int32,
+                        device=dev) if is_int else
+             torch.full((b, g, m_, cq, 1), NEG, dtype=torch.float32,
+                        device=dev))
+        sig = torch.zeros((b, g, m_, cq, 1), dtype=m.dtype, device=dev)
         acc = torch.zeros((b, g, m_, cq, hd), dtype=torch.float32,
                           device=dev)
         for step in range(n_steps):
@@ -111,11 +120,21 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
             kc = k_t[..., ks:ks + ckv].unsqueeze(2)      # (B,G,1,hd,ckv)
             vc = v_i[:, :, ks:ks + ckv].unsqueeze(2)     # (B,G,1,ckv,hd)
             valid = _chunk_mask(cq, ckv, q0, k0, causal, window, kv_len, dev)
+            if not is_int:                               # online softmax
+                sc = _softcap(torch.matmul(qc, kc) * scale_t, softcap)
+                x = torch.where(valid, sc, NEG)
+                new_m = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+                w = torch.where(valid, torch.exp(sc - new_m), 0.0)
+                corr = torch.exp(m - new_m)
+                sig = sig * corr + w.sum(dim=-1, keepdim=True)
+                acc = acc * corr + torch.matmul(w, vc)
+                m = new_m
+                continue
             acc32 = int_matmul(qc, kc)                   # (B,G,M,cq,ckv)
             if not softcap:
                 lf = acc32 * lmult
             else:
-                lf = torch.tanh(acc32 * fmult / softcap) * softcap / eps
+                lf = _softcap(acc32 * fmult, softcap) / eps
             lg = torch.clamp(torch.round(lf), -128, 127).to(torch.int32)
             x = torch.where(valid, lg, -256)
             new_m = torch.maximum(m, x.amax(dim=-1, keepdim=True))
@@ -130,6 +149,9 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
             acc = acc * pow2_neg(delta) + pv
             m = new_m
 
+        if not is_int:
+            outs.append(acc / torch.clamp(sig, min=1e-9))
+            continue
         sig = torch.clamp(sig, min=1)
         e_r = floor_log2(sig) if adaptive else torch.full_like(sig, 8)
         pre = torch.clamp(e_r + 8 - 30, min=0)

@@ -10,8 +10,8 @@ verdicts.
 
 Backend names are config keys (``ModelConfig.attention_backend``) shared
 with the JAX package, so one config picks the same backend in both.
-Backends of the JAX package that this slice of the port does not carry
-yet (``UNPORTED``) raise ``NotImplementedError`` naming their slice.
+Backends also declare an exactness ``family``: two eligible backends of
+one family are bit-identical on the int8 output grid.
 """
 
 from __future__ import annotations
@@ -23,13 +23,6 @@ from typing import Any
 from repro_torch.attention.spec import AttentionSpec
 
 SupportsFn = Callable[[AttentionSpec], bool | str]
-
-# JAX-package backends still to be ported, and where they come in.
-_BACKENDS_SLICE = ("the dispatch backends with the baseline softmaxes of "
-                   "core/softmax.py (ROADMAP, \"The rest of core/softmax.py, "
-                   "then the other dispatch backends\")")
-UNPORTED = {name: _BACKENDS_SLICE
-            for name in ("ita_direct_xla", "ibert_xla", "float_xla")}
 
 
 class BackendUnsupported(ValueError):
@@ -57,10 +50,6 @@ def register_backend(backend: Backend) -> Backend:
 
 
 def get_backend(name: str) -> Backend:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"attention backend {name!r} is not ported yet: it comes with "
-            f"{UNPORTED[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown attention backend {name!r}; "
                        f"registered: {list(_REGISTRY)}")
@@ -155,10 +144,9 @@ def dispatch(q, k, v, *, spec: AttentionSpec, scales=None,
                  None)
         if b is None:
             detail = "; ".join(f"{n}: {r}" for n, r in reasons.items())
-            raise NotImplementedError(
-                f"no ported backend supports {spec} (verdicts — {detail}); "
-                f"the JAX package's {sorted(UNPORTED)} come with later "
-                f"slices of the port")
+            raise BackendUnsupported(
+                f"no registered backend supports {spec}; "
+                f"verdicts — {detail}")
     if (spec.layout == "bhsd_paged") != (page_table is not None):
         raise ValueError(
             "page_table= is required by exactly the 'bhsd_paged' layout "

@@ -134,3 +134,44 @@ class QuantScales:
             raise ValueError(f"QuantScales missing {missing} "
                              "(required by the selected backend)")
         return self
+
+
+# ---------------------------------------------------------------------------
+# Declared operand ranges — the bounds the JAX package's range verifier
+# seeds its proofs from; the port's kernel tests assert them.
+# ---------------------------------------------------------------------------
+
+# Quantized activations/KV live on the signed 8-bit grid.
+INT8_RANGE = (-128, 127)
+
+# Requantization multipliers are ratios of calibrated scales (s_v/s_out,
+# s_q*s_k*query_scale, ...). QAT calibration clamps scales into
+# [2^-8, 8.0]; any ratio of two such scales (optionally times the
+# 1/sqrt(d) query scale, d >= 1) stays inside [2^-11, 2^11].
+SCALE_BOUNDS = (2.0 ** -8, 8.0)
+MULT_BOUNDS = (0.0, 2.0 ** 11)
+
+# Logical positions (kv_len, q_offset) are bounded by the largest KV
+# pool any config allocates, used when the caller passes no tighter
+# capacity.
+MAX_KV_CAPACITY = 1 << 20
+
+
+def declared_ranges(spec: AttentionSpec, *, kv_capacity: int | None = None,
+                    num_pages: int | None = None) -> dict:
+    """Map operand roles to their declared ``(lo, hi)`` bounds for
+    ``spec``. Roles: q/k/v (activations), scale (per-role quant scales),
+    mult (folded requant multipliers), kv_len/q_offset/q_len (positions),
+    page_table (physical page ids)."""
+    cap = kv_capacity if kv_capacity is not None else MAX_KV_CAPACITY
+    act = INT8_RANGE if spec.impl != "float" else \
+        (INT8_RANGE[0] * SCALE_BOUNDS[1], INT8_RANGE[1] * SCALE_BOUNDS[1])
+    return {
+        "q": act, "k": act, "v": act,
+        "scale": SCALE_BOUNDS,
+        "mult": MULT_BOUNDS,
+        "kv_len": (0, cap),
+        "q_offset": (0, cap),
+        "q_len": (0, cap),
+        "page_table": (0, (num_pages or 1) - 1),
+    }

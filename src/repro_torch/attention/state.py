@@ -46,6 +46,7 @@ import hashlib
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.common import MIN_BLOCK_KV
 
 
@@ -90,9 +91,11 @@ class KVCacheState:
 
     @classmethod
     def init(cls, batch: int, capacity: int, n_kv_heads: int, head_dim: int,
-             dtype=torch.int8, device="cpu") -> "KVCacheState":
+             dtype=torch.int8, device="cuda") -> "KVCacheState":
         """Fresh (zeroed) ring-buffer cache, capacity block-aligned above
-        one KV block."""
+        one KV block, on ``device`` (default the card; raises when CUDA is
+        missing)."""
+        device = resolve_device(device)
         capacity = _align_capacity(capacity)
         shape = (batch, capacity, n_kv_heads, head_dim)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
@@ -205,13 +208,16 @@ class PagedKVState:
 
     @classmethod
     def init(cls, batch: int, capacity: int, n_kv_heads: int, head_dim: int,
-             dtype=torch.int8, device="cpu", *, page_size: int = MIN_BLOCK_KV,
+             dtype=torch.int8, device="cuda", *,
+             page_size: int = MIN_BLOCK_KV,
              num_pages: int | None = None) -> "PagedKVState":
-        """Fresh pool. ``capacity`` (per-sequence logical window) rounds
-        up to a ``page_size`` multiple; ``num_pages`` sizes the shared
-        arena (default: fully provisioned, ``batch * pages_per_seq`` +
-        the parking page — pass less to oversubscribe under an admission
+        """Fresh pool on ``device`` (default the card; raises when CUDA is
+        missing). ``capacity`` (per-sequence logical window) rounds up to
+        a ``page_size`` multiple; ``num_pages`` sizes the shared arena
+        (default: fully provisioned, ``batch * pages_per_seq`` + the
+        parking page — pass less to oversubscribe under an admission
         scheduler)."""
+        device = resolve_device(device)
         capacity = max(capacity, 1)
         n_pages = _ceil_div(capacity, page_size)
         if num_pages is None:

@@ -3,9 +3,9 @@
 A ``ModelConfig`` names the layer stack as *layer groups*:
 ``(pattern, n_periods)`` pairs. Pattern elements name block kinds
 (``attn`` global self-attention, ``local``/``swa`` sliding window,
-``cross``, ``attn_cross``, ``rglru``, ``rwkv``); this slice of the port
-builds ``attn`` groups only. Field names and defaults match the JAX
-package, so one config means the same thing in both.
+``cross``, ``attn_cross``, ``rglru``, ``rwkv``); the port builds the
+``attn``, ``local`` and ``swa`` kinds so far. Field names and defaults
+match the JAX package, so one config means the same thing in both.
 """
 
 from __future__ import annotations

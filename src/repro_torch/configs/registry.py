@@ -1,19 +1,21 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 
-This slice of the port registers the dense decoder of its main path,
-``qwen2-7b`` (and its ``qwen2-smoke`` width); the other architectures of
-``repro.configs.registry`` come with the blocks they need (ROADMAP,
-"Model breadth").
+The port registers the dense decoder of its main path, ``qwen2-7b``, and
+``gemma2-27b`` (local/global attention with softcaps, served by the
+direct integer backend), each with its smoke width; the other
+architectures of ``repro.configs.registry`` come with the blocks they
+need (ROADMAP, "Model breadth").
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import qwen2_7b
+from repro_torch.configs import gemma2_27b, qwen2_7b
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen2-7b": qwen2_7b,
+    "gemma2-27b": gemma2_27b,
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -13,8 +13,15 @@ normalization is a shift of the inverted denominator, ``p_i = sigma_inv
   output scale ``2^-e_r`` (adaptive).
 - **EN** (element normalization): pure shifts.
 
-The baselines of the JAX module (``softmax_float``, I-BERT, Softermax and
-the QAT STE forward) come with the dispatch backends that use them.
+Baselines, as in the JAX module: ``softmax_float`` (the float oracle),
+I-BERT's integer softmax (the paper's accuracy baseline; integers held in
+float32 as the reference implementation holds them, and an exact int64
+copy for MAE tables), Softermax (base-2 fixed point) and the QAT forward
+``ita_softmax_ste`` with straight-through floors. Their host constants
+(I-BERT's ``x0``, ``b``, ``c``, the scales) are computed from the same
+Python floats as the JAX module's, in float64, and every division by a
+non-power-of-two constant divides by a tensor: torch divides by a Python
+scalar as a multiply by its reciprocal on the card.
 
 Integer hazards, as in ``kernels/common.py``: JAX shifts with
 ``shift_right_logical``, torch ``>>`` on int32 is arithmetic; every shift
@@ -27,9 +34,10 @@ valid ones), and every caller replaces those lanes' shift by
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from repro_torch.core.quant import B_BITS, SOFTMAX_SHIFT
+from repro_torch.core.quant import B_BITS, EPS_MAX, SOFTMAX_SHIFT
 
 # 2**8 — the unit in which denominator terms are accumulated.
 _UNIT = 1 << B_BITS
@@ -52,8 +60,10 @@ def floor_log2(x: torch.Tensor) -> torch.Tensor:
 
 
 def pow2_neg(n: torch.Tensor) -> torch.Tensor:
-    """Exact float32 ``2^-n`` of an int32 tensor with ``0 <= n <= 126``,
-    built from its exponent bits (never an approximate ``exp2``)."""
+    """Exact float32 ``2^-n`` of an integer-valued tensor with ``-127 < n
+    <= 126``, built from its exponent bits (never an approximate
+    ``exp2``: XLA:CPU's is approximate beyond 2^12, and the JAX reference
+    runs with an exact one in the tests)."""
     return ((127 - n.to(torch.int32)) << 23).view(torch.float32)
 
 
@@ -210,3 +220,169 @@ def ita_softmax_adaptive(x_q: torch.Tensor, mask=None,
                          axis: int = -1) -> torch.Tensor:
     p, e_r, _ = ita_softmax_adaptive_int(x_q, mask=mask, axis=axis)
     return p.float() * pow2_neg(e_r)
+
+
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+
+def _f32(value, like: torch.Tensor) -> torch.Tensor:
+    """A float32 0-d tensor on ``like``'s device, filled there."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def softmax_float(x_q: torch.Tensor, eps: float = EPS_MAX, mask=None,
+                  axis: int = -1) -> torch.Tensor:
+    """Float oracle: softmax of the dequantized inputs."""
+    x = x_q.float() * _f32(eps, x_q)
+    if mask is not None:
+        x = torch.where(mask, x, -torch.inf)
+    return torch.softmax(x, dim=axis)
+
+
+# I-BERT (Kim et al., ICML'21) integer softmax — the paper's accuracy
+# baseline (MAE 0.35% vs ITA's 0.46%). Integer values in float tensors,
+# as in the reference implementation.
+_IBERT_COEF = (0.35815147, 0.96963238, 1.0)   # a(x+b)^2 + c, normalized
+_IBERT_N = 30
+_IBERT_X0 = -0.6931471805599453               # -ln 2
+
+
+def ibert_constants(eps: float = EPS_MAX) -> tuple[float, float, float]:
+    """``(x0_int, b_int, c_int)`` of I-BERT's exp for scale ``eps``,
+    floored in float64 on the host exactly as the JAX module does (-32,
+    124 and 5950 at ``EPS_MAX``; ``x0_int`` sits on an integer, so a
+    differently rounded quotient would floor to -33)."""
+    return (float(np.floor(_IBERT_X0 / eps)),
+            float(np.floor(_IBERT_COEF[1] / _IBERT_COEF[0] / eps)),
+            float(np.floor(_IBERT_COEF[2] / _IBERT_COEF[0] / eps ** 2)))
+
+
+def _ibert_int_polynomial(x_int, scale):
+    _, b_int, c_int = ibert_constants(scale)
+    z = (x_int + b_int) * x_int + c_int
+    return z, _IBERT_COEF[0] * scale ** 2
+
+
+def _ibert_int_exp(x_int, scale):
+    x0_int, _, _ = ibert_constants(scale)
+    x_int = torch.clamp(x_int, min=_IBERT_N * x0_int)
+    q = torch.div(x_int, _f32(x0_int, x_int), rounding_mode="floor")
+    r = x_int - x0_int * q
+    exp_int, exp_scale = _ibert_int_polynomial(r, scale)
+    exp_int = torch.clamp(torch.floor(exp_int * pow2_neg(q - _IBERT_N)),
+                          min=0)
+    return exp_int, exp_scale / 2 ** _IBERT_N
+
+
+def ibert_softmax(x_q: torch.Tensor, eps: float = EPS_MAX, mask=None,
+                  axis: int = -1, output_bit: int = 8) -> torch.Tensor:
+    """I-BERT IntSoftmax. Inputs int8 (cast up); internals 32-bit integers
+    held in float32 (as in the reference implementation), with its 16-bit
+    ``QuantAct`` requantization of the exponent before summation (scale
+    ``1/(2^15 - 1)``, since ``exp(x - max) <= 1``).
+
+    The row sum is taken exactly (in float64) and rounded once to
+    float32: the reference's float32 sum is exact, and then equal, while
+    it stays below 2^24 (every row of up to 512 columns); beyond that its
+    bits depend on the order of the sum."""
+    x_int = x_q.float()
+    if mask is not None:
+        x_int = torch.where(mask, x_int, x_int.min() - _f32(1e4, x_int))
+    x_int = x_int - x_int.amax(dim=axis, keepdim=True)
+    exp_int, exp_scale = _ibert_int_exp(x_int, eps)
+    # QuantAct(16): requantize exp to 16-bit symmetric (max real value 1)
+    exp16 = torch.floor(exp_int * _f32(exp_scale, x_int)
+                        * _f32(2.0 ** 15 - 1, x_int))
+    if mask is not None:
+        exp16 = torch.where(mask, exp16, 0.0)
+    exp_sum = exp16.double().sum(dim=axis, keepdim=True).float()
+    factor = torch.floor(_f32(2.0 ** 32, x_int)
+                         / torch.clamp(exp_sum, min=1.0))
+    out = torch.floor(exp16 * factor * 2.0 ** -(32 - output_bit))
+    return out * 2.0 ** -output_bit
+
+
+def ibert_softmax_np(x_q, eps: float = EPS_MAX,
+                     output_bit: int = 8) -> torch.Tensor:
+    """Exact int64 version of I-BERT softmax for MAE tables (float64
+    probabilities; the JAX module's numpy copy)."""
+    x_int = torch.as_tensor(x_q).to(torch.int64)
+    x_int = x_int - x_int.amax(dim=-1, keepdim=True)
+    x0_int, b_int, c_int = (int(c) for c in ibert_constants(eps))
+    x_int = torch.clamp(x_int, min=_IBERT_N * x0_int)
+    q = torch.div(x_int, x0_int, rounding_mode="floor")
+    r = x_int - x0_int * q
+    poly = (r + b_int) * r + c_int
+    exp_int = torch.clamp(poly * (torch.ones_like(q) << (_IBERT_N - q)),
+                          min=0)
+    # QuantAct(16) requant; exact integer arithmetic elsewhere
+    exp_scale = _IBERT_COEF[0] * eps ** 2 / 2 ** _IBERT_N
+    exp16 = torch.floor(exp_int.double() * exp_scale * (2.0 ** 15 - 1)
+                        ).to(torch.int64)
+    exp_sum = exp16.sum(dim=-1, keepdim=True)
+    factor = torch.div(torch.full_like(exp_sum, 1 << 32),
+                       torch.clamp(exp_sum, min=1), rounding_mode="floor")
+    out = (exp16 * factor) >> (32 - output_bit)
+    return out.double() / 2.0 ** output_bit
+
+
+def softermax(x_q: torch.Tensor, eps: float = EPS_MAX, frac_bits: int = 8,
+              mask=None, axis: int = -1) -> torch.Tensor:
+    """Softermax (Stevens et al., DAC'21): base-2 softmax with running max
+    in fixed point; the exponent ``2^(eps' * (x - max))`` evaluated in
+    Q(frac_bits). ``torch.exp2`` and XLA's round differently in the last
+    bit, so a numerator ``floor(2^z · 2^frac_bits)`` may differ from the
+    JAX module's by one where ``2^z · 2^frac_bits`` lies that close to an
+    integer."""
+    eps_p = eps * np.log2(np.e)
+    x = x_q.float()
+    if mask is not None:
+        x = torch.where(mask, x, -torch.inf)
+    z = (x - x.amax(dim=axis, keepdim=True)) * _f32(eps_p, x)
+    pow2 = torch.floor(torch.exp2(z) * 2.0 ** frac_bits)
+    denom = torch.clamp(pow2.sum(dim=axis, keepdim=True), min=1.0)
+    return pow2 / denom
+
+
+# ---------------------------------------------------------------------------
+# Differentiable QAT forward (straight-through floors)
+# ---------------------------------------------------------------------------
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: on a tie with a bound, half the gradient, as
+    ``lax.max``/``lax.min`` give it (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, _f32(lo, x)), _f32(hi, x))
+
+
+def _ste_round(x):
+    return x + (torch.round(x) - x).detach()
+
+
+def _ste_floor(x):
+    return x + (torch.floor(x) - x).detach()
+
+
+def ita_softmax_ste(logits: torch.Tensor, eps: float = EPS_MAX, mask=None,
+                    axis: int = -1) -> torch.Tensor:
+    """QAT forward matching the deployed integer pipeline: logits
+    quantized onto the int8 grid (STE round + clip), the exponent shift
+    floored (STE), normalization in float. ``torch.autograd`` gives the
+    straight-through gradient the JAX module's ``stop_gradient`` gives.
+    The weights ``2^-k`` are exact powers of two in the forward, carrying
+    ``exp2``'s gradient."""
+    q = _clip(_ste_round(logits / _f32(eps, logits)), -128, 127)
+    if mask is not None:
+        # finite everywhere for clean STE gradients; masked elements are
+        # zeroed multiplicatively below
+        qm = torch.where(mask, q, q.amin(dim=axis, keepdim=True).detach())
+    else:
+        qm = q
+    kf = _ste_floor((qm.amax(dim=axis, keepdim=True) - qm)
+                    / 2.0 ** SOFTMAX_SHIFT)
+    kc = _clip(kf, 0.0, 30.0)
+    e = torch.exp2(-kc)
+    w = e + (pow2_neg(kc.detach()) - e).detach()
+    if mask is not None:
+        w = w * mask.to(w.dtype)
+    return w / torch.maximum(w.sum(dim=axis, keepdim=True), _f32(1e-9, w))

@@ -10,18 +10,20 @@
 - ``ita_attention_stream_ref`` tile-by-tile mirror of the kernels'
                                streaming DA and accumulator corrections,
                                for exact equality at any tiling.
+- ``float_attention_ref``      float32 attention, the accuracy oracle.
 
 ``stream_rows`` is the tile loop itself over per-row logits, masks and
 values; the kernels' plain versions (``kernel.py``) feed it per-row
 GQA/ragged inputs, and the twopass ones its two halves
 (``twopass_stats``, ``twopass_out``). Integer products are exact float32
-products (``int_matmul``); p·V (p <= 256) is taken one KV tile at a time
-and summed in int64, exact at any length; powers of two are built
-exactly (``pow2_neg``).
+products (``int_matmul``); p·V (p <= 256, ``exact_pv``) is taken one
+KV tile at a time and summed in int64, exact at any length; powers of
+two are built exactly (``pow2_neg``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.quant import INT8_MAX, INT8_MIN, SOFTMAX_SHIFT
@@ -78,16 +80,18 @@ def _requant_out(acc, inv, e_r, omult):
     return torch.clamp(y, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
-def _pv(p, v_rows, block_kv):
-    """Exact p·V of int32 p (R, sq, skv), 0 <= p <= 256, and int8 v_rows
-    (R, skv, d): float32 products per KV tile (each partial sum below
-    2^24), summed across tiles in int64. Returns int64 (R, sq, d)."""
+def exact_pv(p, v_rows, block_kv):
+    """Exact p·V of int32 p (..., sq, skv), 0 <= p <= 256, and int8
+    v_rows (..., skv, d) (leading dims broadcast): float32 products per
+    KV tile of ``block_kv`` <= 512 keys (each partial sum an integer of
+    magnitude <= 2^24, exact), summed across tiles in int64. Returns
+    int64 (..., sq, d)."""
     skv = p.shape[-1]
-    acc = torch.zeros((*p.shape[:-1], v_rows.shape[-1]), dtype=torch.int64,
-                      device=p.device)
+    acc = None
     for j0 in range(0, skv, block_kv):
         sl = slice(j0, min(j0 + block_kv, skv))
-        acc += int_matmul(p[..., sl], v_rows[:, sl]).to(torch.int64)
+        part = int_matmul(p[..., sl], v_rows[..., sl, :]).to(torch.int64)
+        acc = part if acc is None else acc + part
     return acc
 
 
@@ -122,7 +126,7 @@ def twopass_out(a, valid, row_max, sigma_inv, e_r, v_rows, omult, *,
     finalize. Returns (R, sq, d) int8."""
     k = torch.clamp((row_max - a).clamp(min=0) >> SOFTMAX_SHIFT, max=31)
     k = torch.where(valid, k, MASK_K)
-    acc = _pv(sigma_inv >> k, v_rows, block_kv)
+    acc = exact_pv(sigma_inv >> k, v_rows, block_kv)
     return _requant_twopass(acc, e_r, omult)
 
 
@@ -166,7 +170,7 @@ def ita_attention_ref(q_q, k_q, v_q, lmult, omult, kv_len, *, causal,
     logits = requant_logits(q_q, k_q, lmult)
     k, sigma, _ = _k_and_sigma(logits, valid)
     inv, e_r = _inverse(sigma, adaptive)
-    out = _requant_twopass(_pv(inv >> k, v_q, 128), e_r, omult)
+    out = _requant_twopass(exact_pv(inv >> k, v_q, 128), e_r, omult)
     return out, logits.to(torch.int8)
 
 
@@ -194,3 +198,18 @@ def ita_attention_stream_ref(q_q, k_q, v_q, lmult, omult, kv_len, *, causal,
     logits = requant_logits(q_q, k_q, lmult)
     return stream_rows(logits, valid, v_q, omult, adaptive=adaptive,
                        block_kv=block_kv, kind=kind)
+
+
+def float_attention_ref(q, k, v, *, causal, window=0, kv_len=None,
+                        q_offset=0):
+    """f32 attention oracle for end-to-end accuracy comparisons. q
+    (BH,sq,d), k/v (BH,skv,d) float."""
+    d = q.shape[-1]
+    kv_len = k.shape[1] if kv_len is None else kv_len
+    valid = _full_mask(q.shape[1], k.shape[1], causal, window, kv_len,
+                       q_offset, q.device)[None]
+    s = torch.matmul(q, k.transpose(1, 2)) / torch.full(
+        (), np.sqrt(d), dtype=torch.float32, device=q.device)
+    s = torch.where(valid, s, -torch.inf)
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
+    return torch.matmul(p, v)

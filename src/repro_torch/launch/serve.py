@@ -7,16 +7,21 @@ the paged int8 pool.
         --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --arch qwen2-7b --continuous \
         --batch 4 --requests 16 --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch gemma2-27b --batch 4 \
+        --prompt-len 512 --gen 32
 
 Weights are random from ``--seed`` at the full width of the config (bf16
-on the card, about 15.2 GB for qwen2-7b); ``--smoke`` takes the narrow
-config. Attention is ITA's int8 pipeline (the float and I-BERT impls
-come with their backends). Runs on the card; ``--device cpu`` runs the
-plain versions on the CPU. ``--ragged`` serves right-padded prompts of
-random lengths in [prompt_len/2, prompt_len]; ``--paged`` swaps the
-rings for the shared paged pool (equal tokens); ``--loop stepwise`` runs
-the decode step's ops eagerly in place of replaying it from a CUDA graph
-(``fused``, the default; equal tokens).
+on the card, about 15.2 GB for qwen2-7b and 54.4 GB for gemma2-27b);
+``--smoke`` takes the narrow config. ``--attention-impl`` picks the
+attention arithmetic: ``ita`` (the default; ITA's int8 pipeline),
+``ibert`` (I-BERT's integer softmax on the same int8 pipeline) or
+``float`` (the float softmax over bf16 caches), the paper's baselines.
+Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
+``--ragged`` serves right-padded prompts of random lengths in
+[prompt_len/2, prompt_len]; ``--paged`` swaps the rings for the shared
+paged pool (equal tokens); ``--loop stepwise`` runs the decode step's
+ops eagerly in place of replaying it from a CUDA graph (``fused``, the
+default; equal tokens).
 
 ``--continuous`` serves an arrival trace built as the JAX CLI builds it
 (Poisson arrivals at ``--rate`` per decode step, prompt lengths in
@@ -65,6 +70,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-7b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--attention-impl", default="ita",
+                    choices=["float", "ita", "ibert"])
     ap.add_argument("--attention-backend", default="",
                     choices=[""] + ATT.list_backends(),
                     help="prefer a registry backend at every call site it "
@@ -161,7 +168,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, smoke=args.smoke, attention_impl="ita",
+    cfg = get_config(args.arch, smoke=args.smoke,
+                     attention_impl=args.attention_impl,
                      attention_backend=args.attention_backend)
     if args.list_backends:
         for mode, q_len in (("decode", 1), ("prefill", args.prompt_len)):

@@ -24,21 +24,30 @@ import numpy as np
 import torch
 
 from repro_torch.attention.state import scatter_drop
+from repro_torch.device import resolve_device
 from repro_torch.models import forward
 from repro_torch.models.layers import unembed
 
 
 def make_prefill_step(cfg):
+    """The prompt's forward pass, unembedding only each sequence's last
+    position: a row's logits do not depend on the rows beside it
+    (``models.layers.linear``), so these are the bits of the full
+    logits' last row, without the (B, S, V) float32 tensor (8.4 GB for
+    gemma2-27b's 256k vocabulary at 4 x 512 tokens)."""
     def prefill_step(model, tokens, caches, lengths=None):
-        logits, caches = forward(model, tokens, cfg, mode="prefill",
-                                 caches=caches, lengths=lengths)
+        x, caches = forward(model, tokens, cfg, mode="prefill",
+                            caches=caches, lengths=lengths,
+                            skip_unembed=True)
         if lengths is None:
-            return logits[:, -1:], caches
-        # ragged: each sequence's next-token logits sit at its own last
-        # valid position of the right-padded prompt
-        idx = (torch.as_tensor(lengths, device=logits.device).long() - 1)
-        return logits[torch.arange(logits.shape[0], device=logits.device),
-                      idx][:, None], caches
+            last = x[:, -1:]
+        else:
+            # ragged: each sequence's next-token logits sit at its own
+            # last valid position of the right-padded prompt
+            idx = torch.as_tensor(lengths, device=x.device).long() - 1
+            last = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
+        return unembed(model.unembed_weight(), last, cfg.logit_softcap), \
+            caches
     return prefill_step
 
 
@@ -369,7 +378,10 @@ class ServeSlotState:
 
     @classmethod
     def init(cls, slots: int, prompt_pad: int,
-             device="cpu") -> "ServeSlotState":
+             device="cuda") -> "ServeSlotState":
+        """Empty slots (all done) on ``device`` (default the card; raises
+        when CUDA is missing)."""
+        device = resolve_device(device)
         i32 = dict(dtype=torch.int32, device=device)
         return cls(tok=torch.zeros((slots, 1), **i32),
                    pos=torch.zeros((slots,), **i32),

@@ -1,5 +1,5 @@
 """Shared layers (``repro.models.layers``): RMSNorm with a ``1 + scale``
-gain, RoPE, the SwiGLU MLP, embedding and unembedding.
+gain, RoPE, the SwiGLU and GeGLU MLPs, embedding and unembedding.
 
 Every projection goes through ``linear`` and every norm reduces through
 the same fixed row blocks: both compute in blocks of exactly
@@ -88,6 +88,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 class SwiGLU(nn.Module):
+    """Gated MLP ``(act(x @ w_gate) * (x @ w_up)) @ w_down`` with SiLU."""
+
+    act = staticmethod(F.silu)
+
     def __init__(self, d: int, f: int, *, dtype, device, generator=None):
         super().__init__()
         s_in, s_out = d ** -0.5, f ** -0.5
@@ -97,8 +101,16 @@ class SwiGLU(nn.Module):
         self.w_down = normal_param((f, d), s_out, **kw)
 
     def forward(self, x):
-        return linear(F.silu(linear(x, self.w_gate)) * linear(x, self.w_up),
+        return linear(self.act(linear(x, self.w_gate)) * linear(x, self.w_up),
                       self.w_down)
+
+
+class GeGLU(SwiGLU):
+    """The gated MLP with tanh-approximate GELU (gemma2)."""
+
+    @staticmethod
+    def act(v):
+        return F.gelu(v, approximate="tanh")
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -109,5 +121,9 @@ def unembed(w: torch.Tensor, x: torch.Tensor, softcap: float = 0.0):
     """x (..., d) @ w (d, V) -> float32 logits (optionally softcapped)."""
     logits = linear(x, w).float()
     if softcap > 0:
-        logits = torch.tanh(logits / softcap) * softcap
+        # a tensor divisor: the card divides by a Python scalar as a
+        # multiply by its reciprocal
+        cap = torch.full((), softcap, dtype=torch.float32,
+                         device=logits.device)
+        logits = torch.tanh(logits / cap) * cap
     return logits

@@ -1,6 +1,9 @@
-"""Model assembly (``repro.models.transformer``) for the dense decoder:
-``attn`` blocks in layer groups, run by a Python loop over layers where
-the JAX package scans period-stacked parameters.
+"""Model assembly (``repro.models.transformer``) for dense decoders:
+attention blocks (``attn`` global, ``local``/``swa`` sliding window) in
+layer groups, run by a Python loop over layers where the JAX package
+scans period-stacked parameters. Gemma2's extras are here too: GeGLU,
+post-norms on both residual branches, scaled embeddings and the final
+logit softcap.
 
     model = init_model(cfg, seed=0)                  # on the card
     caches = init_caches(cfg, batch, max_len)        # one ring per layer
@@ -25,48 +28,74 @@ from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import device_tensor
 from repro_torch.models.attention import Attention
-from repro_torch.models.layers import (SwiGLU, const_param, embed,
+from repro_torch.models.layers import (GeGLU, SwiGLU, const_param, embed,
                                        normal_param, rmsnorm, unembed)
 
-_PORTED_KINDS = ("attn",)
+# block kind -> the attention layer's kind (its window)
+_ATTN_KINDS = {"attn": "global", "local": "local", "swa": "swa"}
+_MLPS = {"swiglu": SwiGLU, "geglu": GeGLU}
 
 
 def _check_ported(cfg):
     kinds = {k for pat, _ in cfg.layer_groups for k in pat}
-    if kinds - set(_PORTED_KINDS) or cfg.mlp_type != "swiglu" \
+    if kinds - set(_ATTN_KINDS) or cfg.mlp_type not in _MLPS \
             or cfg.norm_type != "rmsnorm" or cfg.n_encoder_layers \
-            or cfg.frontend_dim or cfg.sinusoidal_pos or cfg.attn_softcap \
-            or cfg.embed_scale \
-            or cfg.name.startswith("gemma2"):
+            or cfg.frontend_dim or cfg.sinusoidal_pos:
         raise NotImplementedError(
             f"{cfg.name}: this slice of the port builds dense decoders of "
-            f"{_PORTED_KINDS} blocks with SwiGLU and RMSNorm; the other "
-            f"blocks come with later slices (ROADMAP, \"Model breadth\")")
+            f"{tuple(_ATTN_KINDS)} blocks with {tuple(_MLPS)} MLPs and "
+            f"RMSNorm; the other blocks come with later slices (ROADMAP, "
+            f"\"Model breadth\")")
+
+
+def layer_kinds(cfg):
+    """Block kinds in execution order (group-major, then period, then
+    pattern position)."""
+    return [kind for pattern, n in cfg.layer_groups for _ in range(n)
+            for kind in pattern]
+
+
+def _has_post_norms(cfg) -> bool:
+    return bool(cfg.attn_softcap) or cfg.name.startswith("gemma2")
+
+
+def _norm(cfg, device):
+    return const_param((cfg.d_model,), 0.0, dtype=torch.float32,
+                       device=device)
 
 
 class Block(nn.Module):
-    """Pre-norm attention block: x + attn(norm1(x)), then x + mlp(norm2(x))."""
+    """Pre-norm attention block: x + attn(norm1(x)), then x + mlp(norm2(x));
+    with post-norms (gemma2) each branch is normed before its residual
+    add: x + post_norm(branch)."""
 
-    def __init__(self, cfg, *, device, generator=None):
+    def __init__(self, cfg, kind, *, device, generator=None):
         super().__init__()
-        self.norm1 = const_param((cfg.d_model,), 0.0, dtype=torch.float32,
-                                 device=device)
+        self.kind = kind
+        self.norm1 = _norm(cfg, device)
         self.attn = Attention(cfg, device=device, generator=generator)
-        self.norm2 = const_param((cfg.d_model,), 0.0, dtype=torch.float32,
-                                 device=device)
-        self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
-                          device=device, generator=generator)
+        self.norm2 = _norm(cfg, device)
+        self.mlp = _MLPS[cfg.mlp_type](
+            cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(), device=device,
+            generator=generator)
+        if _has_post_norms(cfg):
+            self.post_norm1 = _norm(cfg, device)
+            self.post_norm2 = _norm(cfg, device)
+
+    def _residual(self, x, y, post):
+        post = getattr(self, post, None)
+        return x + (y if post is None else rmsnorm(post, y))
 
     def forward(self, x, *, cfg, positions, cache, mode, lengths=None,
                 live=None, q_lens=None):
         h = rmsnorm(self.norm1, x)
-        y, new_mix = self.attn(h, cfg=cfg, kind="global",
+        y, new_mix = self.attn(h, cfg=cfg, kind=_ATTN_KINDS[self.kind],
                                positions=positions,
                                cache=None if cache is None else cache["mix"],
                                mode=mode, lengths=lengths, live=live,
                                q_lens=q_lens)
-        x = x + y
-        x = x + self.mlp(rmsnorm(self.norm2, x))
+        x = self._residual(x, y, "post_norm1")
+        x = self._residual(x, self.mlp(rmsnorm(self.norm2, x)), "post_norm2")
         return x, (None if cache is None else dict(cache, mix=new_mix))
 
 
@@ -87,10 +116,9 @@ class Transformer(nn.Module):
                                         cfg.d_model ** -0.5, dtype=dt,
                                         device=device, generator=generator)
         self.blocks = nn.ModuleList(
-            Block(cfg, device=device, generator=generator)
-            for _ in range(cfg.n_layers))
-        self.final_norm = const_param((cfg.d_model,), 0.0,
-                                      dtype=torch.float32, device=device)
+            Block(cfg, kind, device=device, generator=generator)
+            for kind in layer_kinds(cfg))
+        self.final_norm = _norm(cfg, device)
 
     def unembed_weight(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -140,8 +168,9 @@ def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
         put(model.final_norm, tree["final_norm"]["scale"])
         for i, blk in _layer_leaves(tree, cfg):
             mine = model.blocks[i]
-            put(mine.norm1, blk["norm1"]["scale"])
-            put(mine.norm2, blk["norm2"]["scale"])
+            for norm in ("norm1", "norm2", "post_norm1", "post_norm2"):
+                if norm in blk:
+                    put(getattr(mine, norm), blk[norm]["scale"])
             for leaf, a in blk["attn"].items():
                 put(getattr(mine.attn, leaf), a)
             for leaf, a in blk["mlp"].items():
@@ -156,21 +185,32 @@ def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
     ``KVCacheState`` ring, or with ``paged=True`` a ``PagedKVState`` pool
     (one arena and page table per layer, ``num_pages`` pages each; None
     provisions fully) — int8 for the quantized impls, the compute dtype
-    for float."""
+    for float. A ``local``/``swa`` layer's capacity is ``min(max_len,
+    window)``: its window caps what it keeps."""
     dev = resolve_device(device)
     _check_ported(cfg)
     kv_dt = torch.int8 if cfg.attention_impl != "float" \
         else cfg.compute_dtype()
+    capacity = {"attn": max_len, "local": min(max_len, cfg.local_window),
+                "swa": min(max_len, cfg.window)}
 
-    def kv_cache():
+    def kv_cache(size):
         if paged:
-            return PagedKVState.init(batch, max_len, cfg.n_kv_heads,
+            return PagedKVState.init(batch, size, cfg.n_kv_heads,
                                      cfg.head_dim, dtype=kv_dt, device=dev,
                                      page_size=page_size,
                                      num_pages=num_pages)
-        return KVCacheState.init(batch, max_len, cfg.n_kv_heads,
+        return KVCacheState.init(batch, size, cfg.n_kv_heads,
                                  cfg.head_dim, dtype=kv_dt, device=dev)
-    return [{"mix": kv_cache()} for _ in range(cfg.n_layers)]
+    return [{"mix": kv_cache(capacity[kind])} for kind in layer_kinds(cfg)]
+
+
+def embed_scale(cfg, dtype, device) -> torch.Tensor:
+    """The embeddings' factor ``sqrt(d_model)``, rounded to the compute
+    dtype as the JAX package rounds it (68.0 for gemma2-27b's 67.88 in
+    bf16)."""
+    return torch.full((), float(np.sqrt(cfg.d_model)), dtype=dtype,
+                      device=device)
 
 
 def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
@@ -189,6 +229,8 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     x = embed(model.embed, tokens)
+    if cfg.embed_scale:
+        x = x * embed_scale(cfg, x.dtype, dev)
     s = tokens.shape[1]
     ar = torch.arange(s, dtype=torch.int32, device=dev)
     if pos0 is None:

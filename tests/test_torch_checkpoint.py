@@ -72,7 +72,8 @@ def _pools(seed, layers=2):
     g = torch.Generator().manual_seed(seed)
     out = []
     for _ in range(layers):
-        p = PagedKVState.init(3, 256, 2, 16, page_size=128, num_pages=6)
+        p = PagedKVState.init(3, 256, 2, 16, page_size=128, num_pages=6,
+                               device="cpu")
         p = p._alloc(torch.tensor([2, 1, 0], dtype=torch.int32))
         p = p.incref_pages(torch.tensor([1], dtype=torch.int32))
         k = torch.randint(-128, 128, p.k.shape, generator=g,

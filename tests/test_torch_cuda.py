@@ -7,7 +7,11 @@ must equal its plain version on the same CUDA tensors bit for bit: 3D
 and 4D rings and paged pools, GQA, ragged rows and query counts, causal
 and windowed, adaptive and paper DI, short rings (one tile of 20) and
 multi-tile ones; the twopass kernels (out, A and pass 1's statistics),
-the standalone softmax kernel and both int8 matmul kernels.
+the standalone softmax kernel and both int8 matmul kernels. The direct
+and baseline backends (``ita_direct_xla``, ``ibert_xla``, ``float_xla``;
+plain torch ops) on the card equal their CPU results, and smoke-width
+``generate()`` through them launches no fused kernel and gives equal
+tokens from both loops.
 """
 
 import numpy as np
@@ -701,3 +705,129 @@ def test_cuda_journaled_serve_recovers_with_warm_restore(sampled, tmp_path):
     assert {c.index for c in res.completed} == set(want)
     for c in res.completed:
         assert np.array_equal(c.tokens, want[c.index]), c.index
+
+
+# --------------------------------------------------------------------------
+# The direct/baseline backends (plain torch ops) on the card
+# --------------------------------------------------------------------------
+
+XLA_CASES = [
+    # backend, mode, sq, skv, hq, hkv, d, window, softcap, query scale
+    ("ita_direct_xla", "decode", 1, 640, 28, 4, 128, 0, 0.0, 0.0),
+    ("ita_direct_xla", "decode", 2, 4096, 32, 16, 128, 4096, 0.0,
+     144.0 ** -0.5),
+    ("ita_direct_xla", "decode", 1, 4096, 32, 16, 128, 4096, 50.0,
+     144.0 ** -0.5),
+    ("ibert_xla", "decode", 1, 640, 28, 4, 128, 0, 0.0, 0.0),
+    ("ibert_xla", "prefill", 256, 256, 28, 4, 128, 0, 0.0, 0.0),
+    ("float_xla", "decode", 1, 640, 28, 4, 128, 0, 0.0, 0.0),
+    ("float_xla", "prefill", 600, 600, 28, 4, 128, 0, 50.0, 0.1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", XLA_CASES, ids=[
+    f"{c[0]}-{c[1]}-sq{c[2]}-skv{c[3]}-cap{c[8]:g}" for c in XLA_CASES])
+def test_cuda_xla_backends_match_cpu(case):
+    """Each direct/baseline backend through ``dispatch`` on CUDA tensors
+    against the same call on the CPU: bit-exact on the integer paths
+    (ITA direct, I-BERT) except, with a softcap, output rows whose
+    logits hold a value within one float32 ulp of a .5 tie (CUDA's and
+    the CPU's ``tanh`` may differ in the last bit); the float path
+    within 1e-4 (``exp`` and float32 sums in other orders). Ragged
+    positions over rings of qwen2-7b's and gemma2-27b's decode shapes
+    (over 4096 keys a third of the rows hold such a tie; the others must
+    be equal)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    exact_float32_matmul()
+    from repro_torch import attention as ATT
+    from repro_torch.attention import xla as X
+    from repro_torch.core.quant import EPS_MAX
+    backend, mode, sq, skv, hq, hkv, d, window, cap, qs = case
+    impl = {"ita_direct_xla": "ita", "ibert_xla": "ibert",
+            "float_xla": "float"}[backend]
+    rng = np.random.default_rng(skv + sq)
+    b = 2
+    q = rng.normal(0, 2.0, (b, sq, hq, d)).astype(np.float32)
+    if impl == "float":
+        k = rng.normal(0, 2.0, (b, skv, hkv, d)).astype(np.float32)
+        v = rng.normal(0, 1.0, (b, skv, hkv, d)).astype(np.float32)
+    else:
+        k = rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8)
+        v = rng.integers(-128, 128, (b, skv, hkv, d), dtype=np.int8)
+    if mode == "decode":
+        kv_len = np.array([skv, skv // 3], np.int32)
+        q_offset, kv = kv_len - sq, kv_len
+    else:
+        q_offset, kv = 0, None
+    spec = ATT.AttentionSpec(mode=mode, impl=impl, window=window,
+                             softcap=cap, query_scale=qs, q_len=sq,
+                             n_heads=hq)
+    scales = (0.05, 0.04, 0.06, 0.03)
+
+    def run(dev):
+        def t(a):
+            return torch.as_tensor(a, device=dev) \
+                if isinstance(a, np.ndarray) else a
+        return ATT.dispatch(
+            t(q), t(k), t(v), spec=spec, backend=backend,
+            scales=ATT.QuantScales(*(torch.tensor(s, device=dev)
+                                     for s in scales)),
+            q_offset=t(q_offset), kv_len=t(kv)).cpu()
+    got, want = run("cuda"), run("cpu")
+    if impl == "float":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        return
+    same = (got == want).all(-1)                        # (B, Sq, H) rows
+    if not cap:
+        assert bool(same.all())
+        return
+    q8 = X.quantize_to_int8(torch.from_numpy(q), torch.tensor(scales[0]))
+    acc = X.gqa_logits(q8.float(), torch.from_numpy(k).float())
+    mult = torch.tensor(scales[0]) * torch.tensor(scales[1]) \
+        * torch.tensor(np.float32(qs))
+    pre = X.softcap(acc * mult, cap) / torch.tensor(np.float32(EPS_MAX))
+    frac = (pre - torch.floor(pre) - 0.5).abs()
+    ulp = torch.nextafter(pre.abs(), torch.tensor(np.inf)) - pre.abs()
+    tie = (frac <= ulp).any(-1)                         # (B, G, M, Sq)
+    tie = tie.permute(0, 3, 1, 2).reshape(b, sq, hq)
+    assert bool(same[~tie].all()) and bool((~tie).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,impl", [("qwen2-7b", "float"),
+                                       ("qwen2-7b", "ibert"),
+                                       ("gemma2-27b", "ita")])
+def test_cuda_generate_through_xla_backends(arch, impl):
+    """Smoke-width ``generate()`` on the card through the direct/baseline
+    backends: no fused attention kernel launches, the fused loop (its
+    decode step replayed from a CUDA graph) gives the stepwise loop's
+    tokens, and the prefill's last logits are within 5e-2 of the CPU's
+    (float projections round differently on the two devices)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import init_caches, init_model
+    from repro_torch.runtime.generate import generate
+    cfg = get_config(arch, smoke=True, attention_impl=impl)
+    model = init_model(cfg, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 40),
+                            generator=torch.Generator().manual_seed(2))
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        m = model.to(dev)
+        with torch.inference_mode():
+            logits[dev] = make_prefill_step(cfg)(
+                m, prompts, init_caches(cfg, 3, 48, device=dev))[0].cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], atol=5e-2,
+                               rtol=0)
+    runs = {}
+    for loop in ("stepwise", "fused"):
+        K.reset_launches()
+        runs[loop] = generate(model, cfg, prompts, 10, loop=loop)
+        torch.cuda.synchronize()
+        assert not any(K.LAUNCHES.values()), K.LAUNCHES
+    assert torch.equal(runs["fused"].tokens, runs["stepwise"].tokens)

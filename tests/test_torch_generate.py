@@ -173,15 +173,21 @@ def _src():
 
 
 def test_entry_points_do_not_fall_back_to_cpu(weights, monkeypatch):
-    """Without ``device=``, every entry point asks for the card and raises
-    when CUDA is missing — never a silent CPU run."""
+    """Without ``device=``, every entry point (and the cache and slot
+    constructors) asks for the card and raises when CUDA is missing —
+    never a silent CPU run."""
     _, model = weights
     _, tcfg = _configs()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    from repro_torch.attention import KVCacheState, PagedKVState
+    from repro_torch.launch.steps import ServeSlotState
     for call in (lambda: init_model(tcfg),
                  lambda: init_caches(tcfg, 1, 8),
                  lambda: from_jax_params({}, tcfg),
-                 lambda: t_generate(model, tcfg, _prompts(), 2)):
+                 lambda: t_generate(model, tcfg, _prompts(), 2),
+                 lambda: KVCacheState.init(1, 8, 2, 16),
+                 lambda: PagedKVState.init(1, 8, 2, 16),
+                 lambda: ServeSlotState.init(2, 8)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     from repro_torch.launch import serve
@@ -207,6 +213,6 @@ def test_serve_cli_lists_backend_verdicts(capsys):
 
 def test_unported_config_raises():
     cfg = dataclasses.replace(t_config("qwen2-7b", smoke=True),
-                              layer_groups=((("swa",), 1),), window=8)
+                              layer_groups=((("rglru",), 1),))
     with pytest.raises(NotImplementedError, match="later slices"):
         init_model(cfg, device="cpu")

@@ -97,7 +97,7 @@ class _Both:
 
     def __init__(self, *args, **kw):
         self.j = JPaged.init(*args, **kw)
-        self.t = TPaged.init(*args, **kw)
+        self.t = TPaged.init(*args, device="cpu", **kw)
         _same(self.j, self.t, "init")
 
     def op(self, name, *arrays, what=None, **kw):
@@ -187,7 +187,7 @@ def test_allocator_partition_property_seeded():
 def test_write_prompts_dummy_rows_keep_parking_pristine():
     rng = np.random.default_rng(1)
     b, g, hd, page, cap = 3, 2, 4, 8, 16
-    p = TPaged.init(b, cap, g, hd, page_size=page)
+    p = TPaged.init(b, cap, g, hd, page_size=page, device="cpu")
     a = _t(_i8(rng, 2, 12, g, hd))
     p = p.write_prompts(a, a, lengths=_t([12, 7]), slots=_t([0, 2]))
     snap = p.k[:p.num_pages].clone()
@@ -204,7 +204,7 @@ def test_ring_decode_append_live_matches_jax():
     rng = np.random.default_rng(2)
     b, cap, g, hd = 3, 8, 2, 4
     j = JATT.KVCacheState.init(b, cap, g, hd)
-    t = TATT.KVCacheState.init(b, cap, g, hd)
+    t = TATT.KVCacheState.init(b, cap, g, hd, device="cpu")
     for step in range(11):
         tok = _i8(rng, b, 1 + step % 2, g, hd)
         live = np.asarray([True, step % 2 == 0, False])

@@ -262,8 +262,9 @@ def test_preempt_rows_clears_victims_and_bumps_pgen():
     vals = {f: prng.integers(1, 50, (4, 1) if f == "tok" else 4)
             .astype(np.int32) for f in fields}
     done = np.asarray([False, True, False, False])
-    t = dataclasses.replace(ServeSlotState.init(4, 8), done=torch.from_numpy(
-        done), **{f: torch.from_numpy(v) for f, v in vals.items()})
+    t = dataclasses.replace(
+        ServeSlotState.init(4, 8, device="cpu"), done=torch.from_numpy(done),
+        **{f: torch.from_numpy(v) for f, v in vals.items()})
     j = dataclasses.replace(JState.init(4, 8), done=jnp.asarray(done),
                             **{f: jnp.asarray(v) for f, v in vals.items()})
     mask = np.asarray([False, False, True, True])

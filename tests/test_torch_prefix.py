@@ -97,7 +97,7 @@ class Both:
 
     def __init__(self, *args, **kw):
         self.j = JPaged.init(*args, **kw)
-        self.t = TPaged.init(*args, **kw)
+        self.t = TPaged.init(*args, device="cpu", **kw)
 
     def op(self, name, *arrays, what="", kv=False, **kw):
         kw = {k: v for k, v in kw.items() if v is not None}
@@ -173,7 +173,8 @@ def test_append_chunk_straddling_pages_during_neighbor_cow():
     for t in range(13):
         one = torch.from_numpy(toks[:, t:t + 1])
         ref = ref.decode_append(one, one, live=torch.from_numpy(t < n_new))
-    unshared = TPaged.init(b, cap, g, hd, page_size=page, num_pages=P)
+    unshared = TPaged.init(b, cap, g, hd, page_size=page, num_pages=P,
+                           device="cpu")
     both_pre = torch.from_numpy(np.ascontiguousarray(
         np.broadcast_to(pre, (b, 8, g, hd))))
     unshared = unshared.write_prompts(both_pre, both_pre)

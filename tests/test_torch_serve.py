@@ -65,6 +65,12 @@ _FIELDS = dict(name="serveloop-smoke", family="dense", d_model=64,
                attention_backend="ita_onepass_pallas")
 JCFG, CFG = JConfig(**_FIELDS), TConfig(**_FIELDS)
 UNPINNED = dataclasses.replace(CFG, attention_backend="")
+# ``tests/test_serve_loop.py``'s sliding-window variant: one swa layer,
+# window 144, between the longest prompt and the longest stream, so the
+# window binds in decode
+_SWA = dict(name="serveloop-swa", layer_groups=((("swa",), 1),), window=144)
+JCFG_SWA = dataclasses.replace(JCFG, **_SWA)
+CFG_SWA = dataclasses.replace(CFG, **_SWA)
 MAX_LEN = 128                   # one 128-page per slot: ring bkv == page
 SERVE = dict(slots=3, segment=4, max_len=MAX_LEN, page_size=128,
              chunk_size=5)
@@ -245,7 +251,7 @@ def test_admit_stall_enters_the_decode_phase():
     """``admit_stall`` writes the admitted rows in the decode phase
     (cursor == plen == pos == length, the sampled first token, done and
     rem as given) and drops padding rows."""
-    state = ServeSlotState.init(3, 8)
+    state = ServeSlotState.init(3, 8, device="cpu")
     state = admit_stall(state, [2, -1, 0], [5, 1, 7], [[11], [99], [13]],
                         [False, True, True], [3, 9, 0])
     assert state.pos.tolist() == state.plen.tolist() \
@@ -316,7 +322,8 @@ def test_mixed_scheduler_budget_and_progress(weights, seed):
                             (slots, prompt_pad)).astype(np.int32)
     caches = init_caches(CFG, slots, MAX_LEN, paged=True, page_size=128,
                          device="cpu")
-    state = admit_chunked(ServeSlotState.init(slots, prompt_pad),
+    state = admit_chunked(ServeSlotState.init(slots, prompt_pad,
+                                              device="cpu"),
                           np.arange(slots), prompts, plens, gens)
     seg = make_serve_segment(CFG, segment=segment, sample=False,
                              eos_id=None, pad_id=0, chunk=chunk,
@@ -504,24 +511,36 @@ def test_generate_refuses_undersized_paged_pool(weights):
     (dict(reqs=[(80, 2)], max_len=64, page_size=32), "prompt length"),
     (dict(reqs=[(4, 2)], slots=4, token_budget=2), "token_budget"),
     (dict(reqs=[(4, 2)], admission="bogus"), "admission"),
-    (dict(reqs=[(4, 2)], cfg="softcap"), "paged decode"),
-], ids=["pool", "prompt", "budget", "admission", "softcap"])
+    (dict(reqs=[(4, 2)], cfg=dict(attn_softcap=30.0)), "paged decode"),
+    (dict(reqs=[(4, 2)], cfg=dict(attention_impl="float")), "paged decode"),
+    (dict(reqs=[(4, 2)], cfg=dict(attention_impl="ibert")), "paged decode"),
+], ids=["pool", "prompt", "budget", "admission", "softcap", "float",
+        "ibert"])
 def test_serve_rejects_unservable_requests_and_configs(weights, case, match):
     """``tests/test_serve_loop.py``'s refusals, with the reference's error
     text: a request whose window needs more pages than the pool has, a
     prompt longer than the window, a token budget below the slots, an
-    unknown admission, and a config (attention softcap, unpinned) that no
-    paged decode backend serves. (The reference's ``rglru`` case needs a
-    block the port does not build yet.)"""
-    _, model = weights
+    unknown admission, and configs (unpinned) that no paged decode
+    backend serves: an attention softcap, and the float and I-BERT
+    baselines, which the JAX package's serve refuses alike. (The
+    reference's ``rglru`` case needs a block the port does not build
+    yet.)"""
+    params, model = weights
     case = dict(case)
     reqs = [ServeRequest(prompt=np.zeros(n, np.int32), gen=g, arrival=0)
             for n, g in case.pop("reqs")]
-    cfg = dataclasses.replace(CFG, attn_softcap=30.0, attention_backend="") \
-        if case.pop("cfg", None) else CFG
+    over = case.pop("cfg", None)
+    cfg = CFG if over is None else dataclasses.replace(
+        CFG, attention_backend="", **over)
     kw = dict(slots=2, segment=4, max_len=MAX_LEN, device="cpu")
     with pytest.raises(ValueError, match=match):
         serve_continuous(model, cfg, reqs, **{**kw, **case})
+    if over is not None:
+        with pytest.raises(ValueError, match=match):
+            j_serve(params, dataclasses.replace(
+                JCFG, attention_backend="", **over),
+                [JRequest(r.prompt, r.gen, r.arrival) for r in reqs],
+                slots=2, segment=4, max_len=MAX_LEN)
 
 
 def test_paged_caches_validation_names_fields(weights):
@@ -572,3 +591,79 @@ def test_serve_cli_stall_and_stepwise_on_cpu():
     fused = serve.main(args)
     stepwise = serve.main(args + ["--loop", "stepwise"])
     assert torch.equal(fused.tokens, stepwise.tokens)
+
+
+# --------------------------------------------------------------------------
+# Sliding-window (swa) serving
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def swa_weights(exact_exp2):
+    params = j_init_model(jax.random.PRNGKey(0), JCFG_SWA)
+    model = from_jax_params(jax.tree.map(np.asarray, params), CFG_SWA,
+                            device="cpu")
+    return params, model
+
+
+def _swa_solo(model, r):
+    return generate(model, CFG_SWA, torch.as_tensor(r.prompt)[None], r.gen,
+                    max_len=256, device="cpu").tokens[0].numpy()
+
+
+def test_swa_chunked_equals_stall_equals_jax_and_solo(swa_weights):
+    """``tests/test_serve_loop.py``'s swa parity case: prompts of 140, 130
+    and 70 tokens (chunks of 48 straddle the 128-token page boundary),
+    24 generated, so the 144-token window binds in decode. Chunked and
+    stall serves equal the JAX package's stall serve and solo
+    ``generate()``."""
+    params, model = swa_weights
+    prng = np.random.default_rng(11)
+    reqs = [ServeRequest(
+        prompt=prng.integers(0, CFG.vocab_size, n).astype(np.int32),
+        gen=24, arrival=2 * i) for i, n in enumerate((140, 130, 70))]
+    kw = dict(slots=2, segment=5, max_len=256, page_size=128,
+              chunk_size=48)
+    want = _j_serve(params, reqs, cfg=JCFG_SWA, admission="stall", **kw)
+    for admission in ("chunked", "stall"):
+        res = serve_continuous(model, CFG_SWA, reqs, admission=admission,
+                               device="cpu", **kw)
+        assert len(res.completed) == len(reqs)
+        for c in res.completed:
+            np.testing.assert_array_equal(c.tokens, want[c.index],
+                                          err_msg=f"{admission} {c.index}")
+            np.testing.assert_array_equal(
+                c.tokens, _swa_solo(model, reqs[c.index]),
+                err_msg=f"{admission} {c.index} vs solo")
+
+
+def test_swa_preemption_resume_equals_jax_and_solo(swa_weights):
+    """``tests/test_serve_loop.py``'s swa preemption case: two high-class
+    requests arrive into a saturated pool (5 pages, 3 slots); the evicted
+    low-class requests resume (prompt + generated prefix within the
+    window) and every request equals the JAX package's serve and solo
+    ``generate()``."""
+    params, model = swa_weights
+    prng = np.random.default_rng(17)
+    reqs = []
+    for i in range(6):
+        plen = int(prng.integers(110, 129))
+        reqs.append(ServeRequest(
+            prompt=prng.integers(0, CFG.vocab_size, plen).astype(np.int32),
+            gen=int(prng.integers(10, 16)), arrival=2 * i,
+            priority=1 if i >= 4 else 0))
+    kw = dict(slots=3, segment=4, max_len=256, page_size=128, num_pages=5,
+              admission="chunked", chunk_size=48, preemption=True,
+              debug_invariants=True)
+    jres = j_serve(params, JCFG_SWA, [JRequest(r.prompt, r.gen, r.arrival,
+                                               r.priority) for r in reqs],
+                   **kw)
+    res = serve_continuous(model, CFG_SWA, reqs, device="cpu", **kw)
+    assert res.preemptions == jres.preemptions >= 1
+    want = {c.index: np.asarray(c.tokens) for c in jres.completed}
+    assert len(res.completed) == len(reqs)
+    for c in res.completed:
+        np.testing.assert_array_equal(c.tokens, want[c.index],
+                                      err_msg=f"request {c.index}")
+        np.testing.assert_array_equal(
+            c.tokens, _swa_solo(model, reqs[c.index]),
+            err_msg=f"request {c.index} ({c.preemptions} preemptions)")
