@@ -35,7 +35,17 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (``models.layers.linear``) and norm give a row the same bits whatever
    the rows beside it, which serve-equals-solo rests on, and the same
    bits replayed from a CUDA graph as run eagerly, which the captured
-   steps rest on.
+   steps rest on. At phase 9's head shapes (phi3-mini's 32/32 heads of
+   96, olmoe-1b-7b's 16/16 of 128; kv_rep 1) hold B2 (prefill and
+   decode-shaped), B4 (clusters and streaming), B3 (q_len 96/1/96/0)
+   and B4p to their plain versions; check that the MoE layer at
+   olmoe-1b-7b's widths gives a row the same bits whatever rows share
+   the call (the router's float32 product and softmax, the expert FFN's
+   blocked ``bmm`` in any block and at any row, replayed from a CUDA
+   graph, and a token's layer output alone, among 4, 96 and 384
+   tokens); and hold ``runtime/kv_cache.py``'s ``prefill_attend`` and
+   ``decode_attend`` with per-head scales, on a ring and on a pool, to
+   the same steps on the CPU.
 3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
    seed, batch 4, prompt 512, 32 tokens), its decode step replayed from a
    CUDA graph (``loop="fused"``, the default; captured at the first call,
@@ -156,11 +166,33 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    After qwen2-7b is freed: gemma2-27b at full width (46 alternating
    local-4096/global layers, d 4608, 32/16 heads, GeGLU 36864, vocab
    256000, softcaps 50 and 30, query scale 144^-0.5; random bf16 weights
-   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) batch 1,
-   prompt 4608, 16 tokens (the local rings wrap); prefill served by
+   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) 8 of its
+   46 layers (``GEMMA2_LONG_PERIODS``), batch 1, prompt 4608, 16 tokens
+   (the local rings wrap); prefill served by
    ``ita_chunked_xla``, decode by ``ita_direct_xla``, no fused kernel,
    fused tokens equal stepwise; prefill s, decode tok/s, the replayed
    step beside the weight-read floor, busy share, peak allocation.
+9. The mixture of experts and the other dense configs, each at full
+   width in its own frame after gemma2-27b is freed (random weights
+   from seed 0, ITA): (a) olmoe-1b-7b (16 layers, d 2048, 16/16 heads
+   of 128, 64 experts of 1024 top-8, vocab 50304, bf16 parameters):
+   ``generate()`` at batch 4, prompt 512, 32 tokens, unpinned (chunked
+   prefill, then B4) and onepass-pinned (B2 throughout), each fused
+   twice with equal tokens and launches and held to stepwise, the
+   serving backends counted and layer 0's calls held to plain; the
+   decode step's two weight-read floors (all 64 experts, and only the
+   experts four decode steps route to, counted at the router); then a
+   12-request ``serve_continuous(admission="chunked")`` (numpy seed 7,
+   prompts 128-512, 16-45 generated, 4 slots, 128-token pages, 96-token
+   chunks, 16-step segments), B3 and B4p only, every request equal to
+   solo ``generate()`` under the onepass pin; its first four requests
+   served once more under the profiler, with the same tokens. Prompts
+   stop at 512 so that every call keeps ``t·k <= 4096``, where the MoE
+   drops nothing. (b) phi3-mini-3.8b (32
+   layers, d 3072, 32/32 heads of 96): ``generate()`` as (a)'s, beside
+   its weight-read floor. Layer 0's kernel calls of both are timed as
+   sub-rows of the kernels line (``olmoe``, ``phi3``,
+   ``*_prefill``/``*_decode`` on B2).
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -256,6 +288,12 @@ DRAIN_AFTER = 48
 # phase 6: the stall serve's ragged B2 prefill and decode-shaped B3 call
 STALL_PREFILL = "ita_attention_onepass/stall_prefill"
 STALL_DECODE = "ita_attention_onepass_paged/stall_decode"
+# phase 9's models and their head shapes (arch, hq, hkv, head dim)
+MOE_PHASE_SHAPES = (("phi3-mini-3.8b", 32, 32, 96),
+                    ("olmoe-1b-7b", 16, 16, 128))
+# phase 9a's served trace: prompts up to 512 tokens, so every call (solo
+# prefill of 512 included) keeps t·k <= 4096 and drops nothing
+MOE_SERVE = dict(SERVE, plen=(128, 512), gen=(16, 45), num_pages=None)
 # sub-rows of the kernels line: (kernel, key)
 SUBROWS = {ONEPASS_DECODE: ("ita_attention_onepass", "decode"),
            STALL_PREFILL: ("ita_attention_onepass", "stall_prefill"),
@@ -527,6 +565,74 @@ def paged_cases(rng_seed=1):
     return cases
 
 
+def model_shape_cases(rng_seed=3):
+    """(name, args, kwargs, label) of B2, B3, B4 and B4p at phase 9's
+    head shapes: phi3-mini's 32/32 heads of 96 and olmoe-1b-7b's 16/16
+    of 128 (kv_rep 1), on rings of ``RING`` and on a pool of 128-token
+    pages."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(rng_seed)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int8)
+
+    def f32(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=DEV)
+
+    cases = []
+    for arch, hq, hkv, d in MOE_PHASE_SHAPES:
+        bh, rep = B * hq, hq // hkv
+        lm, om = f32(0.004, 0.03, bh), f32(0.5, 2.0, bh)
+
+        def rows(*x, hq=hq):
+            return torch.tensor(x, device=DEV, dtype=torch.int32)[:B] \
+                .repeat_interleave(hq)
+        kv_len = rows(RING, PROMPT + 1, RING // 2, 17)
+        k4, v4 = i8(B, RING, hkv, d), i8(B, RING, hkv, d)
+        common = dict(causal=True, kv_rep=rep, hq=hq)
+        tag = f"{arch} {hq}/{hkv} d={d}"
+        for sq, variant in ((1, ""), (1, STREAMING), (4, "")):
+            cases.append(("ita_attention_decode" + variant,
+                          (i8(bh, sq, d), k4, v4, lm, om, kv_len),
+                          dict(q_offset=kv_len - sq, adaptive=sq == 1,
+                               **common),
+                          f"decode 4d sq={sq} {tag}{variant}"))
+        k3, v3 = i8(B * hkv, RING, d), i8(B * hkv, RING, d)
+        cases.append(("ita_attention_decode",
+                      (i8(bh, 2, d), k3, v3, lm, om, kv_len),
+                      dict(q_offset=kv_len - 2, causal=True, window=200,
+                           kv_rep=rep),
+                      f"decode 3d sq=2 window=200 {tag}"))
+        cases.append(("ita_attention_onepass",
+                      (i8(bh, PROMPT, d), k4, v4, lm, om, PROMPT),
+                      dict(adaptive=True, **common),
+                      f"onepass 4d prefill {PROMPT} {tag}"))
+        cases.append(("ita_attention_onepass",
+                      (i8(bh, 1, d), k4, v4, lm, om, kv_len),
+                      dict(q_offset=kv_len - 1, adaptive=True, **common),
+                      f"onepass decode-shaped sq=1 {tag}"))
+        page, n_pages, chunk = SERVE["page_size"], 5, SERVE["chunk_size"]
+        total = B * n_pages + 3
+        table = (torch.randperm(total - 1, generator=g, device=DEV)
+                 [:B * n_pages] + 1).to(torch.int32).view(B, n_pages)
+        kp, vp = i8(total, page, hkv, d), i8(total, page, hkv, d)
+        lens = rows(600, 515, chunk, 300)
+        q_len = rows(chunk, 1, chunk, 0)
+        cases.append(("ita_attention_onepass_paged",
+                      (i8(bh, chunk, d), kp, vp, table, lm, om, lens),
+                      dict(q_offset=torch.clamp(lens - q_len, min=0),
+                           q_len=q_len, adaptive=True, **common),
+                      f"onepass paged q_len 96/1/96/0 {tag}"))
+        for variant in ("", STREAMING):
+            cases.append(("ita_attention_decode_paged" + variant,
+                          (i8(bh, 1, d), kp, vp, table, lm, om, lens),
+                          dict(q_offset=torch.clamp(lens - 1, min=0),
+                               adaptive=True, **common),
+                          f"decode paged {tag}{variant}"))
+    return cases
+
+
 def twopass_cases(rng_seed=2):
     """(args, kwargs, label) of ``ita_attention_twopass`` at qwen2-7b
     shapes (kernel-layout K/V, GQA 28/4): the 512-token causal prefill,
@@ -667,11 +773,14 @@ def run_case(name, args, kw):
 
 def check_kernels(checks):
     from repro_torch.kernels.ita_attention import kernel as K
-    for name, args, kw, label in kernel_cases():
+    shapes = model_shape_cases()
+    for name, args, kw, label in kernel_cases() + [
+            c for c in shapes if not c[0].startswith(PAGED)]:
         got = run_case(name, args, kw)
         checks.compare(name.partition("/")[0], got,
                        K.attention_plain(*args, **kw), label)
-    for name, args, kw, label in paged_cases():
+    for name, args, kw, label in paged_cases() + [
+            c for c in shapes if c[0].startswith(PAGED)]:
         got = run_case(name, args, kw)
         name = name.partition("/")[0]
         checks.compare(name, got, K.paged_attention_plain(*args, **kw),
@@ -684,7 +793,8 @@ def check_kernels(checks):
     for args, kw, label in twopass_cases():
         check_twopass(checks, args, kw, label)
     check_twopass_oneshot(checks)
-    log(f"[kernels] bit-exact vs plain at qwen2-7b shapes: {checks.n}")
+    log(f"[kernels] bit-exact vs plain at qwen2-7b shapes and at phase "
+        f"9's (32/32 heads of 96, 16/16 of 128): {checks.n}")
 
 
 def check_row_invariance():
@@ -768,6 +878,128 @@ def check_row_invariance():
         f"graphs equal to eager (4, 96 and 384 rows); " + "; ".join(notes))
 
 
+def check_moe_row_invariance():
+    """The MoE layer at olmoe-1b-7b's widths (d 2048, 64 experts of 1024,
+    top-8, bf16): the router's float32 product and softmax give a row the
+    same bits whatever rows share the call; the expert FFN gives a row of
+    the blocked capacity buffer the same bits whatever the other rows of
+    its block and whichever block holds it, and the same replayed from a
+    CUDA graph; and in the exact regime a token's output of the whole
+    layer does not depend on the tokens beside it (a decode step's 4
+    rows, a chunk of 96, a mixed step's 384)."""
+    import torch
+
+    from repro_torch.models import moe as TM
+    g = torch.Generator(device=DEV).manual_seed(6)
+    d, e, f, k = 2048, 64, 1024, 8
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device=DEV)
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+    router = torch.randn((d, e), generator=g, device=DEV) * d ** -0.5
+    wg, wu, wd = w(e, d, f), w(e, d, f), w(e, f, d)
+    x = torch.randn((700, d), generator=g, device=DEV).to(torch.bfloat16)
+    full = TM.router_probs(x, router)
+    for m in (1, 4, 96, 384, 644):
+        part = TM.router_probs(x[:m], router)
+        for r in {0, m // 2, m - 1}:
+            if not torch.equal(part[r], full[r]):
+                raise AssertionError(f"router row {r} of {m} rows differs")
+    buf = torch.randn((3, e, 128, d), generator=g, device=DEV) \
+        .to(torch.bfloat16)
+    ffn = TM.expert_ffn(buf, wg, wu, wd)
+    moved = torch.zeros_like(buf[:1])
+    moved[0, :, 5] = buf[2, :, 77]
+    if not torch.equal(TM.expert_ffn(moved, wg, wu, wd)[0, :, 5],
+                       ffn[2, :, 77]):
+        raise AssertionError("expert FFN: a row moved to another block and "
+                             "row differs")
+    if not torch.equal(TM.expert_ffn(buf.flip(0), wg, wu, wd),
+                       ffn.flip(0)):
+        raise AssertionError("expert FFN: blocks in another order differ")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        TM.expert_ffn(buf, wg, wu, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = TM.expert_ffn(buf, wg, wu, wd)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(replayed, ffn):
+        raise AssertionError("expert FFN replayed from a CUDA graph differs "
+                             "from eager")
+    xs = x[:384][None]
+    layer = TM.apply_moe(xs, router, wg, wu, wd, k)
+    for lo, n in ((0, 4), (200, 96), (383, 1)):
+        part = TM.apply_moe(xs[:, lo:lo + n], router, wg, wu, wd, k)
+        if not torch.equal(part[0], layer[0, lo:lo + n]):
+            raise AssertionError(f"MoE layer: tokens {lo}..{lo + n - 1} "
+                                 f"differ from the same tokens among 384")
+    log("[invariance] MoE at olmoe-1b-7b widths: router rows equal among "
+        "1-700 rows; expert FFN rows equal in any block, at any row, "
+        "and replayed from a CUDA graph; a token's layer output equal "
+        "alone, among 4, 96 and 384 tokens (cap 8 to 3072)")
+
+
+def check_kv_cache_engine(checks):
+    """``runtime.kv_cache``'s prefill and decode steps with per-head scales
+    at olmoe-1b-7b's heads (16/16, head dim 128), on a ring and on a pool
+    of 128-token pages: a ragged 256-token prefill (lengths 256 and 200)
+    and 3 decode steps on the card (B2, then B4 or B4p) equal the same
+    steps on the CPU (the plain versions): every output and the caches'
+    bytes and scales."""
+    import torch
+
+    from repro_torch.runtime import kv_cache as KVE
+    g = torch.Generator().manual_seed(8)
+    b, hq, hkv, d, pre, steps = 2, 16, 16, 128, 256, 3
+    q8 = torch.randint(-128, 128, (b, hq, pre + steps, d), generator=g,
+                       dtype=torch.int8)
+    kf = torch.randn((b, pre + steps, hkv, d), generator=g)
+    vf = torch.randn((b, pre + steps, hkv, d), generator=g)
+    lengths = torch.tensor([pre, 200], dtype=torch.int32)
+    for paged in (False, True):
+        outs, caches = {}, {}
+        for dev in ("cpu", DEV):
+            if paged:
+                cache = KVE.init_paged_cache(b, 512, hkv, d,
+                                             per_head_scales=True,
+                                             device=dev)
+            else:
+                cache = KVE.init_cache(b, 512, hkv, d, per_head_scales=True,
+                                       device=dev)
+            out, cache = KVE.prefill_attend(
+                cache, q8[:, :, :pre].to(dev), kf[:, :pre].to(dev),
+                vf[:, :pre].to(dev), 0.05, 0.04,
+                lengths=lengths.to(dev))
+            seq = [out[0].cpu(), out[1, :, :200].cpu()]
+            for t in range(pre, pre + steps):
+                out, cache = KVE.decode_attend(
+                    cache, q8[:, :, t:t + 1].to(dev),
+                    kf[:, t:t + 1].to(dev), vf[:, t:t + 1].to(dev), 0.05,
+                    0.04)
+                seq.append(out.cpu())
+            outs[dev], caches[dev] = seq, cache
+        where = "pool" if paged else "ring"
+        decode = "ita_attention_decode_paged" if paged \
+            else "ita_attention_decode"
+        for i, (got, want) in enumerate(zip(outs[DEV], outs["cpu"],
+                                            strict=True)):
+            name = "ita_attention_onepass" if i < 2 else decode
+            checks.compare(name, got, want,
+                           f"kv_cache engine on a {where}, output {i}")
+        for part in ("k", "v", "k_scale", "v_scale", "pos"):
+            got = getattr(caches[DEV], part).cpu()
+            if not torch.equal(got, getattr(caches["cpu"], part)):
+                raise AssertionError(f"kv_cache engine on a {where}: cache "
+                                     f"{part} differs from the CPU's")
+    log("[kv_cache] prefill_attend/decode_attend with per-head scales at "
+        "16/16 heads of 128, ring and pool: outputs and caches equal the "
+        "CPU's plain versions")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: full-width generate
 # ---------------------------------------------------------------------------
@@ -775,18 +1007,22 @@ def check_row_invariance():
 class Recorder:
     """Stands in for a kernel wrapper inside ``ops``: forwards every call
     and keeps the inputs (cloned: the rings change in place later) and the
-    output of the calls whose index is in ``keep``. Calls made while a
+    output of the calls whose index is in ``keep``; ``by_rows`` counts the
+    calls by query length (the first argument's rows). Calls made while a
     CUDA graph is captured are forwarded only: they run nothing then, and
     their replays never reach Python."""
 
     def __init__(self, fn, keep):
         self.fn, self.keep, self.calls, self.kept = fn, set(keep), 0, {}
+        self.by_rows = {}
 
     def __call__(self, *args, **kw):
         import torch
         out = self.fn(*args, **kw)
         if torch.cuda.is_current_stream_capturing():
             return out          # a graph's capture runs nothing: no call
+        sq = args[0].shape[1]
+        self.by_rows[sq] = self.by_rows.get(sq, 0) + 1
         if self.calls in self.keep:
 
             def clone(x):
@@ -820,20 +1056,28 @@ def run_generate(model, cfg, prompts, *, record=None, keep=(),
     return res, launches, rec
 
 
-def hold_to_stepwise(model, cfg, prompts, fused, want, label):
+def hold_to_stepwise(model, cfg, prompts, fused, want, label, record=None):
     """Run ``label`` once more with ``loop="stepwise"``: its tokens and
-    launches must equal the fused run's. Logs both loops' figures."""
+    launches must equal the fused run's. Logs both loops' figures.
+    Returns the run and, with ``record``, its ``Recorder`` of that
+    wrapper: the stepwise loop makes every call eagerly, so its recorded
+    calls are its launches, which is checked."""
     import torch
-    step, launches, _ = run_generate(model, cfg, prompts, loop="stepwise")
+    step, launches, rec = run_generate(model, cfg, prompts, record=record,
+                                       loop="stepwise")
     if launches != want or not torch.equal(step.tokens, fused.tokens):
         raise AssertionError(f"{label}: loop='stepwise' gave other tokens "
                              f"or launches ({launches}) than the fused loop")
+    if rec is not None and rec.calls != launches[record]:
+        raise AssertionError(f"{label}: {rec.calls} recorded {record} calls "
+                             f"in the stepwise loop, {launches[record]} "
+                             f"launches")
     log(f"[generate] {label} fused vs stepwise, tokens identical: decode "
         f"{fused.decode_tok_s:.1f} vs {step.decode_tok_s:.1f} tok/s, "
         f"prefill {fused.prefill_s:.3f} vs {step.prefill_s:.3f} s, "
         f"capture {fused.capture_s:.3f} s (none stepwise), graph pool "
         f"{fused.graph_bytes / 2**20:.1f} MiB; {card_line()}")
-    return step
+    return step, rec
 
 
 def log_capture(label, first, kept):
@@ -930,7 +1174,7 @@ def full_width(model, cfg, checks):
         raise AssertionError("a second unpinned run gave other tokens or "
                              "launches")
     log_capture("(a)", res_a, res_a2)
-    step_a = hold_to_stepwise(model, cfg, prompts, res_a2, want, "(a)")
+    step_a, _ = hold_to_stepwise(model, cfg, prompts, res_a2, want, "(a)")
     # (b) pinned onepass: prefill and every decode step through onepass
     cfg_b = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
     # calls 0 and n_layers - 1 are prefill, n_layers the first decode step
@@ -941,7 +1185,7 @@ def full_width(model, cfg, checks):
     want_b["ita_attention_onepass"] = n_layers * GEN
     if lb != want_b:
         raise AssertionError(f"pinned launches {lb} != {want_b}")
-    step_b = hold_to_stepwise(model, cfg_b, prompts, res_b, want_b, "(b)")
+    step_b, _ = hold_to_stepwise(model, cfg_b, prompts, res_b, want_b, "(b)")
     for res in (res_a, res_b):
         tok = res.tokens
         if tok.shape != (B, GEN) or tok.min() < 0 \
@@ -979,7 +1223,7 @@ def full_width(model, cfg, checks):
         raise AssertionError("a second twopass-pinned run gave other tokens "
                              "or launches")
     log_capture("(c)", res_c, res_c2)
-    step_c = hold_to_stepwise(model, cfg_c, prompts, res_c2, want_c, "(c)")
+    step_c, _ = hold_to_stepwise(model, cfg_c, prompts, res_c2, want_c, "(c)")
     tok = res_c.tokens
     if tok.shape != (B, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"bad tokens {tuple(tok.shape)}")
@@ -1076,20 +1320,20 @@ def full_width_softmax(a, checks):
 # Phase 5: full-width continuous-batching serve
 # ---------------------------------------------------------------------------
 
-def serve_trace(cfg, seed=7):
-    """The served trace: numpy from ``seed``."""
+def serve_trace(cfg, seed=7, spec=SERVE):
+    """The served trace of ``spec``'s sizes: numpy from ``seed``."""
     import numpy as np
 
     from repro_torch.runtime.generate import ServeRequest
     rng = np.random.default_rng(seed)
     reqs, t = [], 0
-    for _ in range(SERVE["requests"]):
-        plen = int(rng.integers(SERVE["plen"][0], SERVE["plen"][1] + 1))
+    for _ in range(spec["requests"]):
+        plen = int(rng.integers(spec["plen"][0], spec["plen"][1] + 1))
         reqs.append(ServeRequest(
             prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
-            gen=int(rng.integers(SERVE["gen"][0], SERVE["gen"][1] + 1)),
+            gen=int(rng.integers(spec["gen"][0], spec["gen"][1] + 1)),
             arrival=t))
-        t += int(rng.integers(SERVE["gap"][0], SERVE["gap"][1] + 1))
+        t += int(rng.integers(spec["gap"][0], spec["gap"][1] + 1))
     return reqs
 
 
@@ -2581,6 +2825,9 @@ def int8_matmul_pad(x_q):
 # ---------------------------------------------------------------------------
 
 GEMMA2_LONG, GEMMA2_LONG_GEN = 4608, 16  # run (ii): the local rings wrap
+# run (ii)'s depth: 4 (local, global) periods of gemma2-27b's 23, widths
+# unchanged (cut to keep the script near 800 s once phase 9 was added)
+GEMMA2_LONG_PERIODS = 4
 
 
 def served_by(fn):
@@ -2771,39 +3018,48 @@ def softmax_family(softmax_inputs, checks):
 
 
 def gemma2_at_full_width():
-    """Phase 8c: gemma2-27b at full width (random bf16 weights, seed 0,
-    ITA): (i) batch 4, prompt 512, 32 tokens; (ii) batch 1, prompt 4608,
-    16 tokens, so the 4096-entry local rings wrap and the window binds.
-    Prefill must be served by ``ita_chunked_xla``, decode by
-    ``ita_direct_xla``, no fused attention kernel may launch, and the
-    fused loop's tokens equal the stepwise loop's."""
+    """Phase 8c: gemma2-27b (random bf16 weights, seed 0, ITA): (i) at
+    full width and depth, batch 4, prompt 512, 32 tokens; (ii) at full
+    width and ``GEMMA2_LONG_PERIODS`` of its 23 (local, global) periods,
+    batch 1, prompt 4608, 16 tokens, so the 4096-entry local rings wrap
+    and the window binds. Prefill must be served by ``ita_chunked_xla``,
+    decode by ``ita_direct_xla``, no fused attention kernel may launch,
+    and the fused loop's tokens equal the stepwise loop's. Each model is
+    freed before the next."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_model
-    cfg = get_config("gemma2-27b", attention_impl="ita")
-    t0 = time.perf_counter()
-    model = init_model(cfg, seed=0, device=DEV)
-    torch.cuda.synchronize()
-    weight_bytes = sum(p.numel() * p.element_size()
-                       for p in model.parameters())
-    log(f"[gemma2] {cfg.name} full width: {cfg.n_layers} layers "
-        f"(local {cfg.local_window} / global), d={cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads, GeGLU {cfg.d_ff}, vocab "
-        f"{cfg.vocab_size}; weights {weight_bytes / 1e9:.2f} GB {cfg.dtype},"
-        f" init {time.perf_counter() - t0:.1f} s; allocated "
-        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    full = get_config("gemma2-27b", attention_impl="ita")
     served = {"prefill": "ita_chunked_xla", "decode": "ita_direct_xla"}
     gen = torch.Generator().manual_seed(0)
-    out = {"weights_gb": weight_bytes / 1e9,
-           "floor_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S}
-    for run, (b, plen, n) in (("i", (B, PROMPT, GEN)),
-                              ("ii", (1, GEMMA2_LONG, GEMMA2_LONG_GEN))):
+    out = {}
+    for run, (b, plen, n), periods in (
+            ("i", (B, PROMPT, GEN), full.layer_groups[0][1]),
+            ("ii", (1, GEMMA2_LONG, GEMMA2_LONG_GEN), GEMMA2_LONG_PERIODS)):
+        cfg = dataclasses.replace(
+            full, layer_groups=((full.layer_groups[0][0], periods),))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        model = init_model(cfg, seed=0, device=DEV)
+        torch.cuda.synchronize()
+        weight_bytes = sum(p.numel() * p.element_size()
+                           for p in model.parameters())
+        floor = 1e3 * weight_bytes / HBM_BYTES_PER_S
+        log(f"[gemma2] ({run}) {cfg.name}: {cfg.n_layers} layers (local "
+            f"{cfg.local_window} / global), d={cfg.d_model}, "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} heads, GeGLU {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size}; weights {weight_bytes / 1e9:.2f} GB "
+            f"{cfg.dtype}, init {time.perf_counter() - t0:.1f} s; allocated "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
         prompts = torch.randint(0, cfg.vocab_size, (b, plen), generator=gen)
         torch.cuda.reset_peak_memory_stats()
         res, fig = baseline_generate(model, cfg, prompts, n, served,
                                      f"8c gemma2-27b ({run})")
         fig["max_alloc_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        fig.update(layers=cfg.n_layers, weights_gb=weight_bytes / 1e9,
+                   floor_ms=floor)
         logits = last_logits(model, cfg, prompts[:1, -64:])
         if not torch.isfinite(logits).all() \
                 or logits.abs().max() > cfg.logit_softcap:
@@ -2813,12 +3069,346 @@ def gemma2_at_full_width():
         log(f"[gemma2] ({run}) batch {b}, prompt {plen}, {n} tokens: prefill"
             f" {fig['prefill_s']:.3f} s, decode {fig['decode_tok_s']:.1f} "
             f"tok/s, {fig['step_ms']:.2f} ms a step (kept graph) against a "
-            f"weight-read floor of {out['floor_ms']:.2f} ms "
+            f"weight-read floor of {floor:.2f} ms "
             f"({weight_bytes / 1e9:.2f} GB / 3.35 TB/s), busy "
             f"{fig['busy']:.1%}, max allocated {fig['max_alloc_gb']:.2f} GB;"
             f" tokens {res.tokens[0, :8].tolist()}; {card_line()}")
+        del model, res
     return out
 
+
+# ---------------------------------------------------------------------------
+# Phase 9: the mixture of experts and phi3-mini at full width
+# ---------------------------------------------------------------------------
+
+def phase9_model(arch):
+    """``arch`` at full width, random weights from seed 0, ITA."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    cfg = get_config(arch, attention_impl="ita")
+    t0 = time.perf_counter()
+    model = init_model(cfg, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"[phase9] {cfg.name} full width: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, experts {cfg.n_experts} top-"
+        f"{cfg.n_experts_active}, vocab {cfg.vocab_size}, param_dtype "
+        f"{cfg.param_dtype}; weights {nbytes / 1e9:.2f} GB, init "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return model, cfg, nbytes
+
+
+def generate_twice(model, cfg, prompts, label, record, keep, want):
+    """Two fused ``generate()`` calls (the capture, then the kept graph's
+    replays) with the counters zeroed just before and read just after
+    each and the serving backends counted, equal tokens and launches
+    ``want``; then the stepwise loop held to them. Returns the kept
+    call's result, the stepwise one's, the backends seen in the first
+    call, the ``Recorder`` of ``record``, the kept call's counted
+    launches of ``record`` and the stepwise call's by query length."""
+    import torch
+    (first, l1, rec), seen = served_by(lambda: run_generate(
+        model, cfg, prompts, record=record, keep=keep))
+    (kept, l2, _), _ = served_by(lambda: run_generate(model, cfg, prompts))
+    if l1 != want or l2 != want:
+        raise AssertionError(f"{label}: launches {l1}, {l2} != {want}")
+    if not torch.equal(first.tokens, kept.tokens):
+        raise AssertionError(f"{label}: two fused calls gave other tokens")
+    tok = kept.tokens
+    if tok.shape != (B, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+        raise AssertionError(f"{label}: bad tokens {tuple(tok.shape)}")
+    log_capture(label, first, kept)
+    step, srec = hold_to_stepwise(model, cfg, prompts, kept, want, label,
+                                  record=record)
+    return kept, step, seen, rec, l2[record], srec.by_rows
+
+
+def subrow(name, call, launches, label):
+    """Times and bound of kernel ``name`` on one kept call: a sub-row of
+    the kernels line."""
+    from repro_torch.kernels.ita_attention import kernel as K
+    args, kw, _ = call
+
+    def bind():
+        return K.kernel_launcher(name, *args, **kw)
+    ms, graph = kernel_ms(bind), graph_ms(bind)
+    plain = median_ms(lambda: plain_of(name)(*args, **kw), reps=3, warmup=1)
+    bms, by = bound_ms(name, args, kw)
+    log(f"[timing] {name} at {label} q{tuple(args[0].shape)} "
+        f"k{tuple(args[1].shape)}{call_meta(name, args, kw)}: kernel "
+        f"{ms:.4f} ms back to back, {graph:.4f} ms in a CUDA graph, plain "
+        f"{plain:.4f} ms, bound {bms:.5f} ms ({by}), {launches} launches; "
+        f"{card_line()}")
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "launches": launches,
+            "excess_ms": launches * (graph - bms)}
+
+
+def generate_phase9(model, cfg, checks, tag):
+    """``generate()`` at batch 4, prompt 512, 32 tokens: unpinned (the
+    chunked prefill, then B4 every step) and pinned to onepass (B2 at
+    prefill and at every decode step); layer 0's calls held to plain.
+    Returns the figures and the kernels' sub-rows."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+    n = cfg.n_layers
+    prompts = prompt_batch(cfg)
+    want_a = dict.fromkeys(SOURCES, 0)
+    want_a["ita_attention_decode"] = n * (GEN - 1)
+    res_a, step_a, seen_a, rec_dec, n_dec, _ = generate_twice(
+        model, cfg, prompts, f"9 {tag} (a)", "ita_attention_decode", (0,),
+        want_a)
+    check_served(seen_a, {"prefill": "ita_chunked_xla",
+                          "decode": "ita_decode_pallas"}, f"9 {tag} (a)")
+    cfg_b = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    want_b = dict.fromkeys(SOURCES, 0)
+    want_b["ita_attention_onepass"] = n * GEN
+    res_b, step_b, seen_b, rec_one, n_one, rows_b = generate_twice(
+        model, cfg_b, prompts, f"9 {tag} (b)", "ita_attention_onepass",
+        (0, n), want_b)
+    # B2's split between the prefill (q rows > 1) and the decode steps
+    # (1 row), counted in the stepwise run, whose calls are its launches
+    one_pre = sum(c for sq, c in rows_b.items() if sq > 1)
+    one_dec = rows_b.get(1, 0)
+    check_served(seen_b, {"prefill": "ita_onepass_pallas",
+                          "decode": "ita_onepass_pallas"}, f"9 {tag} (b)")
+    check_recorded(checks, "ita_attention_decode", rec_dec, 0,
+                   f"9 {tag} (a), layer 0 of the first decode step")
+    for idx, what in ((0, "prefill"), (n, "first decode step")):
+        check_recorded(checks, "ita_attention_onepass", rec_one, idx,
+                       f"9 {tag} (b), layer 0 of the {what}")
+    logits = last_logits(model, cfg, prompts[:1, -64:])
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"9 {tag}: non-finite logits")
+    _, busy = profile_run(f"9 {tag} fused generate (a)", lambda: generate(
+        model, cfg, prompts, GEN, device=DEV))
+    figs = {"prefill_s": res_a.prefill_s, "decode_tok_s": res_a.decode_tok_s,
+            "step_ms": 1e3 * res_a.decode_s / res_a.decode_steps,
+            "stepwise_tok_s": step_a.decode_tok_s,
+            "pinned_prefill_s": res_b.prefill_s,
+            "pinned_decode_tok_s": res_b.decode_tok_s,
+            "pinned_step_ms": 1e3 * res_b.decode_s / res_b.decode_steps,
+            "busy": busy, "served_a": seen_a, "served_b": seen_b}
+    log(f"[phase9] {tag} generate: (a) served by {seen_a}, prefill "
+        f"{figs['prefill_s']:.3f} s, decode {figs['decode_tok_s']:.1f} tok/s"
+        f" ({figs['step_ms']:.2f} ms a replayed step), stepwise "
+        f"{figs['stepwise_tok_s']:.1f} tok/s, busy {busy:.1%}; (b) served "
+        f"by {seen_b}, prefill {figs['pinned_prefill_s']:.3f} s, decode "
+        f"{figs['pinned_decode_tok_s']:.1f} tok/s "
+        f"({figs['pinned_step_ms']:.2f} ms); tokens "
+        f"{res_a.tokens[0, :8].tolist()}; launches counted: B4 {n_dec} in "
+        f"(a), B2 {n_one} in (b), in (b)'s stepwise run {one_pre} at "
+        f"prefill and {one_dec} at decode; {card_line()}")
+    sub = {
+        "ita_attention_decode": {tag: subrow(
+            "ita_attention_decode", rec_dec.kept[0], n_dec,
+            f"9 {tag} (a) decode")},
+        "ita_attention_onepass": {
+            f"{tag}_prefill": subrow("ita_attention_onepass",
+                                     rec_one.kept[0], one_pre,
+                                     f"9 {tag} (b) prefill"),
+            f"{tag}_decode": subrow("ita_attention_onepass",
+                                    rec_one.kept[n], one_dec,
+                                    f"9 {tag} (b) decode")}}
+    return figs, sub
+
+
+def routed_experts(model, cfg, prompts, steps=4):
+    """The mean number of distinct experts a decode step routes to per
+    layer: a ring prefill of ``prompts``, then ``steps`` greedy decode
+    steps, the router of every MoE layer read at each."""
+    import torch
+
+    from repro_torch.models import forward, init_caches
+    from repro_torch.models import moe as TM
+    counts = []
+
+    def hook(mod, inp):
+        x = inp[0]
+        if x.shape[1] == 1:
+            x2 = x.reshape(-1, x.shape[-1])
+            top_i = TM.top_k(TM.router_probs(x2, mod.router), mod.k)[1]
+            counts.append(top_i.unique().numel())
+    handles = [blk.mlp.register_forward_pre_hook(hook)
+               for blk in model.blocks]
+    b, s = prompts.shape
+    try:
+        with torch.inference_mode():
+            caches = init_caches(cfg, b, s + steps, device=DEV)
+            logits, caches = forward(model, prompts.to(DEV), cfg,
+                                     mode="prefill", caches=caches)
+            tok = torch.argmax(logits[:, -1:], -1)
+            for i in range(steps):
+                logits, caches = forward(model, tok, cfg, mode="decode",
+                                         caches=caches,
+                                         pos0=torch.full((b,), s + i))
+                tok = torch.argmax(logits, -1)
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(counts) / len(counts)
+
+
+def moe_floors(model, cfg, routed):
+    """Weight-read floors of one decode step, in ms: every weight but the
+    embedding table (of which a step reads only the batch's rows) read
+    once; and the same with only ``routed`` of each layer's experts."""
+    expert = sum(p.numel() * p.element_size() for blk in model.blocks
+                 for p in (blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down))
+    rest = sum(p.numel() * p.element_size() for p in model.parameters()) \
+        - expert - model.embed.numel() * model.embed.element_size()
+    routed_bytes = rest + expert * routed / cfg.n_experts
+    return {"all_gb": (rest + expert) / 1e9,
+            "all_ms": 1e3 * (rest + expert) / HBM_BYTES_PER_S,
+            "routed_gb": routed_bytes / 1e9,
+            "routed_ms": 1e3 * routed_bytes / HBM_BYTES_PER_S}
+
+
+def olmoe_serve(model, cfg, checks):
+    """Phase 9a's serve: ``MOE_SERVE``'s 12 requests through
+    ``serve_continuous(admission="chunked")``, unpinned (B3 at the mixed
+    steps, B4p at the decode steps), counters zeroed just before and read
+    just after, the backends counted; every request's tokens equal solo
+    ``generate()`` under the onepass pin; layer 0's first B3 and B4p
+    calls held to plain. Then the trace's first four requests served
+    under the profiler (busy share), with the same tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.runtime.generate import generate, serve_continuous
+    reqs = serve_trace(cfg, spec=MOE_SERVE)
+    kw = dict(slots=MOE_SERVE["slots"], segment=MOE_SERVE["segment"],
+              page_size=MOE_SERVE["page_size"],
+              num_pages=MOE_SERVE["num_pages"],
+              chunk_size=MOE_SERVE["chunk_size"], device=DEV)
+    warm = recording(PAGED, keep=(0,))
+    try:
+        reset_launches()
+        res, seen = served_by(lambda: serve_continuous(
+            model, cfg, reqs, debug_invariants=True, **kw))
+        launches = read_launches()
+    finally:
+        unrecord(warm)
+    moved = {k: n for k, n in launches.items() if n}
+    if set(moved) != set(PAGED) or len(res.completed) != len(reqs):
+        raise AssertionError(f"9a serve: launches {moved}, "
+                             f"{len(res.completed)} of {len(reqs)} done")
+    # mixed steps through the paged onepass kernel, decode steps through
+    # the paged decode kernel (the eager calls: warm-ups and captures)
+    if set(seen) != {("ita_onepass_pallas", "decode"),
+                     ("ita_decode_pallas", "decode")}:
+        raise AssertionError(f"9a serve: served by {seen}")
+    for name, what in zip(PAGED, ("mixed", "decode"), strict=True):
+        check_recorded(checks, name, warm[name], 0,
+                       f"9a serve, layer 0 of the first {what} step")
+    cfg_pin = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    max_len = max(r.prompt.size + r.gen for r in reqs)
+    for c in sorted(res.completed, key=lambda c: c.index):
+        r = reqs[c.index]
+        solo = generate(model, cfg_pin, torch.as_tensor(r.prompt)[None],
+                        r.gen, max_len=max_len, device=DEV)
+        want = solo.tokens[0].cpu().numpy()
+        if not np.array_equal(c.tokens, want):
+            first = int(np.flatnonzero(c.tokens != want)[0])
+            raise AssertionError(
+                f"9a request {c.index} (prompt {r.prompt.size}, gen "
+                f"{r.gen}): served tokens differ from solo generate() at "
+                f"{first}: {c.tokens[first]} vs {want[first]}")
+    again, busy = profile_run("9a olmoe serve of requests 0-3",
+                              lambda: serve_continuous(model, cfg, reqs[:4],
+                                                       **kw))
+    tokens = {c.index: c.tokens for c in res.completed}
+    for c in again.completed:
+        if not np.array_equal(c.tokens, tokens[c.index]):
+            raise AssertionError(f"9a: a second serve gave request "
+                                 f"{c.index} other tokens")
+    figs = {"tok_s": res.tok_s, "wall_s": res.wall_s,
+            "ttft_p50": res.ttft_quantile(0.5), "steps": res.steps,
+            "busy": busy, "launches": {n: launches[n] for n in PAGED},
+            "served": seen}
+    log(f"[phase9] 9a serve: {len(reqs)} requests (prompts "
+        f"{min(r.prompt.size for r in reqs)}-"
+        f"{max(r.prompt.size for r in reqs)}, gen "
+        f"{min(r.gen for r in reqs)}-{max(r.gen for r in reqs)}, last "
+        f"arrival step {reqs[-1].arrival}); served by {seen} (eager calls); "
+        f"launches {figs['launches']}; {res.steps} steps, {res.segments} "
+        f"segments; {res.total_tokens} tokens in {res.wall_s:.3f} s: "
+        f"{res.tok_s:.2f} tok/s, TTFT p50 {figs['ttft_p50']:.3f} s; busy "
+        f"{busy:.1%} (profiled serve of requests 0-3, wall "
+        f"{again.wall_s:.3f} s); every "
+        f"request equal to solo generate() (onepass pin, max_len "
+        f"{max_len}); {card_line()}")
+    sub = {name: {"olmoe": subrow(name, warm[name].kept[0], launches[name],
+                                  f"9a serve first {what} step")}
+           for name, what in zip(PAGED, ("mixed", "decode"), strict=True)}
+    return figs, sub
+
+
+def phase9(checks):
+    """Phase 9: olmoe-1b-7b (9a: generate and the serve) and phi3-mini-3.8b
+    (9b: generate), each at full width in its own frame, freed before the
+    next. Returns a result line and the kernels' sub-rows."""
+    import torch
+    subs = {}
+
+    def merge(sub):
+        for name, rows in sub.items():
+            subs.setdefault(name, {}).update(rows)
+
+    def olmoe():
+        model, cfg, nbytes = phase9_model("olmoe-1b-7b")
+        figs, sub = generate_phase9(model, cfg, checks, "olmoe")
+        merge(sub)
+        routed = routed_experts(model, cfg, prompt_batch(cfg))
+        floors = moe_floors(model, cfg, routed)
+        log(f"[phase9] 9a decode-step weight-read floors: all 64 experts "
+            f"{floors['all_gb']:.2f} GB, {floors['all_ms']:.2f} ms; the "
+            f"routed {routed:.1f} of 64 a layer (batch {B}, top-"
+            f"{cfg.n_experts_active}, mean over 4 steps) "
+            f"{floors['routed_gb']:.2f} GB, {floors['routed_ms']:.2f} ms; "
+            f"replayed step {figs['step_ms']:.2f} ms; {card_line()}")
+        serve, sub = olmoe_serve(model, cfg, checks)
+        merge(sub)
+        return dict(figs, weights_gb=nbytes / 1e9, routed=routed,
+                    floors=floors, serve=serve)
+
+    def phi3():
+        model, cfg, nbytes = phase9_model("phi3-mini-3.8b")
+        figs, sub = generate_phase9(model, cfg, checks, "phi3")
+        merge(sub)
+        floor = 1e3 * (nbytes - model.embed.numel()
+                       * model.embed.element_size()) / HBM_BYTES_PER_S
+        log(f"[phase9] 9b phi3 replayed step {figs['step_ms']:.2f} ms "
+            f"against a weight-read floor of {floor:.2f} ms; {card_line()}")
+        return dict(figs, weights_gb=nbytes / 1e9, floor_ms=floor)
+
+    out = {}
+    for name, fn in (("olmoe", olmoe), ("phi3", phi3)):
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    o, p = out["olmoe"], out["phi3"]
+    line = (f"[result] phase 9: olmoe-1b-7b ({o['weights_gb']:.2f} GB) "
+            f"prefill {o['prefill_s']:.3f} s, decode {o['decode_tok_s']:.1f}"
+            f" tok/s, step {o['step_ms']:.2f} ms (floors "
+            f"{o['floors']['all_ms']:.2f} all experts, "
+            f"{o['floors']['routed_ms']:.2f} routed), busy {o['busy']:.1%};"
+            f" pinned prefill {o['pinned_prefill_s']:.3f} s, decode "
+            f"{o['pinned_decode_tok_s']:.1f} tok/s; serve "
+            f"{o['serve']['tok_s']:.2f} tok/s, wall "
+            f"{o['serve']['wall_s']:.3f} s, TTFT p50 "
+            f"{o['serve']['ttft_p50']:.3f} s, busy {o['serve']['busy']:.1%};"
+            f" phi3-mini-3.8b ({p['weights_gb']:.2f} GB) prefill "
+            f"{p['prefill_s']:.3f} s, decode {p['decode_tok_s']:.1f} tok/s,"
+            f" step {p['step_ms']:.2f} ms (floor {p['floor_ms']:.2f}), busy "
+            f"{p['busy']:.1%}; pinned decode {p['pinned_decode_tok_s']:.1f} "
+            f"tok/s")
+    return line, subs
 
 
 def qwen2_phases(checks):
@@ -2900,10 +3490,17 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     checks = Checks()
+
+    def wall(what):
+        log(f"[wall] {what} done at {time.perf_counter() - T0:.1f} s")
     check_kernels(checks)
     check_row_invariance()
+    check_moe_row_invariance()
+    check_kv_cache_engine(checks)
     smoke_width_reference()
+    wall("phase 2")
     rows, summary = qwen2_phases(checks)
+    wall("phases 3-8b")
     # phase 8c needs the card to itself: qwen2-7b's weights, graphs and
     # pools went with qwen2_phases' frame
     gc.collect()
@@ -2912,14 +3509,23 @@ def main():
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
     gemma2 = gemma2_at_full_width()
+    wall("phase 8c")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase9_line, phase9_subs = phase9(checks)
+    wall("phase 9")
+    for row in rows:
+        row.update(phase9_subs.get(row["name"], {}))
     log(summary)
     log(f"[result] phase 8: " + "; ".join(
-        f"gemma2 ({r}) prefill {gemma2[r]['prefill_s']:.3f} s, decode "
+        f"gemma2 ({r}, {gemma2[r]['layers']} layers) prefill "
+        f"{gemma2[r]['prefill_s']:.3f} s, decode "
         f"{gemma2[r]['decode_tok_s']:.1f} tok/s, step "
-        f"{gemma2[r]['step_ms']:.2f} ms (floor {gemma2['floor_ms']:.2f}), "
+        f"{gemma2[r]['step_ms']:.2f} ms (floor {gemma2[r]['floor_ms']:.2f}), "
         f"busy {gemma2[r]['busy']:.1%}, max allocated "
         f"{gemma2[r]['max_alloc_gb']:.2f} GB" for r in ("i", "ii"))
         + f"; {card}")
+    log(f"{phase9_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

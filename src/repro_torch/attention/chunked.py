@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.attention.xla import scale_product
 from repro_torch.attention.xla import softcap as _softcap
 from repro_torch.core.quant import EPS_MAX, SOFTMAX_SHIFT
 from repro_torch.kernels.common import (device_tensor, floor_log2,
@@ -65,9 +66,9 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
                         kv_chunk=KV_CHUNK):
     """q (B,Sq,H,hd); k/v (B,Skv,G,hd), int8 for ``ita_int``. Returns
     (B,Sq,H,hd) float32: softmax(QKᵀ)·V in the chosen arithmetic (for
-    ``ita_int`` dequantized through ``s_v``; the scales float32, 0-d
-    tensors in the model). ``kv_len`` a scalar. Queries start at
-    position 0."""
+    ``ita_int`` dequantized through ``s_v``; the scales 0-d tensors of
+    the model's ``param_dtype``, ``s_q * s_k * scale`` formed in it).
+    ``kv_len`` a scalar. Queries start at position 0."""
     if impl not in ("ita_int", "float"):
         raise NotImplementedError(
             f"impl={impl!r}: the QAT forward (ita_ste) comes with the "
@@ -96,7 +97,7 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     scale_t = _f32(np.float32(scale), dev)
     eps = _f32(np.float32(EPS_MAX), dev)
     if is_int:
-        fmult = _f32(s_q, dev) * _f32(s_k, dev) * scale_t
+        fmult = scale_product(s_q, s_k, scale, dev)
         lmult = fmult / eps
 
     outs = []

@@ -28,8 +28,10 @@ into a copy padded by one sink entry that is cut off again (``scatter_drop``).
 Ring writes of dead rows write back the value they would overwrite.
 Every scatter is duplicate-free outside the sink, so results are
 deterministic on the card, and no operation reads a value back to the
-host. Per-head cache scales (``k_scale``/``v_scale``) come with a later
-slice.
+host. Per-head cache scales (``k_scale``/``v_scale``, (G,) float32,
+optional) ride on both states for the engine of ``runtime.kv_cache``;
+the model path quantizes onto its per-tensor QAT scales and keeps them
+None.
 
 Prefix sharing: ``adopt_prefix`` points a fresh row's leading table
 entries at pages another request wrote, ``incref_pages``/``decref_pages``
@@ -88,20 +90,29 @@ class KVCacheState:
     k: torch.Tensor             # (B, C, G, hd) int8 (or compute dtype)
     v: torch.Tensor             # (B, C, G, hd)
     pos: torch.Tensor           # (B,) int32 — tokens ever written, per seq
+    k_scale: torch.Tensor | None = None     # (G,) float32 per-head scales
+    v_scale: torch.Tensor | None = None
 
     @classmethod
     def init(cls, batch: int, capacity: int, n_kv_heads: int, head_dim: int,
-             dtype=torch.int8, device="cuda") -> "KVCacheState":
+             dtype=torch.int8, device="cuda",
+             per_head_scales: bool = False) -> "KVCacheState":
         """Fresh (zeroed) ring-buffer cache, capacity block-aligned above
         one KV block, on ``device`` (default the card; raises when CUDA is
-        missing)."""
+        missing); ``per_head_scales`` starts (G,) scales at 1."""
         device = resolve_device(device)
         capacity = _align_capacity(capacity)
         shape = (batch, capacity, n_kv_heads, head_dim)
+        scales = (torch.ones((n_kv_heads,), dtype=torch.float32,
+                             device=device) if per_head_scales else None)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    pos=torch.zeros((batch,), dtype=torch.int32,
-                                   device=device))
+                                   device=device),
+                   k_scale=scales, v_scale=scales)
+
+    def with_scales(self, k_scale, v_scale) -> "KVCacheState":
+        return dataclasses.replace(self, k_scale=k_scale, v_scale=v_scale)
 
     @property
     def capacity(self) -> int:
@@ -203,14 +214,16 @@ class PagedKVState:
     free_stack: torch.Tensor    # (P,) int32
     free_top: torch.Tensor      # () int32 — number of free pages
     ref_count: torch.Tensor     # (P,) int32
+    k_scale: torch.Tensor | None = None     # (G,) float32 per-head scales
+    v_scale: torch.Tensor | None = None
 
     # -- construction -----------------------------------------------------
 
     @classmethod
     def init(cls, batch: int, capacity: int, n_kv_heads: int, head_dim: int,
              dtype=torch.int8, device="cuda", *,
-             page_size: int = MIN_BLOCK_KV,
-             num_pages: int | None = None) -> "PagedKVState":
+             page_size: int = MIN_BLOCK_KV, num_pages: int | None = None,
+             per_head_scales: bool = False) -> "PagedKVState":
         """Fresh pool on ``device`` (default the card; raises when CUDA is
         missing). ``capacity`` (per-sequence logical window) rounds up to
         a ``page_size`` multiple; ``num_pages`` sizes the shared arena
@@ -231,12 +244,18 @@ class PagedKVState:
         # hands out page 1
         stack = torch.cat([torch.arange(num_pages - 1, 0, -1, **i32),
                            torch.zeros((1,), **i32)])
+        scales = (torch.ones((n_kv_heads,), dtype=torch.float32,
+                             device=device) if per_head_scales else None)
         return cls(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device),
                    page_table=torch.zeros((batch, n_pages), **i32),
                    pos=torch.zeros((batch,), **i32), free_stack=stack,
                    free_top=torch.full((), num_pages - 1, **i32),
-                   ref_count=torch.zeros((num_pages,), **i32))
+                   ref_count=torch.zeros((num_pages,), **i32),
+                   k_scale=scales, v_scale=scales)
+
+    def with_scales(self, k_scale, v_scale) -> "PagedKVState":
+        return dataclasses.replace(self, k_scale=k_scale, v_scale=v_scale)
 
     # -- geometry ---------------------------------------------------------
 

@@ -52,6 +52,18 @@ def quantize_to_int8(x, scale):
     return torch.clamp(q, INT8_MIN, INT8_MAX).to(torch.int8)
 
 
+def scale_product(s_q, s_k, scale, device) -> torch.Tensor:
+    """``s_q * s_k * scale`` as the JAX package forms it, widened to
+    float32: in the scales' own dtype, with the Python ``scale`` taking
+    that dtype as a weakly typed JAX scalar does. Float32 scales give the
+    float32 product; bfloat16 scales (``param_dtype="bfloat16"``) round
+    to bfloat16 after each product."""
+    dts = {x.dtype for x in (s_q, s_k) if torch.is_tensor(x)}
+    dt = torch.bfloat16 if dts == {torch.bfloat16} else torch.float32
+    return (device_tensor(s_q, dt, device) * device_tensor(s_k, dt, device)
+            * device_tensor(float(scale), dt, device)).float()
+
+
 def mask(sq, skv, q_offset, causal, window, kv_len, device=None):
     """Validity mask. ``q_offset``/``kv_len`` may be scalars (dense) or
     (B,) per-sequence vectors (ragged batch); the result is (sq, skv) or
@@ -130,8 +142,8 @@ def direct_int(q8, k8, v8, *, s_q, s_k, s_v, scale, impl="ita",
     """Integer serve path: int8 Q·Kᵀ (exact), requant onto the ITA logit
     grid (with the optional float-side softcap), shift-only or I-BERT
     softmax, integer A·V. q8 (B,Sq,H,hd), k8/v8 (B,Skv,G,hd) int8; the
-    scales float32 (0-d tensors in the model). Returns (B,Sq,H,hd)
-    float32 (dequantized through s_v)."""
+    scales 0-d tensors of the model's ``param_dtype`` (``scale_product``).
+    Returns (B,Sq,H,hd) float32 (dequantized through s_v)."""
     dev = q8.device
     m = _lift(mask(q8.shape[1], k8.shape[1], q_offset, causal, window,
                    kv_len, dev))
@@ -140,7 +152,7 @@ def direct_int(q8, k8, v8, *, s_q, s_k, s_v, scale, impl="ita",
         return device_tensor(x, torch.float32, dev)
 
     acc = gqa_logits(q8, k8, matmul=int_matmul)     # exact, |acc| < 2^24
-    logits_f = acc * (f32(s_q) * f32(s_k) * f32(np.float32(scale)))
+    logits_f = acc * scale_product(s_q, s_k, scale, dev)
     logits_f = softcap(logits_f, cap)
     lq = torch.clamp(torch.round(logits_f / f32(np.float32(EPS_MAX))),
                      INT8_MIN, INT8_MAX).to(torch.int32)

@@ -76,3 +76,9 @@ class ModelConfig:
     def compute_dtype(self) -> torch.dtype:
         return {"bfloat16": torch.bfloat16,
                 "float32": torch.float32}[self.dtype]
+
+    def param_torch_dtype(self) -> torch.dtype:
+        """The dtype the JAX package stores every parameter leaf in
+        (``param_dtype``; its ``init_model`` casts the whole pytree)."""
+        return {"bfloat16": torch.bfloat16,
+                "float32": torch.float32}[self.param_dtype]

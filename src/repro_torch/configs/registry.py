@@ -1,21 +1,37 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 
-The port registers the dense decoder of its main path, ``qwen2-7b``, and
-``gemma2-27b`` (local/global attention with softcaps, served by the
-direct integer backend), each with its smoke width; the other
-architectures of ``repro.configs.registry`` come with the blocks they
-need (ROADMAP, "Model breadth").
+The port registers the decoders whose blocks it builds, in the order of
+``repro.configs.registry``: the dense ``qwen2-7b``, ``phi3-mini-3.8b``
+and ``deepseek-coder-33b``, ``gemma2-27b`` (local/global attention with
+softcaps, served by the direct integer backend), and the mixtures of
+experts ``olmoe-1b-7b`` and ``mixtral-8x7b``, each with its smoke width.
+The recurrent and encoder–decoder architectures come with their blocks
+(ROADMAP §A item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import gemma2_27b, qwen2_7b
+from repro_torch.configs import (deepseek_coder_33b, gemma2_27b, mixtral_8x7b,
+                                 olmoe_1b_7b, phi3_mini_3_8b, qwen2_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "qwen2-7b": qwen2_7b,
+    "phi3-mini-3.8b": phi3_mini_3_8b,
+    "deepseek-coder-33b": deepseek_coder_33b,
     "gemma2-27b": gemma2_27b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "mixtral-8x7b": mixtral_8x7b,
+}
+
+# the reference's other architectures, and what brings each
+_LATER = {
+    "recurrentgemma-2b": "the recurrent blocks (models/rglru.py)",
+    "rwkv6-7b": "the recurrent blocks (models/rwkv6.py)",
+    "whisper-large-v3": "the encoder-decoder and cross-attention blocks",
+    "llama-3.2-vision-90b": "the encoder-decoder and cross-attention "
+                            "blocks",
 }
 
 ARCH_IDS = tuple(_MODULES)
@@ -23,10 +39,11 @@ ARCH_IDS = tuple(_MODULES)
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
     if arch not in _MODULES:
+        brings = _LATER.get(arch, "no planned slice")
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet (this slice registers "
-            f"{ARCH_IDS}; the other architectures come with their blocks, "
-            f"ROADMAP, \"Model breadth\")")
+            f"{ARCH_IDS}); it comes with {brings} (ROADMAP §A item 7, "
+            f"\"Model breadth\")")
     cfg = _MODULES[arch].SMOKE if smoke else _MODULES[arch].CONFIG
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

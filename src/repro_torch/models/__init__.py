@@ -1,4 +1,5 @@
-"""Model zoo of the port (the dense decoder of its main path)."""
+"""Model zoo of the port: decoders of attention blocks with SwiGLU,
+GeGLU or mixture-of-experts MLPs."""
 from repro_torch.models.transformer import (forward,  # noqa: F401
                                             from_jax_params, init_caches,
-                                            init_model)
+                                            init_model, moe_aux_loss)

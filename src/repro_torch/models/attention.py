@@ -38,13 +38,16 @@ def make_spec(cfg, *, mode, causal, window, q_len=None, has_s_out=True,
 class Attention(nn.Module):
     """Weights in the JAX layout: ``wq`` (d, H·hd), ``wk``/``wv``
     (d, G·hd), ``wo`` (H·hd, d); biases; the QAT scales ``s_q``, ``s_k``,
-    ``s_v``, ``s_out`` (0-d float32) of the quantized impls."""
+    ``s_v``, ``s_out`` (0-d, in ``param_dtype`` as the reference keeps
+    them: under ``"bfloat16"`` 0.05 is 0.050048828125, and the streaming
+    and direct paths form ``s_q * s_k * scale`` in bfloat16) of the
+    quantized impls."""
 
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
         d, h, g, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         kw = dict(dtype=cfg.compute_dtype(), device=device,
-                  generator=generator)
+                  generator=generator, param_dtype=cfg.param_torch_dtype())
         self.wq = normal_param((d, h * hd), d ** -0.5, **kw)
         self.wk = normal_param((d, g * hd), d ** -0.5, **kw)
         self.wv = normal_param((d, g * hd), d ** -0.5, **kw)
@@ -55,9 +58,8 @@ class Attention(nn.Module):
                     (n,), 0.0, dtype=cfg.compute_dtype(), device=device))
         if cfg.attention_impl != "float":
             for name in ("s_q", "s_k", "s_v", "s_out"):
-                setattr(self, name, const_param((), 0.05,
-                                                dtype=torch.float32,
-                                                device=device))
+                setattr(self, name, const_param(
+                    (), 0.05, dtype=cfg.param_torch_dtype(), device=device))
 
     def scales(self) -> ATT.QuantScales:
         return ATT.QuantScales(s_q=getattr(self, "s_q", None),

@@ -23,16 +23,18 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def normal_param(shape, scale, *, dtype, device, generator=None):
-    """``scale * N(0, 1)`` drawn in float32 from ``generator`` and cast to
-    ``dtype``; uninitialized storage when ``generator`` is None (weights
-    about to be loaded)."""
+def normal_param(shape, scale, *, dtype, device, generator=None,
+                 param_dtype=torch.float32):
+    """``scale * N(0, 1)`` drawn in float32 from ``generator``, rounded to
+    ``param_dtype`` (the JAX package's storage) and cast to ``dtype``;
+    uninitialized storage when ``generator`` is None (weights about to be
+    loaded)."""
     if generator is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
         t = (scale * torch.randn(shape, generator=generator,
                                  dtype=torch.float32, device=device)
-             ).to(dtype)
+             ).to(param_dtype).to(dtype)
     return nn.Parameter(t, requires_grad=False)
 
 
@@ -92,10 +94,12 @@ class SwiGLU(nn.Module):
 
     act = staticmethod(F.silu)
 
-    def __init__(self, d: int, f: int, *, dtype, device, generator=None):
+    def __init__(self, d: int, f: int, *, dtype, device, generator=None,
+                 param_dtype=torch.float32):
         super().__init__()
         s_in, s_out = d ** -0.5, f ** -0.5
-        kw = dict(dtype=dtype, device=device, generator=generator)
+        kw = dict(dtype=dtype, device=device, generator=generator,
+                  param_dtype=param_dtype)
         self.w_gate = normal_param((d, f), s_in, **kw)
         self.w_up = normal_param((d, f), s_in, **kw)
         self.w_down = normal_param((f, d), s_out, **kw)

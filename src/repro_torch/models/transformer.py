@@ -1,9 +1,10 @@
-"""Model assembly (``repro.models.transformer``) for dense decoders:
+"""Model assembly (``repro.models.transformer``) for decoders of
 attention blocks (``attn`` global, ``local``/``swa`` sliding window) in
 layer groups, run by a Python loop over layers where the JAX package
-scans period-stacked parameters. Gemma2's extras are here too: GeGLU,
-post-norms on both residual branches, scaled embeddings and the final
-logit softcap.
+scans period-stacked parameters. The MLP of a block is SwiGLU, GeGLU or,
+with ``mlp_type="moe"``, the mixture of experts of ``models.moe``.
+Gemma2's extras are here too: post-norms on both residual branches,
+scaled embeddings and the final logit softcap.
 
     model = init_model(cfg, seed=0)                  # on the card
     caches = init_caches(cfg, batch, max_len)        # one ring per layer
@@ -14,8 +15,17 @@ logit softcap.
 ``from_jax_params`` loads a parameter pytree of the JAX package (numpy
 arrays, ``groups[g][pattern_pos][leaf]`` stacked over periods) into the
 port's modules, which is how the tests hold the two to the same weights.
-Other block kinds (MoE, recurrent, cross-attention, encoders) come with
-later slices.
+Its leaves may be float32 or, under ``param_dtype="bfloat16"``,
+``ml_dtypes.bfloat16``. Other block kinds (recurrent, cross-attention,
+encoders) come with later slices.
+
+``param_dtype`` is honoured as the JAX package honours it, which casts
+every leaf: projections and embeddings hold ``param_dtype``-rounded
+values in the compute dtype (the reference casts them to it at each
+use), the router holds them in float32, and the norm gains and the QAT
+scales are kept in ``param_dtype`` itself, where the reference computes
+with them in that dtype (``1 + scale`` of a norm; ``s_q * s_k * scale``
+of the streaming and direct attention paths).
 """
 
 from __future__ import annotations
@@ -28,22 +38,24 @@ from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import device_tensor
 from repro_torch.models.attention import Attention
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import (GeGLU, SwiGLU, const_param, embed,
                                        normal_param, rmsnorm, unembed)
 
 # block kind -> the attention layer's kind (its window)
 _ATTN_KINDS = {"attn": "global", "local": "local", "swa": "swa"}
 _MLPS = {"swiglu": SwiGLU, "geglu": GeGLU}
+_MLP_KINDS = (*_MLPS, "moe")        # "moe": models.moe.MoE, built from cfg
 
 
 def _check_ported(cfg):
     kinds = {k for pat, _ in cfg.layer_groups for k in pat}
-    if kinds - set(_ATTN_KINDS) or cfg.mlp_type not in _MLPS \
+    if kinds - set(_ATTN_KINDS) or cfg.mlp_type not in _MLP_KINDS \
             or cfg.norm_type != "rmsnorm" or cfg.n_encoder_layers \
             or cfg.frontend_dim or cfg.sinusoidal_pos:
         raise NotImplementedError(
-            f"{cfg.name}: this slice of the port builds dense decoders of "
-            f"{tuple(_ATTN_KINDS)} blocks with {tuple(_MLPS)} MLPs and "
+            f"{cfg.name}: this slice of the port builds decoders of "
+            f"{tuple(_ATTN_KINDS)} blocks with {_MLP_KINDS} MLPs and "
             f"RMSNorm; the other blocks come with later slices (ROADMAP, "
             f"\"Model breadth\")")
 
@@ -60,7 +72,7 @@ def _has_post_norms(cfg) -> bool:
 
 
 def _norm(cfg, device):
-    return const_param((cfg.d_model,), 0.0, dtype=torch.float32,
+    return const_param((cfg.d_model,), 0.0, dtype=cfg.param_torch_dtype(),
                        device=device)
 
 
@@ -75,9 +87,13 @@ class Block(nn.Module):
         self.norm1 = _norm(cfg, device)
         self.attn = Attention(cfg, device=device, generator=generator)
         self.norm2 = _norm(cfg, device)
-        self.mlp = _MLPS[cfg.mlp_type](
-            cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(), device=device,
-            generator=generator)
+        if cfg.mlp_type == "moe":
+            self.mlp = MOE.MoE(cfg, device=device, generator=generator)
+        else:
+            self.mlp = _MLPS[cfg.mlp_type](
+                cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
+                device=device, generator=generator,
+                param_dtype=cfg.param_torch_dtype())
         if _has_post_norms(cfg):
             self.post_norm1 = _norm(cfg, device)
             self.post_norm2 = _norm(cfg, device)
@@ -107,14 +123,13 @@ class Transformer(nn.Module):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
-        dt = cfg.compute_dtype()
+        kw = dict(dtype=cfg.compute_dtype(), device=device,
+                  generator=generator, param_dtype=cfg.param_torch_dtype())
         self.embed = normal_param((cfg.vocab_size, cfg.d_model),
-                                  cfg.d_model ** -0.5, dtype=dt,
-                                  device=device, generator=generator)
+                                  cfg.d_model ** -0.5, **kw)
         if not cfg.tie_embeddings:
             self.unembed = normal_param((cfg.d_model, cfg.vocab_size),
-                                        cfg.d_model ** -0.5, dtype=dt,
-                                        device=device, generator=generator)
+                                        cfg.d_model ** -0.5, **kw)
         self.blocks = nn.ModuleList(
             Block(cfg, kind, device=device, generator=generator)
             for kind in layer_kinds(cfg))
@@ -126,9 +141,10 @@ class Transformer(nn.Module):
 
 def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
     """Random weights from ``seed`` at the JAX package's distributions
-    (``scale · N(0, 1)`` projections and embeddings, zero biases and norm
-    gains, 0.05 quantization scales), in the compute dtype, on ``device``
-    (default the card; raises when CUDA is missing)."""
+    (``scale · N(0, 1)`` projections, experts, routers and embeddings,
+    zero biases and norm gains, 0.05 quantization scales), rounded to
+    ``param_dtype`` and stored as the module docstring says, on
+    ``device`` (default the card; raises when CUDA is missing)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -154,13 +170,18 @@ def _layer_leaves(tree, cfg):
 def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
     """Load a JAX-package parameter pytree (numpy arrays; per group, per
     pattern position, leaves stacked over ``n_periods``) into the port's
-    modules on ``device``."""
+    modules on ``device``. ``ml_dtypes.bfloat16`` leaves (``param_dtype=
+    "bfloat16"``) widen to float32 through numpy, exactly, and then take
+    the parameter's dtype."""
     dev = resolve_device(device)
     with torch.no_grad():
         model = Transformer(cfg, device=dev)
 
         def put(param, array):
-            param.copy_(torch.from_numpy(np.array(array)).to(param.dtype))
+            a = np.array(array)
+            if a.dtype.name == "bfloat16":      # torch cannot take it
+                a = a.astype(np.float32)
+            param.copy_(torch.from_numpy(a).to(param.dtype))
 
         put(model.embed, tree["embed"]["table"])
         if not cfg.tie_embeddings:
@@ -249,3 +270,24 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     if skip_unembed:
         return x, new_caches
     return unembed(model.unembed_weight(), x, cfg.logit_softcap), new_caches
+
+
+def moe_aux_loss(model: Transformer, tokens, cfg) -> torch.Tensor:
+    """The MoE load-balance loss the JAX package's ``forward`` returns as
+    ``aux`` in train mode: ``models.moe.moe_aux_loss`` of each MoE block
+    on its normed MLP input, summed over blocks (float32 0-d; 0 without
+    MoE blocks). A function only: ``loss_fn`` and training come with a
+    later slice."""
+    inputs = []
+    handles = [blk.mlp.register_forward_pre_hook(
+        lambda mod, inp: inputs.append((mod, inp[0])))
+        for blk in model.blocks if isinstance(blk.mlp, MOE.MoE)]
+    try:
+        forward(model, tokens, cfg, mode="train")
+    finally:
+        for h in handles:
+            h.remove()
+    total = torch.zeros((), dtype=torch.float32, device=model.embed.device)
+    for mod, x in inputs:
+        total = total + MOE.moe_aux_loss(x, mod.router, mod.k)
+    return total

@@ -14,6 +14,8 @@ plain torch ops) on the card equal their CPU results, and smoke-width
 tokens from both loops.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -56,6 +58,14 @@ CASES = [
     ("decode", 1, 8, 2, 1, 512, 256, 128, True, 0, "4d"),
     ("decode", 1, 28, 4, 1, 2304, 128, 128, True, 0, "4d"),
     ("decode", 1, 28, 4, 8, 2304, 128, 128, True, 300, "3d"),
+    # phi3-mini's 32/32 heads at head dim 96 (kv_rep 1) and olmoe-1b-7b's
+    # 16/16 at 128: prefill, decode-shaped onepass and the decode block
+    ("onepass", 2, 32, 32, 40, 384, 96, 128, True, 0, "4d"),
+    ("onepass", 2, 32, 32, 1, 640, 96, 128, True, 0, "3d"),
+    ("decode", 2, 32, 32, 1, 640, 96, 128, True, 0, "4d"),
+    ("decode", 1, 32, 32, 8, 2304, 96, 128, True, 300, "3d"),
+    ("onepass", 2, 16, 16, 40, 384, 128, 128, True, 0, "4d"),
+    ("decode", 2, 16, 16, 1, 640, 128, 128, True, 0, "4d"),
 ]
 
 
@@ -108,6 +118,11 @@ PAGED_CASES = [
     ("decode", 2, 28, 4, 1, 16, 40, 128, 0),
     ("decode", 2, 28, 4, 2, 64, 12, 128, 150),
     ("decode", 2, 28, 4, 1, 128, 18, 128, 0),
+    # phi3-mini's and olmoe-1b-7b's heads (kv_rep 1; head dims 96, 128)
+    ("onepass", 3, 32, 32, 96, 128, 4, 96, 0),
+    ("decode", 2, 32, 32, 1, 128, 9, 96, 0),
+    ("onepass", 3, 16, 16, 96, 128, 4, 128, 0),
+    ("decode", 2, 16, 16, 1, 128, 9, 128, 0),
 ]
 
 
@@ -831,3 +846,143 @@ def test_cuda_generate_through_xla_backends(arch, impl):
         torch.cuda.synchronize()
         assert not any(K.LAUNCHES.values()), K.LAUNCHES
     assert torch.equal(runs["fused"].tokens, runs["stepwise"].tokens)
+
+
+@pytest.mark.cuda
+def test_cuda_expert_ffn_rows_do_not_depend_on_their_block():
+    """The experts' SwiGLU over the blocked capacity buffer (one
+    ``(E, 128, d) @ (E, d, f)`` bmm per block, olmoe-1b-7b's widths in
+    bf16) gives each row the same bits whatever the other rows of its
+    block and whichever block holds it, and the same replayed from a
+    CUDA graph: serve-equals-solo rests on it for MoE models."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.models.moe import expert_ffn
+    g = torch.Generator("cuda").manual_seed(4)
+    e, d, f = 64, 2048, 1024
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * shape[-2] ** -0.5).to(torch.bfloat16)
+    wg, wu, wd = w(e, d, f), w(e, d, f), w(e, f, d)
+    buf = torch.randn((3, e, 128, d), generator=g, device="cuda") \
+        .to(torch.bfloat16)
+    full = expert_ffn(buf, wg, wu, wd)
+    moved = torch.zeros_like(buf[:1])
+    moved[0, :, 5] = buf[2, :, 77]            # alone, at another row
+    got = expert_ffn(moved, wg, wu, wd)
+    assert torch.equal(got[0, :, 5], full[2, :, 77])
+    shuffled = buf.flip(0)
+    assert torch.equal(expert_ffn(shuffled, wg, wu, wd), full.flip(0))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        expert_ffn(buf, wg, wu, wd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = expert_ffn(buf, wg, wu, wd)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, full)
+
+
+def _olmoe_smoke():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    cfg = get_config("olmoe-1b-7b", smoke=True, attention_impl="ita")
+    return cfg, init_model(cfg, seed=0, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["ring", "paged"])
+def test_cuda_olmoe_captured_decode_step_equals_eager(paged):
+    """olmoe-smoke's decode step (the routing's sort, argsort,
+    searchsorted, gathers and fixed-order combine inside) replayed from
+    a CUDA graph gives the eager step's bits over 8 replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.launch.steps import (CapturedSteps, make_decode_body,
+                                          tree_leaves)
+    cfg, model = _olmoe_smoke()
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(1))
+    body = make_decode_body(cfg, model, None, 1.0, sample=False, eos_id=None,
+                            pad_id=0)
+    graphs = CapturedSteps("cuda")
+    with torch.inference_mode():
+        eager = _smoke_decode_start(cfg, model, prompts, paged)
+        captured = _smoke_decode_start(cfg, model, prompts, paged)
+        for step in range(9):
+            eager, _ = body(eager)
+            captured, _ = graphs.run("decode", body, captured)
+            torch.cuda.synchronize()
+            for a, b in zip(tree_leaves(eager), tree_leaves(captured),
+                            strict=True):
+                assert torch.equal(a, b), step
+
+
+@pytest.mark.cuda
+def test_cuda_olmoe_captured_mixed_step_equals_eager():
+    """olmoe-smoke's mixed serve step (two slots prefilling 16-token
+    chunks of 40-token prompts, then decoding) replayed from a CUDA
+    graph equals the eager steps in every tensor of the carry but the
+    pools' sink page: the third chunk's 8 padding rows of each slot all
+    write their dropped K/V there (``attention.state``), in an order no
+    run fixes, and nothing ever reads it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.launch.steps import (CapturedSteps, ServeSlotState,
+                                          admit_chunked, make_serve_segment,
+                                          tree_leaves)
+    from repro_torch.models import init_caches
+    cfg, model = _olmoe_smoke()
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)
+
+    def seg(graphs=None):
+        return make_serve_segment(cfg, segment=1, sample=False, eos_id=None,
+                                  pad_id=0, chunk=16, budget=33,
+                                  graphs=graphs)
+
+    def start():
+        caches = init_caches(cfg, 2, 64, paged=True, page_size=32,
+                             device="cuda")
+        state = admit_chunked(ServeSlotState.init(2, 40, "cuda"), [0, 1],
+                              prompts, [40, 40], [8, 8])
+        return caches, state
+
+    def read(caches):
+        return [dataclasses.replace(c["mix"], k=c["mix"].k[:-1],
+                                    v=c["mix"].v[:-1]) for c in caches]
+
+    with torch.inference_mode():
+        (c_e, s_e), (c_g, s_g) = start(), start()
+        step_e, step_g = seg(), seg(CapturedSteps("cuda"))
+        for i in range(6):
+            t_e, _, _, s_e, c_e, _ = step_e(model, s_e, c_e, 1.0)
+            t_g, _, _, s_g, c_g, _ = step_g(model, s_g, c_g, 1.0)
+            torch.cuda.synchronize()
+            for a, b in zip(tree_leaves((read(c_e), s_e, t_e)),
+                            tree_leaves((read(c_g), s_g, t_g)),
+                            strict=True):
+                assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_cuda_olmoe_fused_generate_is_repeatable():
+    """Greedy tokens equal across two fused ``generate()`` calls and the
+    stepwise loop on olmoe-smoke: an order-dependent (atomic) combine
+    would show here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.runtime.generate import generate
+    cfg, model = _olmoe_smoke()
+    prompts = torch.randint(0, cfg.vocab_size, (4, 24),
+                            generator=torch.Generator().manual_seed(2))
+    runs = [generate(model, cfg, prompts, 12, loop=loop).tokens
+            for loop in ("fused", "fused", "stepwise")]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
