@@ -35,10 +35,13 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (``models.layers.linear``) and norm give a row the same bits whatever
    the rows beside it, which serve-equals-solo rests on, and the same
    bits replayed from a CUDA graph as run eagerly, which the captured
-   steps rest on. At phase 9's head shapes (phi3-mini's 32/32 heads of
-   96, olmoe-1b-7b's 16/16 of 128; kv_rep 1) hold B2 (prefill and
-   decode-shaped), B4 (clusters and streaming), B3 (q_len 96/1/96/0)
-   and B4p to their plain versions; check that the MoE layer at
+   steps rest on. At phase 9's and 10's head shapes (phi3-mini's 32/32
+   heads of 96, olmoe-1b-7b's 16/16 of 128, kv_rep 1; recurrentgemma-
+   2b's 10/1 of 256, kv_rep 10) hold B2 (prefill and decode-shaped), B4
+   (clusters and streaming), B3 (q_len 96/1/96/0) and B4p to their
+   plain versions, and at recurrentgemma-2b's window of 2048 B4 and
+   decode-shaped B2 over a full 2048-entry ring and B4 over a 2304-entry
+   ring whose window skips leading tiles; check that the MoE layer at
    olmoe-1b-7b's widths gives a row the same bits whatever rows share
    the call (the router's float32 product and softmax, the expert FFN's
    blocked ``bmm`` in any block and at any row, replayed from a CUDA
@@ -61,8 +64,9 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    and one decode step (the first, run eagerly before the capture; run
    (b): also layer 0 of its first decode step, a decode-shaped onepass
    call) are kept and held to the plain versions afterwards. The
-   smoke-width config (unpinned and with each pin) checks the card's
-   logits against the CPU's plain versions. Profile one unpinned
+   smoke-width configs (qwen2 unpinned and with each pin;
+   recurrentgemma and rwkv6) check the card's logits against the CPU's
+   plain versions. Profile one unpinned
    ``generate()`` with each loop (device time by kernel, busy share).
 4. Drive the standalone softmax (``kernels.ita_softmax.ops.ita_softmax``)
    on layer 0's attention matrix A of run (c) (57,344 rows of 512 int8
@@ -193,6 +197,24 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    its weight-read floor. Layer 0's kernel calls of both are timed as
    sub-rows of the kernels line (``olmoe``, ``phi3``,
    ``*_prefill``/``*_decode`` on B2).
+10. The recurrent blocks, after phase 9's models are freed (random
+   weights from seed 0, ITA): (a)
+   recurrentgemma-2b at full width (26 layers: 18 RG-LRU, 8 local
+   attention of 10/1 heads of 256, window 2048; rnn width 2560, GeGLU
+   7680, vocab 256000, bf16 parameters): ``generate()`` at batch 4,
+   prompt 512, 32 tokens, (a) unpinned (chunked prefill, then B4), (b)
+   onepass-pinned (B2), (c) (a) with ``paged=True`` (B4p; its tokens
+   must equal (a)'s), (d) batch 1, prompt 4096, 16 tokens (the 2048-
+   entry local rings wrap and the window binds); each fused twice with
+   equal tokens and launches and held to stepwise, the backends counted
+   and layer 2's (the first local layer's) calls held to plain, timed as
+   sub-rows (``recurrentgemma``, ``recurrentgemma_long``,
+   ``recurrentgemma_prefill``/``_decode``); the replayed step beside the
+   weight-read floor, busy share, the recurrent state's bytes a
+   sequence. (b) rwkv6-7b at full width (32 layers, d 4096, 64 heads of
+   64, channel mix 14336, vocab 65536): ``generate()`` at batch 4,
+   prompt 512, 32 tokens, fused twice and stepwise with equal tokens,
+   no attention call and no kernel launch (attention-free).
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -288,9 +310,16 @@ DRAIN_AFTER = 48
 # phase 6: the stall serve's ragged B2 prefill and decode-shaped B3 call
 STALL_PREFILL = "ita_attention_onepass/stall_prefill"
 STALL_DECODE = "ita_attention_onepass_paged/stall_decode"
-# phase 9's models and their head shapes (arch, hq, hkv, head dim)
+# phase 9's and 10's models and their head shapes (arch, hq, hkv, head
+# dim); recurrentgemma-2b's local attention also at its window
 MOE_PHASE_SHAPES = (("phi3-mini-3.8b", 32, 32, 96),
-                    ("olmoe-1b-7b", 16, 16, 128))
+                    ("olmoe-1b-7b", 16, 16, 128),
+                    ("recurrentgemma-2b", 10, 1, 256))
+LOCAL_WINDOW = {"recurrentgemma-2b": 2048}
+# phase 2's smoke-width configs held to the CPU: (arch, pinned backend)
+SMOKE_REFERENCE = (("qwen2-7b", ""), ("qwen2-7b", "ita_onepass_pallas"),
+                   ("qwen2-7b", "ita_twopass_pallas"),
+                   ("recurrentgemma-2b", ""), ("rwkv6-7b", ""))
 # phase 9a's served trace: prompts up to 512 tokens, so every call (solo
 # prefill of 512 included) keeps t·k <= 4096 and drops nothing
 MOE_SERVE = dict(SERVE, plen=(128, 512), gen=(16, 45), num_pages=None)
@@ -566,10 +595,14 @@ def paged_cases(rng_seed=1):
 
 
 def model_shape_cases(rng_seed=3):
-    """(name, args, kwargs, label) of B2, B3, B4 and B4p at phase 9's
-    head shapes: phi3-mini's 32/32 heads of 96 and olmoe-1b-7b's 16/16
-    of 128 (kv_rep 1), on rings of ``RING`` and on a pool of 128-token
-    pages."""
+    """(name, args, kwargs, label) of B2, B3, B4 and B4p at phase 9's and
+    10's head shapes: phi3-mini's 32/32 heads of 96 and olmoe-1b-7b's
+    16/16 of 128 (kv_rep 1), recurrentgemma-2b's 10/1 of 256 (kv_rep
+    10), on rings of ``RING`` and on a pool of 128-token pages; at a
+    local window (recurrentgemma-2b's 2048) also B4 and decode-shaped B2
+    over a full ring of the window's length (the wrapped local ring of
+    phase 10 (d)), and B4 over a ring of ``LONG_RING`` whose window skips
+    leading tiles."""
     import torch
     g = torch.Generator(device=DEV).manual_seed(rng_seed)
 
@@ -630,6 +663,26 @@ def model_shape_cases(rng_seed=3):
                           dict(q_offset=torch.clamp(lens - 1, min=0),
                                adaptive=True, **common),
                           f"decode paged {tag}{variant}"))
+        window = LOCAL_WINDOW.get(arch)
+        if window is None:
+            continue
+        full = rows(window, window, window, window)
+        kw_ = dict(common, window=window, adaptive=True)
+        kf, vf = i8(B, window, hkv, d), i8(B, window, hkv, d)
+        for name in ("ita_attention_decode", "ita_attention_decode"
+                     + STREAMING, "ita_attention_onepass"):
+            cases.append((name, (i8(bh, 1, d), kf, vf, lm, om, full),
+                          dict(q_offset=full - 1, **kw_),
+                          f"{name} full ring of {window}, window {window} "
+                          f"{tag}"))
+        long_len = rows(LONG_RING, 2100, window + 1, 300)
+        kl, vl = i8(B, LONG_RING, hkv, d), i8(B, LONG_RING, hkv, d)
+        for variant in ("", STREAMING):
+            cases.append(("ita_attention_decode" + variant,
+                          (i8(bh, 1, d), kl, vl, lm, om, long_len),
+                          dict(q_offset=long_len - 1, **kw_),
+                          f"decode ring {LONG_RING}, window {window} "
+                          f"{tag}{variant}"))
     return cases
 
 
@@ -794,7 +847,8 @@ def check_kernels(checks):
         check_twopass(checks, args, kw, label)
     check_twopass_oneshot(checks)
     log(f"[kernels] bit-exact vs plain at qwen2-7b shapes and at phase "
-        f"9's (32/32 heads of 96, 16/16 of 128): {checks.n}")
+        f"9's and 10's (32/32 heads of 96, 16/16 of 128, 10/1 of 256 with "
+        f"window 2048): {checks.n}")
 
 
 def check_row_invariance():
@@ -1037,9 +1091,10 @@ class Recorder:
 
 
 def run_generate(model, cfg, prompts, *, record=None, keep=(),
-                 loop="fused"):
-    """One ``generate()`` with the launch counters zeroed just before and
-    read just after; ``record`` names the ops wrapper to record."""
+                 loop="fused", gen=GEN, **kw):
+    """One ``generate()`` of ``gen`` tokens (``kw``: its other options)
+    with the launch counters zeroed just before and read just after;
+    ``record`` names the ops wrapper to record."""
     from repro_torch.kernels.ita_attention import ops
     from repro_torch.runtime.generate import generate
     rec = None
@@ -1048,7 +1103,8 @@ def run_generate(model, cfg, prompts, *, record=None, keep=(),
         setattr(ops, record, rec)
     try:
         reset_launches()
-        res = generate(model, cfg, prompts, GEN, loop=loop, device=DEV)
+        res = generate(model, cfg, prompts, gen, loop=loop, device=DEV,
+                       **kw)
         launches = read_launches()
     finally:
         if rec is not None:
@@ -1056,7 +1112,8 @@ def run_generate(model, cfg, prompts, *, record=None, keep=(),
     return res, launches, rec
 
 
-def hold_to_stepwise(model, cfg, prompts, fused, want, label, record=None):
+def hold_to_stepwise(model, cfg, prompts, fused, want, label, record=None,
+                     **kw):
     """Run ``label`` once more with ``loop="stepwise"``: its tokens and
     launches must equal the fused run's. Logs both loops' figures.
     Returns the run and, with ``record``, its ``Recorder`` of that
@@ -1064,7 +1121,7 @@ def hold_to_stepwise(model, cfg, prompts, fused, want, label, record=None):
     calls are its launches, which is checked."""
     import torch
     step, launches, rec = run_generate(model, cfg, prompts, record=record,
-                                       loop="stepwise")
+                                       loop="stepwise", **kw)
     if launches != want or not torch.equal(step.tokens, fused.tokens):
         raise AssertionError(f"{label}: loop='stepwise' gave other tokens "
                              f"or launches ({launches}) than the fused loop")
@@ -1095,15 +1152,18 @@ def log_capture(label, first, kept):
 
 
 def smoke_width_reference():
-    """The smoke-width config on the card against the CPU's plain versions:
-    prefill and two decode steps' logits within 5e-2 (float projections
-    round differently on the two devices, which can move an int8 step)."""
+    """The smoke-width configs on the card against the CPU's plain
+    versions (qwen2-7b unpinned and with each pin, recurrentgemma-2b,
+    rwkv6-7b): prefill and two decode steps' logits within 5e-2 (float
+    products round differently on the two devices, which can move an int8
+    step of the attention; RWKV's per-head group norm magnifies a rounding
+    difference where a head's row cancels)."""
     import torch
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_model
-    for backend in ("", "ita_onepass_pallas", "ita_twopass_pallas"):
-        cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita",
+    for arch, backend in SMOKE_REFERENCE:
+        cfg = get_config(arch, smoke=True, attention_impl="ita",
                          attention_backend=backend)
         tokens = torch.randint(0, cfg.vocab_size, (2, 20),
                                generator=torch.Generator().manual_seed(1))
@@ -1125,9 +1185,9 @@ def smoke_width_reference():
             logits[dev] = torch.cat(seq, 1)
         err = (logits["cpu"] - logits["cuda"]).abs().max().item()
         if not (torch.isfinite(logits["cuda"]).all() and err <= 5e-2):
-            raise AssertionError(f"smoke-width logits on the card differ "
+            raise AssertionError(f"{cfg.name} logits on the card differ "
                                  f"from the CPU's by {err} (pin {backend!r})")
-        log(f"[reference] smoke width, pin {backend or 'none'}: card vs CPU "
+        log(f"[reference] {cfg.name}, pin {backend or 'none'}: card vs CPU "
             f"logits max |d| {err:.3g}")
 
 
@@ -3102,29 +3162,33 @@ def phase9_model(arch):
     return model, cfg, nbytes
 
 
-def generate_twice(model, cfg, prompts, label, record, keep, want):
+def generate_twice(model, cfg, prompts, label, record, keep, want, **kw):
     """Two fused ``generate()`` calls (the capture, then the kept graph's
     replays) with the counters zeroed just before and read just after
     each and the serving backends counted, equal tokens and launches
-    ``want``; then the stepwise loop held to them. Returns the kept
-    call's result, the stepwise one's, the backends seen in the first
-    call, the ``Recorder`` of ``record``, the kept call's counted
-    launches of ``record`` and the stepwise call's by query length."""
+    ``want``; then the stepwise loop held to them (``kw``: options of
+    all three calls, ``gen`` among them). Returns the kept call's
+    result, the stepwise one's, the backends seen in the first call, the
+    ``Recorder`` of ``record``, the kept call's counted launches of
+    ``record`` and the stepwise call's by query length."""
     import torch
     (first, l1, rec), seen = served_by(lambda: run_generate(
-        model, cfg, prompts, record=record, keep=keep))
-    (kept, l2, _), _ = served_by(lambda: run_generate(model, cfg, prompts))
+        model, cfg, prompts, record=record, keep=keep, **kw))
+    (kept, l2, _), _ = served_by(lambda: run_generate(model, cfg, prompts,
+                                                      **kw))
     if l1 != want or l2 != want:
         raise AssertionError(f"{label}: launches {l1}, {l2} != {want}")
     if not torch.equal(first.tokens, kept.tokens):
         raise AssertionError(f"{label}: two fused calls gave other tokens")
     tok = kept.tokens
-    if tok.shape != (B, GEN) or tok.min() < 0 or tok.max() >= cfg.vocab_size:
+    if tok.shape != (prompts.shape[0], kw.get("gen", GEN)) \
+            or tok.min() < 0 or tok.max() >= cfg.vocab_size:
         raise AssertionError(f"{label}: bad tokens {tuple(tok.shape)}")
     log_capture(label, first, kept)
     step, srec = hold_to_stepwise(model, cfg, prompts, kept, want, label,
-                                  record=record)
-    return kept, step, seen, rec, l2[record], srec.by_rows
+                                  record=record, **kw)
+    return kept, step, seen, rec, l2.get(record), \
+        None if srec is None else srec.by_rows
 
 
 def subrow(name, call, launches, label):
@@ -3411,6 +3475,207 @@ def phase9(checks):
     return line, subs
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the recurrent blocks at full width
+# ---------------------------------------------------------------------------
+
+RG_LONG, RG_LONG_GEN = 4096, 16      # 10a (d): the local rings wrap
+
+
+def weight_floor_ms(model, cfg):
+    """A decode step's weight-read floor: every weight read once, but of
+    an untied embedding table only the batch's rows (a tied table is the
+    unembedding, read whole)."""
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    if not cfg.tie_embeddings:
+        nbytes -= model.embed.numel() * model.embed.element_size()
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def recurrent_state_bytes(cfg):
+    """Bytes of one sequence's recurrent state (all recurrent layers)."""
+    from repro_torch.models import init_caches
+    return sum(t.numel() * t.element_size()
+               for c in init_caches(cfg, 1, 1, device="cpu")
+               for part in c.values() if isinstance(part, dict)
+               for t in part.values())
+
+
+def recurrentgemma_phase(checks):
+    """10a: recurrentgemma-2b at full width (random bf16 weights, seed 0,
+    ITA): (a) unpinned ``generate()`` 4 x 512, 32 tokens (chunked
+    prefill, B4 at every decode step of its 8 local layers); (b) pinned
+    to onepass (B2 at prefill and decode); (c) (a) with ``paged=True``
+    (B4p), tokens equal to (a)'s; (d) 1 x ``RG_LONG``, ``RG_LONG_GEN``
+    tokens: the 2048-entry local rings wrap and the window binds. Each
+    run twice fused (capture, then the kept graph) and once stepwise,
+    equal tokens and counted launches; layer 0's kernel calls held to
+    plain. Returns the figures and the kernels' sub-rows."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+    model, cfg, nbytes = phase9_model("recurrentgemma-2b")
+    n_local = sum(pat.count("local") * n for pat, n in cfg.layer_groups)
+    prompts = prompt_batch(cfg)
+    served = {"prefill": "ita_chunked_xla", "decode": "ita_decode_pallas"}
+
+    def want(**counts):
+        return dict(dict.fromkeys(SOURCES, 0), **counts)
+    res_a, step_a, seen_a, rec_a, n_a, _ = generate_twice(
+        model, cfg, prompts, "10a (a)", "ita_attention_decode", (0,),
+        want(ita_attention_decode=n_local * (GEN - 1)))
+    check_served(seen_a, served, "10a (a)")
+    check_recorded(checks, "ita_attention_decode", rec_a, 0,
+                   "10a (a), layer 2 of the first decode step")
+    cfg_b = dataclasses.replace(cfg, attention_backend="ita_onepass_pallas")
+    res_b, _, seen_b, rec_b, n_b, rows_b = generate_twice(
+        model, cfg_b, prompts, "10a (b)", "ita_attention_onepass",
+        (0, n_local), want(ita_attention_onepass=n_local * GEN))
+    check_served(seen_b, {"prefill": "ita_onepass_pallas",
+                          "decode": "ita_onepass_pallas"}, "10a (b)")
+    one_pre = sum(c for sq, c in rows_b.items() if sq > 1)
+    one_dec = rows_b.get(1, 0)
+    for idx, what in ((0, "prefill"), (n_local, "first decode step")):
+        check_recorded(checks, "ita_attention_onepass", rec_b, idx,
+                       f"10a (b), layer 2 of the {what}")
+    res_c, _, seen_c, rec_c, n_c, _ = generate_twice(
+        model, cfg, prompts, "10a (c)", "ita_attention_decode_paged", (0,),
+        want(ita_attention_decode_paged=n_local * (GEN - 1)), paged=True)
+    check_served(seen_c, served, "10a (c)")
+    check_recorded(checks, "ita_attention_decode_paged", rec_c, 0,
+                   "10a (c), layer 2 of the first decode step")
+    if not torch.equal(res_c.tokens, res_a.tokens):
+        raise AssertionError("10a (c): paged tokens differ from (a)'s")
+    long = torch.randint(0, cfg.vocab_size, (1, RG_LONG),
+                         generator=torch.Generator().manual_seed(4))
+    res_d, _, seen_d, rec_d, n_d, _ = generate_twice(
+        model, cfg, long, "10a (d)", "ita_attention_decode", (0,),
+        want(ita_attention_decode=n_local * (RG_LONG_GEN - 1)),
+        gen=RG_LONG_GEN)
+    check_served(seen_d, served, "10a (d)")
+    args_d, kw_d, _ = rec_d.kept[0]
+    check_recorded(checks, "ita_attention_decode", rec_d, 0,
+                   f"10a (d), layer 2 of the first decode step (ring "
+                   f"{args_d[1].shape[1]}, window {kw_d.get('window')})")
+    if args_d[1].shape[1] != cfg.local_window \
+            or kw_d.get("window") != cfg.local_window:
+        raise AssertionError(f"10a (d): the decode call ran over a ring of "
+                             f"{args_d[1].shape[1]}, window "
+                             f"{kw_d.get('window')}")
+    logits = last_logits(model, cfg, prompts[:1, -64:])
+    if not torch.isfinite(logits).all():
+        raise AssertionError("10a: non-finite logits")
+    _, busy = profile_run("10a recurrentgemma fused generate (a)",
+                          lambda: generate(model, cfg, prompts, GEN,
+                                           device=DEV))
+    floor = weight_floor_ms(model, cfg)
+    figs = {"weights_gb": nbytes / 1e9, "floor_ms": floor,
+            "state_bytes": recurrent_state_bytes(cfg),
+            "prefill_s": res_a.prefill_s, "decode_tok_s": res_a.decode_tok_s,
+            "step_ms": 1e3 * res_a.decode_s / res_a.decode_steps,
+            "stepwise_tok_s": step_a.decode_tok_s,
+            "pinned_prefill_s": res_b.prefill_s,
+            "pinned_decode_tok_s": res_b.decode_tok_s,
+            "paged_decode_tok_s": res_c.decode_tok_s,
+            "long_prefill_s": res_d.prefill_s,
+            "long_decode_tok_s": res_d.decode_tok_s, "busy": busy}
+    log(f"[phase10] 10a recurrentgemma-2b: (a) served by {seen_a}, prefill "
+        f"{figs['prefill_s']:.3f} s, decode {figs['decode_tok_s']:.1f} tok/s"
+        f" ({figs['step_ms']:.2f} ms a replayed step against a weight-read "
+        f"floor of {floor:.2f} ms), stepwise {figs['stepwise_tok_s']:.1f} "
+        f"tok/s, busy {busy:.1%}; (b) served by {seen_b}, prefill "
+        f"{figs['pinned_prefill_s']:.3f} s, decode "
+        f"{figs['pinned_decode_tok_s']:.1f} tok/s; (c) paged, tokens equal "
+        f"to (a), decode {figs['paged_decode_tok_s']:.1f} tok/s; (d) 1 x "
+        f"{RG_LONG}, prefill {figs['long_prefill_s']:.3f} s, decode "
+        f"{figs['long_decode_tok_s']:.1f} tok/s; recurrent state "
+        f"{figs['state_bytes']} bytes a sequence; tokens "
+        f"{res_a.tokens[0, :8].tolist()}; launches counted: B4 {n_a} in (a),"
+        f" B2 {n_b} in (b) ({one_pre} at prefill, {one_dec} at decode in "
+        f"its stepwise run), B4p {n_c} in (c), B4 {n_d} in (d); "
+        f"{card_line()}")
+    sub = {
+        "ita_attention_decode": {
+            "recurrentgemma": subrow("ita_attention_decode", rec_a.kept[0],
+                                     n_a, "10a (a) decode"),
+            "recurrentgemma_long": subrow("ita_attention_decode",
+                                          rec_d.kept[0], n_d,
+                                          "10a (d) decode, wrapped ring")},
+        "ita_attention_onepass": {
+            "recurrentgemma_prefill": subrow(
+                "ita_attention_onepass", rec_b.kept[0], one_pre,
+                "10a (b) prefill"),
+            "recurrentgemma_decode": subrow(
+                "ita_attention_onepass", rec_b.kept[n_local], one_dec,
+                "10a (b) decode")},
+        "ita_attention_decode_paged": {
+            "recurrentgemma": subrow("ita_attention_decode_paged",
+                                     rec_c.kept[0], n_c, "10a (c) decode")}}
+    return figs, sub
+
+
+def rwkv_phase():
+    """10b: rwkv6-7b at full width (random weights, seed 0; no attention
+    layer, so no attention kernel may launch): ``generate()`` 4 x 512, 32
+    tokens, twice fused and once stepwise, equal tokens."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+    model, cfg, nbytes = phase9_model("rwkv6-7b")
+    prompts = prompt_batch(cfg)
+    res, step, seen, _, _, _ = generate_twice(
+        model, cfg, prompts, "10b", None, (), dict.fromkeys(SOURCES, 0))
+    if seen:
+        raise AssertionError(f"10b: attention calls {seen} in rwkv6-7b")
+    logits = last_logits(model, cfg, prompts[:1, -64:])
+    if not torch.isfinite(logits).all():
+        raise AssertionError("10b: non-finite logits")
+    _, busy = profile_run("10b rwkv6 fused generate",
+                          lambda: generate(model, cfg, prompts, GEN,
+                                           device=DEV))
+    floor = weight_floor_ms(model, cfg)
+    figs = {"weights_gb": nbytes / 1e9, "floor_ms": floor,
+            "state_bytes": recurrent_state_bytes(cfg),
+            "prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+            "step_ms": 1e3 * res.decode_s / res.decode_steps,
+            "stepwise_tok_s": step.decode_tok_s, "busy": busy}
+    log(f"[phase10] 10b rwkv6-7b: no attention kernel runs (attention-free;"
+        f" every counter 0); recurrent state {figs['state_bytes']} bytes a "
+        f"sequence; prefill {figs['prefill_s']:.3f} s, decode "
+        f"{figs['decode_tok_s']:.1f} tok/s ({figs['step_ms']:.2f} ms a "
+        f"replayed step against a weight-read floor of {floor:.2f} ms), "
+        f"stepwise {figs['stepwise_tok_s']:.1f} tok/s, busy {busy:.1%}; "
+        f"tokens {res.tokens[0, :8].tolist()}; {card_line()}")
+    return figs
+
+
+def phase10(checks):
+    """Phase 10: recurrentgemma-2b (10a) and rwkv6-7b (10b) at full
+    width, each in its own frame, freed before the next. Returns a result
+    line and the kernels' sub-rows."""
+    import torch
+    out = {}
+    for name, fn in (("rg", lambda: recurrentgemma_phase(checks)),
+                     ("rw", lambda: (rwkv_phase(), {}))):
+        out[name] = fn()
+        gc.collect()
+        torch.cuda.empty_cache()
+    (rg, subs), (rw, _) = out["rg"], out["rw"]
+    line = (f"[result] phase 10: recurrentgemma-2b ({rg['weights_gb']:.2f} "
+            f"GB) prefill {rg['prefill_s']:.3f} s, decode "
+            f"{rg['decode_tok_s']:.1f} tok/s, step {rg['step_ms']:.2f} ms "
+            f"(floor {rg['floor_ms']:.2f}), busy {rg['busy']:.1%}; pinned "
+            f"decode {rg['pinned_decode_tok_s']:.1f} tok/s; paged decode "
+            f"{rg['paged_decode_tok_s']:.1f} tok/s; 1 x {RG_LONG} prefill "
+            f"{rg['long_prefill_s']:.3f} s, decode "
+            f"{rg['long_decode_tok_s']:.1f} tok/s; rwkv6-7b "
+            f"({rw['weights_gb']:.2f} GB) prefill {rw['prefill_s']:.3f} s, "
+            f"decode {rw['decode_tok_s']:.1f} tok/s, step "
+            f"{rw['step_ms']:.2f} ms (floor {rw['floor_ms']:.2f}), busy "
+            f"{rw['busy']:.1%}, state {rw['state_bytes']} bytes a sequence")
+    return line, subs
+
+
 def qwen2_phases(checks):
     """Phases 3-7 and 8a-8b on full-width qwen2-7b. Returns the kernels
     line's rows and the result line; the model and everything built on it
@@ -3514,8 +3779,13 @@ def main():
     torch.cuda.empty_cache()
     phase9_line, phase9_subs = phase9(checks)
     wall("phase 9")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase10_line, phase10_subs = phase10(checks)
+    wall("phase 10")
     for row in rows:
         row.update(phase9_subs.get(row["name"], {}))
+        row.update(phase10_subs.get(row["name"], {}))
     log(summary)
     log(f"[result] phase 8: " + "; ".join(
         f"gemma2 ({r}, {gemma2[r]['layers']} layers) prefill "
@@ -3526,6 +3796,7 @@ def main():
         f"{gemma2[r]['max_alloc_gb']:.2f} GB" for r in ("i", "ii"))
         + f"; {card}")
     log(f"{phase9_line}; {card}")
+    log(f"{phase10_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

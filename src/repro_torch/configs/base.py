@@ -4,7 +4,7 @@ A ``ModelConfig`` names the layer stack as *layer groups*:
 ``(pattern, n_periods)`` pairs. Pattern elements name block kinds
 (``attn`` global self-attention, ``local``/``swa`` sliding window,
 ``cross``, ``attn_cross``, ``rglru``, ``rwkv``); the port builds the
-``attn``, ``local`` and ``swa`` kinds so far. Field names and defaults
+``attn``, ``local``, ``swa``, ``rglru`` and ``rwkv`` kinds so far. Field names and defaults
 match the JAX package, so one config means the same thing in both.
 """
 

@@ -1,34 +1,37 @@
 """Architecture registry: ``--arch <id>`` -> (full config, smoke config).
 
 The port registers the decoders whose blocks it builds, in the order of
-``repro.configs.registry``: the dense ``qwen2-7b``, ``phi3-mini-3.8b``
-and ``deepseek-coder-33b``, ``gemma2-27b`` (local/global attention with
-softcaps, served by the direct integer backend), and the mixtures of
-experts ``olmoe-1b-7b`` and ``mixtral-8x7b``, each with its smoke width.
-The recurrent and encoder–decoder architectures come with their blocks
-(ROADMAP §A item 7).
+``repro.configs.registry``: the hybrid ``recurrentgemma-2b`` (RG-LRU
+blocks with local attention), the dense ``qwen2-7b``,
+``phi3-mini-3.8b`` and ``deepseek-coder-33b``, ``gemma2-27b``
+(local/global attention with softcaps, served by the direct integer
+backend), the mixtures of experts ``olmoe-1b-7b`` and ``mixtral-8x7b``,
+and the attention-free ``rwkv6-7b``, each with its smoke width. The
+encoder–decoder architectures come with their blocks (ROADMAP §A
+item 7).
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs import (deepseek_coder_33b, gemma2_27b, mixtral_8x7b,
-                                 olmoe_1b_7b, phi3_mini_3_8b, qwen2_7b)
+                                 olmoe_1b_7b, phi3_mini_3_8b, qwen2_7b,
+                                 recurrentgemma_2b, rwkv6_7b)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
+    "recurrentgemma-2b": recurrentgemma_2b,
     "qwen2-7b": qwen2_7b,
     "phi3-mini-3.8b": phi3_mini_3_8b,
     "deepseek-coder-33b": deepseek_coder_33b,
     "gemma2-27b": gemma2_27b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "mixtral-8x7b": mixtral_8x7b,
+    "rwkv6-7b": rwkv6_7b,
 }
 
 # the reference's other architectures, and what brings each
 _LATER = {
-    "recurrentgemma-2b": "the recurrent blocks (models/rglru.py)",
-    "rwkv6-7b": "the recurrent blocks (models/rwkv6.py)",
     "whisper-large-v3": "the encoder-decoder and cross-attention blocks",
     "llama-3.2-vision-90b": "the encoder-decoder and cross-attention "
                             "blocks",

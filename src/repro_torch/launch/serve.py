@@ -9,10 +9,15 @@ the paged int8 pool.
         --batch 4 --requests 16 --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --arch gemma2-27b --batch 4 \
         --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch rwkv6-7b --batch 4 \
+        --prompt-len 512 --gen 32
 
 Weights are random from ``--seed`` at the full width of the config (bf16
-on the card, about 15.2 GB for qwen2-7b and 54.4 GB for gemma2-27b);
-``--smoke`` takes the narrow config. ``--attention-impl`` picks the
+on the card, about 15.2 GB for qwen2-7b and rwkv6-7b, 5.4 GB for
+recurrentgemma-2b and 54.4 GB for gemma2-27b); ``--smoke`` takes the
+narrow config. The recurrent archs (``recurrentgemma-2b``,
+``rwkv6-7b``) run ``generate()`` on rings or ``--paged``; like the JAX
+package, ``--continuous`` refuses them and ``--ragged`` too. ``--attention-impl`` picks the
 attention arithmetic: ``ita`` (the default; ITA's int8 pipeline),
 ``ibert`` (I-BERT's integer softmax on the same int8 pipeline) or
 ``float`` (the float softmax over bf16 caches), the paper's baselines.

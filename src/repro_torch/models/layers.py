@@ -24,17 +24,17 @@ from torch import nn
 
 
 def normal_param(shape, scale, *, dtype, device, generator=None,
-                 param_dtype=torch.float32):
-    """``scale * N(0, 1)`` drawn in float32 from ``generator``, rounded to
-    ``param_dtype`` (the JAX package's storage) and cast to ``dtype``;
-    uninitialized storage when ``generator`` is None (weights about to be
-    loaded)."""
+                 param_dtype=torch.float32, shift=0.0):
+    """``scale * N(0, 1) + shift`` drawn in float32 from ``generator``,
+    rounded to ``param_dtype`` (the JAX package's storage) and cast to
+    ``dtype``; uninitialized storage when ``generator`` is None (weights
+    about to be loaded)."""
     if generator is None:
         t = torch.empty(shape, dtype=dtype, device=device)
     else:
         t = (scale * torch.randn(shape, generator=generator,
                                  dtype=torch.float32, device=device)
-             ).to(param_dtype).to(dtype)
+             + shift).to(param_dtype).to(dtype)
     return nn.Parameter(t, requires_grad=False)
 
 

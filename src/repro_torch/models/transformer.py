@@ -1,14 +1,18 @@
 """Model assembly (``repro.models.transformer``) for decoders of
-attention blocks (``attn`` global, ``local``/``swa`` sliding window) in
-layer groups, run by a Python loop over layers where the JAX package
-scans period-stacked parameters. The MLP of a block is SwiGLU, GeGLU or,
-with ``mlp_type="moe"``, the mixture of experts of ``models.moe``.
-Gemma2's extras are here too: post-norms on both residual branches,
-scaled embeddings and the final logit softcap.
+attention blocks (``attn`` global, ``local``/``swa`` sliding window) and
+recurrent blocks (``rglru``: RG-LRU, ``models.rglru``; ``rwkv``: RWKV6
+time and channel mix, ``models.rwkv6``) in layer groups, run by a Python
+loop over layers where the JAX package scans period-stacked parameters.
+The MLP of an attention or RG-LRU block is SwiGLU, GeGLU or, with
+``mlp_type="moe"``, the mixture of experts of ``models.moe``; an RWKV
+block's is its channel mix. Gemma2's extras are here too: post-norms on
+both residual branches, scaled embeddings and the final logit softcap.
 
     model = init_model(cfg, seed=0)                  # on the card
-    caches = init_caches(cfg, batch, max_len)        # one ring per layer
-                                                     # (paged=True: pools)
+    caches = init_caches(cfg, batch, max_len)        # one ring per attention
+                                                     # layer (paged=True:
+                                                     # pools), state per
+                                                     # recurrent layer
     logits, caches = forward(model, tokens, cfg, mode="prefill",
                              caches=caches)
 
@@ -16,16 +20,17 @@ scaled embeddings and the final logit softcap.
 arrays, ``groups[g][pattern_pos][leaf]`` stacked over periods) into the
 port's modules, which is how the tests hold the two to the same weights.
 Its leaves may be float32 or, under ``param_dtype="bfloat16"``,
-``ml_dtypes.bfloat16``. Other block kinds (recurrent, cross-attention,
-encoders) come with later slices.
+``ml_dtypes.bfloat16``. Other block kinds (cross-attention, encoders)
+come with later slices.
 
 ``param_dtype`` is honoured as the JAX package honours it, which casts
 every leaf: projections and embeddings hold ``param_dtype``-rounded
 values in the compute dtype (the reference casts them to it at each
-use), the router holds them in float32, and the norm gains and the QAT
-scales are kept in ``param_dtype`` itself, where the reference computes
+use), the router and the recurrent leaves the reference uses in float32
+hold them in float32, and the norm gains, the QAT scales and RG-LRU's
+``lam`` are kept in ``param_dtype`` itself, where the reference computes
 with them in that dtype (``1 + scale`` of a norm; ``s_q * s_k * scale``
-of the streaming and direct attention paths).
+of the streaming and direct attention paths; ``softplus(lam)``).
 """
 
 from __future__ import annotations
@@ -39,25 +44,34 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.common import device_tensor
 from repro_torch.models.attention import Attention
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
+from repro_torch.models import rwkv6 as RW
 from repro_torch.models.layers import (GeGLU, SwiGLU, const_param, embed,
                                        normal_param, rmsnorm, unembed)
 
 # block kind -> the attention layer's kind (its window)
 _ATTN_KINDS = {"attn": "global", "local": "local", "swa": "swa"}
+_RECURRENT_KINDS = ("rglru", "rwkv")
 _MLPS = {"swiglu": SwiGLU, "geglu": GeGLU}
-_MLP_KINDS = (*_MLPS, "moe")        # "moe": models.moe.MoE, built from cfg
+# "moe": models.moe.MoE, built from cfg; "rwkv": the channel mix of an
+# all-rwkv stack
+_MLP_KINDS = (*_MLPS, "moe", "rwkv")
 
 
 def _check_ported(cfg):
     kinds = {k for pat, _ in cfg.layer_groups for k in pat}
-    if kinds - set(_ATTN_KINDS) or cfg.mlp_type not in _MLP_KINDS \
-            or cfg.norm_type != "rmsnorm" or cfg.n_encoder_layers \
-            or cfg.frontend_dim or cfg.sinusoidal_pos:
+    blocks = (*_ATTN_KINDS, *_RECURRENT_KINDS)
+    mlp_ok = cfg.mlp_type in _MLPS \
+        or (cfg.mlp_type == "moe" and kinds <= set(_ATTN_KINDS)) \
+        or (cfg.mlp_type == "rwkv" and kinds == {"rwkv"})
+    if kinds - set(blocks) or not mlp_ok or cfg.norm_type != "rmsnorm" \
+            or cfg.n_encoder_layers or cfg.frontend_dim \
+            or cfg.sinusoidal_pos:
         raise NotImplementedError(
             f"{cfg.name}: this slice of the port builds decoders of "
-            f"{tuple(_ATTN_KINDS)} blocks with {_MLP_KINDS} MLPs and "
-            f"RMSNorm; the other blocks come with later slices (ROADMAP, "
-            f"\"Model breadth\")")
+            f"{blocks} blocks with {_MLP_KINDS} MLPs (moe under attention "
+            f"blocks, rwkv for rwkv stacks) and RMSNorm; the other blocks "
+            f"come with later slices (ROADMAP, \"Model breadth\")")
 
 
 def layer_kinds(cfg):
@@ -77,24 +91,35 @@ def _norm(cfg, device):
 
 
 class Block(nn.Module):
-    """Pre-norm attention block: x + attn(norm1(x)), then x + mlp(norm2(x));
-    with post-norms (gemma2) each branch is normed before its residual
-    add: x + post_norm(branch)."""
+    """Pre-norm block: x + mix(norm1(x)), then x + mlp(norm2(x)). The
+    mixer is attention (``attn``) for the attention kinds, with post-norms
+    (gemma2) normed before each residual add: x + post_norm(branch); an
+    RG-LRU (``mixer``, then the cfg's MLP) for ``rglru``; RWKV6's time mix
+    (``mixer``) and channel mix (``mlp``) for ``rwkv``. A recurrent
+    mixer takes no state in train mode and the cache's state otherwise,
+    as the reference's does."""
 
     def __init__(self, cfg, kind, *, device, generator=None):
         super().__init__()
         self.kind = kind
+        kw = dict(device=device, generator=generator)
         self.norm1 = _norm(cfg, device)
-        self.attn = Attention(cfg, device=device, generator=generator)
+        if kind in _ATTN_KINDS:
+            self.attn = Attention(cfg, **kw)
+        elif kind == "rglru":
+            self.mixer = RG.RGLRU(cfg, **kw)
+        else:
+            self.mixer = RW.TimeMix(cfg, **kw)
         self.norm2 = _norm(cfg, device)
-        if cfg.mlp_type == "moe":
-            self.mlp = MOE.MoE(cfg, device=device, generator=generator)
+        if kind == "rwkv":
+            self.mlp = RW.ChannelMix(cfg, **kw)
+        elif cfg.mlp_type == "moe":
+            self.mlp = MOE.MoE(cfg, **kw)
         else:
             self.mlp = _MLPS[cfg.mlp_type](
                 cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
-                device=device, generator=generator,
-                param_dtype=cfg.param_torch_dtype())
-        if _has_post_norms(cfg):
+                param_dtype=cfg.param_torch_dtype(), **kw)
+        if kind in _ATTN_KINDS and _has_post_norms(cfg):
             self.post_norm1 = _norm(cfg, device)
             self.post_norm2 = _norm(cfg, device)
 
@@ -104,6 +129,8 @@ class Block(nn.Module):
 
     def forward(self, x, *, cfg, positions, cache, mode, lengths=None,
                 live=None, q_lens=None):
+        if self.kind in _RECURRENT_KINDS:
+            return self._recurrent(x, cfg, cache, mode)
         h = rmsnorm(self.norm1, x)
         y, new_mix = self.attn(h, cfg=cfg, kind=_ATTN_KINDS[self.kind],
                                positions=positions,
@@ -112,6 +139,21 @@ class Block(nn.Module):
                                q_lens=q_lens)
         x = self._residual(x, y, "post_norm1")
         x = self._residual(x, self.mlp(rmsnorm(self.norm2, x)), "post_norm2")
+        return x, (None if cache is None else dict(cache, mix=new_mix))
+
+    def _recurrent(self, x, cfg, cache, mode):
+        def state(key):
+            return None if cache is None or mode == "train" \
+                else cache.get(key)
+        y, new_mix = self.mixer(rmsnorm(self.norm1, x), cfg, state("mix"))
+        x = x + y
+        h = rmsnorm(self.norm2, x)
+        if self.kind == "rwkv":
+            y, new_mlp = self.mlp(h, cfg, state("mlp"))
+            x = x + y
+            return x, (None if cache is None
+                       else dict(cache, mix=new_mix, mlp=new_mlp))
+        x = x + self.mlp(h)
         return x, (None if cache is None else dict(cache, mix=new_mix))
 
 
@@ -192,22 +234,26 @@ def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
             for norm in ("norm1", "norm2", "post_norm1", "post_norm2"):
                 if norm in blk:
                     put(getattr(mine, norm), blk[norm]["scale"])
-            for leaf, a in blk["attn"].items():
-                put(getattr(mine.attn, leaf), a)
-            for leaf, a in blk["mlp"].items():
-                put(getattr(mine.mlp, leaf), a)
+            for mod in ("attn", "mixer", "mlp"):
+                for leaf, a in blk.get(mod, {}).items():
+                    put(getattr(getattr(mine, mod), leaf), a)
     return model
 
 
 def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
                 page_size: int = 128, num_pages: int | None = None,
                 device="cuda"):
-    """One ``{"mix": cache}`` per layer, in execution order: a
-    ``KVCacheState`` ring, or with ``paged=True`` a ``PagedKVState`` pool
-    (one arena and page table per layer, ``num_pages`` pages each; None
-    provisions fully) — int8 for the quantized impls, the compute dtype
-    for float. A ``local``/``swa`` layer's capacity is ``min(max_len,
-    window)``: its window caps what it keeps."""
+    """One cache per layer, in execution order. An attention layer's is
+    ``{"mix": KVCacheState}``, a ring, or with ``paged=True`` a
+    ``PagedKVState`` pool (one arena and page table per layer,
+    ``num_pages`` pages each; None provisions fully) — int8 for the
+    quantized impls, the compute dtype for float. A ``local``/``swa``
+    layer's capacity is ``min(max_len, window)``: its window caps what it
+    keeps. A recurrent layer holds its zero state, the reference's
+    shapes and dtypes: ``{"mix": {"h" (B, dr) float32, "conv" (B, 3, dr)
+    compute dtype}}`` for ``rglru``, ``{"mix": {"shift" (B, d), "s"
+    (B, H, dh, dh)}, "mlp": {"shift" (B, d)}}`` in float32 for
+    ``rwkv``."""
     dev = resolve_device(device)
     _check_ported(cfg)
     kv_dt = torch.int8 if cfg.attention_impl != "float" \
@@ -223,7 +269,17 @@ def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
                                      num_pages=num_pages)
         return KVCacheState.init(batch, size, cfg.n_kv_heads,
                                  cfg.head_dim, dtype=kv_dt, device=dev)
-    return [{"mix": kv_cache(capacity[kind])} for kind in layer_kinds(cfg)]
+
+    def layer(kind):
+        if kind == "rglru":
+            return {"mix": RG.init_rglru_state(batch, cfg,
+                                               cfg.compute_dtype(),
+                                               device=dev)}
+        if kind == "rwkv":
+            st = RW.init_rwkv_state(batch, cfg, device=dev)
+            return {"mix": st["tm"], "mlp": st["cm"]}
+        return {"mix": kv_cache(capacity[kind])}
+    return [layer(kind) for kind in layer_kinds(cfg)]
 
 
 def embed_scale(cfg, dtype, device) -> torch.Tensor:

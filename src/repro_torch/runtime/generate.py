@@ -105,8 +105,14 @@ def _validate_ragged(cfg, lengths, prompt_len: int):
     if not cfg.causal:
         raise ValueError("ragged prompts need causal attention (pad "
                          "columns must be invisible to valid rows)")
+    kinds = {k for pat, _ in cfg.layer_groups for k in pat}
+    recurrent = kinds - {"attn", "local", "swa", "enc", "cross",
+                         "attn_cross"}
+    if recurrent:
+        raise ValueError(
+            f"ragged prompts are attention-only (recurrent blocks "
+            f"{sorted(recurrent)} would roll pad tokens into their state)")
     for kind, cap in (("swa", cfg.window), ("local", cfg.local_window)):
-        kinds = {k for pat, _ in cfg.layer_groups for k in pat}
         if kind in kinds and cap < prompt_len:
             raise ValueError(
                 f"ragged prompts need ring capacity >= the padded prompt "
@@ -121,10 +127,11 @@ def _validate_ragged(cfg, lengths, prompt_len: int):
 
 
 def _first_paged(caches):
-    """The first layer's ``PagedKVState``, or None for ring caches."""
+    """The first attention layer's ``PagedKVState``, or None for ring
+    caches (and for stacks without attention layers)."""
     from repro_torch.attention import PagedKVState
-    node = caches[0]["mix"] if caches else None
-    return node if isinstance(node, PagedKVState) else None
+    return next((c["mix"] for c in caches
+                 if isinstance(c["mix"], PagedKVState)), None)
 
 
 def _validate_pool_provision(caches, batch: int, tokens_per_seq: int):
@@ -150,8 +157,8 @@ def _validate_pool_provision(caches, batch: int, tokens_per_seq: int):
 def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
     """Reused ``caches=`` must match what this call would allocate: rings
     of this batch and max_len, or paged pools of this batch and max_len
-    (pool and page size are free choices), with the mismatched field
-    named."""
+    (pool and page size are free choices), and the recurrent layers'
+    state tensors, with the mismatched field named."""
     from repro_torch.models import init_caches
     paged = _first_paged(caches)
     kw = {}
@@ -168,12 +175,26 @@ def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
                          f"{cfg.name!r} has {len(expected)}")
     fields = ("k", "page_table", "free_stack") if paged is not None \
         else ("k",)
-    for i, (c, e) in enumerate(zip(caches, expected, strict=True)):
+
+    def tensors(i, c, e):
+        """(name, got, want) of layer ``i``'s tensors."""
+        if isinstance(e["mix"], dict):          # a recurrent layer
+            if set(c) != set(e) or any(
+                    not isinstance(c[k], dict) or set(c[k]) != set(e[k])
+                    for k in e):
+                raise ValueError(f"caches= layer {i} is not the recurrent "
+                                 f"state {{{', '.join(sorted(e))}}} of "
+                                 f"{cfg.name!r}")
+            return [(f"{k}.{leaf}", c[k][leaf], e[k][leaf])
+                    for k in e for leaf in e[k]]
         if type(c["mix"]) is not type(e["mix"]):
             raise ValueError(f"caches= layer {i} mixes ring and paged "
                              f"caches")
-        for f in fields:
-            got, want = getattr(c["mix"], f), getattr(e["mix"], f)
+        return [(f, getattr(c["mix"], f), getattr(e["mix"], f))
+                for f in fields]
+
+    for i, (c, e) in enumerate(zip(caches, expected, strict=True)):
+        for f, got, want in tensors(i, c, e):
             if got.shape != want.shape or got.dtype != want.dtype \
                     or got.device != dev:
                 raise ValueError(

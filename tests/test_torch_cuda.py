@@ -11,7 +11,10 @@ the standalone softmax kernel and both int8 matmul kernels. The direct
 and baseline backends (``ita_direct_xla``, ``ibert_xla``, ``float_xla``;
 plain torch ops) on the card equal their CPU results, and smoke-width
 ``generate()`` through them launches no fused kernel and gives equal
-tokens from both loops.
+tokens from both loops. The recurrent blocks' scans on the card equal
+(RG-LRU) or lie within 1e-5 of (RWKV6's wkv) the CPU's, and
+recurrentgemma-smoke and rwkv6-smoke give the stepwise loop's tokens
+from the fused one.
 """
 
 import dataclasses
@@ -986,3 +989,75 @@ def test_cuda_olmoe_fused_generate_is_repeatable():
     runs = [generate(model, cfg, prompts, 12, loop=loop).tokens
             for loop in ("fused", "fused", "stepwise")]
     assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carried", [False, True], ids=["no-h0", "h0"])
+def test_cuda_recurrent_scans_match_cpu(carried):
+    """RG-LRU's scan (its odd/even recursion: elementwise products and
+    sums, within 1e-6) and RWKV6's wkv scan on the card against the same
+    functions on the CPU, at a 4096-token RG-LRU scan of rnn width 2560
+    and a 64-step wkv scan of 64 heads of 64. The wkv step is a matmul:
+    cuBLAS and the CPU sum its 64 products in other orders, and where
+    the sum cancels the float32 result of either device is off by a
+    share of the largest output, not of its own value (the CPU's is up
+    to 2.3e-7 of max |o| from float64 at these inputs): ``rtol=1e-5``,
+    ``atol=1e-6 · max |o|`` (and of ``max |S|`` for the state)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    exact_float32_matmul()
+    from repro_torch.models import rglru as RG
+    from repro_torch.models import rwkv6 as RW
+    g = torch.Generator().manual_seed(int(carried))
+    a = 0.3 + 0.7 * torch.rand((1, 4096, 2560), generator=g)
+    x = torch.randn((1, 4096, 2560), generator=g)
+    h0 = torch.randn((1, 2560), generator=g) if carried else None
+    cpu = RG._rglru_scan(x, a, h0)
+    card = RG._rglru_scan(x.cuda(), a.cuda(),
+                          None if h0 is None else h0.cuda())
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-6)
+    r, k, v = (torch.randn((2, 64, 64, 64), generator=g) for _ in range(3))
+    w = 0.8 + 0.2 * torch.rand((2, 64, 64, 64), generator=g)
+    u = torch.randn((64, 64), generator=g)
+    s0 = torch.randn((2, 64, 64, 64), generator=g) if carried \
+        else torch.zeros((2, 64, 64, 64))
+    o, s = RW._wkv_scan(r, k, v, w, u, s0)
+    o_c, s_c = RW._wkv_scan(*(t.cuda() for t in (r, k, v, w, u, s0)))
+    for got, want in ((o_c, o), (s_c, s)):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,paged", [
+    ("recurrentgemma-2b", False), ("recurrentgemma-2b", True),
+    ("rwkv6-7b", False)], ids=["recurrentgemma-ring", "recurrentgemma-paged",
+                               "rwkv6"])
+def test_cuda_recurrent_fused_generate_equals_stepwise(arch, paged):
+    """recurrentgemma-smoke (the 16-entry local rings wrap under a
+    20-token prompt) and rwkv6-smoke on the card: the fused loop's tokens
+    equal the stepwise loop's and a second fused call's (the kept graph
+    advances the recurrent state in place), and the decode kernel runs
+    once per local-attention layer and step (none for rwkv6)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime.generate import generate
+    cfg = get_config(arch, smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20),
+                            generator=torch.Generator().manual_seed(2))
+    name = "ita_attention_decode_paged" if paged else "ita_attention_decode"
+    n_attn = sum(pat.count("local") * n for pat, n in cfg.layer_groups)
+    runs = {}
+    for loop in ("stepwise", "fused", "fused again"):
+        K.reset_launches()
+        runs[loop] = generate(model, cfg, prompts, 10, loop=loop.split()[0],
+                              paged=paged)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[name] == n_attn * runs[loop].decode_steps, (
+            loop, K.LAUNCHES)
+    for loop in ("fused", "fused again"):
+        assert torch.equal(runs[loop].tokens, runs["stepwise"].tokens), loop

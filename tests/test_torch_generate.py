@@ -213,6 +213,6 @@ def test_serve_cli_lists_backend_verdicts(capsys):
 
 def test_unported_config_raises():
     cfg = dataclasses.replace(t_config("qwen2-7b", smoke=True),
-                              layer_groups=((("rglru",), 1),))
+                              layer_groups=((("attn_cross",), 1),))
     with pytest.raises(NotImplementedError, match="later slices"):
         init_model(cfg, device="cpu")

@@ -514,17 +514,19 @@ def test_generate_refuses_undersized_paged_pool(weights):
     (dict(reqs=[(4, 2)], cfg=dict(attn_softcap=30.0)), "paged decode"),
     (dict(reqs=[(4, 2)], cfg=dict(attention_impl="float")), "paged decode"),
     (dict(reqs=[(4, 2)], cfg=dict(attention_impl="ibert")), "paged decode"),
+    (dict(reqs=[(4, 2)], cfg=dict(layer_groups=((("rglru",), 1),))),
+     "attention"),
 ], ids=["pool", "prompt", "budget", "admission", "softcap", "float",
-        "ibert"])
+        "ibert", "rglru"])
 def test_serve_rejects_unservable_requests_and_configs(weights, case, match):
     """``tests/test_serve_loop.py``'s refusals, with the reference's error
     text: a request whose window needs more pages than the pool has, a
     prompt longer than the window, a token budget below the slots, an
-    unknown admission, and configs (unpinned) that no paged decode
-    backend serves: an attention softcap, and the float and I-BERT
-    baselines, which the JAX package's serve refuses alike. (The
-    reference's ``rglru`` case needs a block the port does not build
-    yet.)"""
+    unknown admission, configs (unpinned) that no paged decode backend
+    serves: an attention softcap, and the float and I-BERT baselines,
+    and a stack of recurrent blocks (continuous batching serves
+    decoder-only attention stacks), which the JAX package's serve
+    refuses alike."""
     params, model = weights
     case = dict(case)
     reqs = [ServeRequest(prompt=np.zeros(n, np.int32), gen=g, arrival=0)
