@@ -48,7 +48,11 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    graph, and a token's layer output alone, among 4, 96 and 384
    tokens); and hold ``runtime/kv_cache.py``'s ``prefill_attend`` and
    ``decode_attend`` with per-head scales, on a ring and on a pool, to
-   the same steps on the CPU.
+   the same steps on the CPU. Hold B2 and B3 non-causal, as the cross
+   layers call them, to their plain versions at whisper-large-v3's
+   20/20 heads of 64 over 1500 keys padded to 1536 (``kv_len`` 1500)
+   and llama-3.2-vision-90b's 64/8 of 128 over 1601 padded to 1664
+   (a prefill and a decode-shaped row; B3 over 128-token pages).
 3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
    seed, batch 4, prompt 512, 32 tokens), its decode step replayed from a
    CUDA graph (``loop="fused"``, the default; captured at the first call,
@@ -65,8 +69,9 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (b): also layer 0 of its first decode step, a decode-shaped onepass
    call) are kept and held to the plain versions afterwards. The
    smoke-width configs (qwen2 unpinned and with each pin;
-   recurrentgemma and rwkv6) check the card's logits against the CPU's
-   plain versions. Profile one unpinned
+   recurrentgemma and rwkv6; whisper and llama-vision, their gates 0.5,
+   unpinned and onepass-pinned, with a frontend) check the card's logits
+   against the CPU's plain versions. Profile one unpinned
    ``generate()`` with each loop (device time by kernel, busy share).
 4. Drive the standalone softmax (``kernels.ita_softmax.ops.ita_softmax``)
    on layer 0's attention matrix A of run (c) (57,344 rows of 512 int8
@@ -170,7 +175,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    After qwen2-7b is freed: gemma2-27b at full width (46 alternating
    local-4096/global layers, d 4608, 32/16 heads, GeGLU 36864, vocab
    256000, softcaps 50 and 30, query scale 144^-0.5; random bf16 weights
-   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) 8 of its
+   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) 2 of its
    46 layers (``GEMMA2_LONG_PERIODS``), batch 1, prompt 4608, 16 tokens
    (the local rings wrap); prefill served by
    ``ita_chunked_xla``, decode by ``ita_direct_xla``, no fused kernel,
@@ -215,6 +220,32 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    64, channel mix 14336, vocab 65536): ``generate()`` at batch 4,
    prompt 512, 32 tokens, fused twice and stepwise with equal tokens,
    no attention call and no kernel launch (attention-free).
+11. The encoder–decoder and cross-attention blocks, after phase 10's
+   models are freed (random weights from seed 0, ITA, pinned to
+   ``ita_onepass_pallas``: unpinned, the decode kernel refuses the
+   1500- and 1601-key cross caches, as the JAX package's does). (a)
+   whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+   layers, d 1280, 20/20 heads of 64, GELU 5120, vocab 51866, bf16
+   parameters): ``generate()`` at batch 4 over a 1500-frame random
+   frontend, prompt 192, 64 tokens, on rings fused twice with equal
+   tokens and launches and held to stepwise, then once fused with
+   ``paged=True`` (tokens equal, launches counted); the encoder on
+   ``ita_chunked_xla`` (the QAT
+   forward, train mode), self and cross attention on
+   ``ita_onepass_pallas`` at prefill and decode (B3 for the paged self
+   decode); layer 0's self and cross B2 calls and B3 held to plain; the
+   unpinned call must raise the reference's text. Printed: the encoder's
+   and the prefill's seconds, decode tok/s, the replayed step beside
+   its floor (the decoder's weights but the cross ``wk``/``wv``, plus
+   the cross caches), the cross caches' bytes, the busy share (a
+   profiled call of 16 tokens, the encoder included) and the
+   per-step device time of the cross caches' pad-copy to the 128-key
+   tile (``torch.profiler``). (b) llama-3.2-vision-90b at full width, its
+   depth cut to 1 of its 20 periods (4 self-attention layers and the
+   gated cross layer, its gates set to 0.5): 1601 patch embeddings of
+   1280 through ``frontend_proj``, batch 4, prompt 512, 32 tokens, held
+   as (a). Sub-rows ``whisper_*`` and ``llama_vision_*`` of the kernels
+   line.
 
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -319,7 +350,21 @@ LOCAL_WINDOW = {"recurrentgemma-2b": 2048}
 # phase 2's smoke-width configs held to the CPU: (arch, pinned backend)
 SMOKE_REFERENCE = (("qwen2-7b", ""), ("qwen2-7b", "ita_onepass_pallas"),
                    ("qwen2-7b", "ita_twopass_pallas"),
-                   ("recurrentgemma-2b", ""), ("rwkv6-7b", ""))
+                   ("recurrentgemma-2b", ""), ("rwkv6-7b", ""),
+                   ("whisper-large-v3", ""),
+                   ("whisper-large-v3", "ita_onepass_pallas"),
+                   ("llama-3.2-vision-90b", ""),
+                   ("llama-3.2-vision-90b", "ita_onepass_pallas"))
+# phase 11: the cross-attention shapes (arch, hq, hkv, head dim, frames,
+# prompt); whisper's prompt and tokens stay inside its 448-token context
+CROSS_SHAPES = (("whisper-large-v3", 20, 20, 64, 1500, 192),
+                ("llama-3.2-vision-90b", 64, 8, 128, 1601, 512))
+WHISPER_PROMPT, WHISPER_GEN = 192, 64
+WHISPER_PROFILE_GEN = 16        # the profiled call's tokens
+PIN = "ita_onepass_pallas"
+# 11b: llama-3.2-vision-90b's depth, 1 of its 20 (4 self + 1 cross) periods
+VISION_PERIODS = 1
+CROSS_GATE = 0.5                # the reference initialises the gates to 0
 # phase 9a's served trace: prompts up to 512 tokens, so every call (solo
 # prefill of 512 included) keeps t·k <= 4096 and drops nothing
 MOE_SERVE = dict(SERVE, plen=(128, 512), gen=(16, 45), num_pages=None)
@@ -686,6 +731,53 @@ def model_shape_cases(rng_seed=3):
     return cases
 
 
+def cross_cases(rng_seed=5):
+    """(name, args, kwargs, label) of B2 and B3 non-causal, as the cross
+    layers call them, at ``CROSS_SHAPES``: the memory's keys zero-padded
+    to the 128-key tile with ``kv_len`` the frame count and queries at
+    offset 0; B2 on the cache-native ring (the prompt's rows and a
+    decode-shaped row), B3 over a pool of 128-token pages (a chunk of 96
+    rows and one row)."""
+    import torch
+    g = torch.Generator(device=DEV).manual_seed(rng_seed)
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=g, device=DEV,
+                             dtype=torch.int8)
+
+    def f32(lo, hi, n):
+        return lo + (hi - lo) * torch.rand(n, generator=g, device=DEV)
+
+    cases = []
+    for arch, hq, hkv, d, frames, prompt in CROSS_SHAPES:
+        bh, page = B * hq, SERVE["page_size"]
+        n_pages = -(-frames // page)
+        lm, om = f32(0.004, 0.03, bh), f32(0.5, 2.0, bh)
+        kv_len = torch.full((bh,), frames, dtype=torch.int32, device=DEV)
+        k, v = i8(B, n_pages * page, hkv, d), i8(B, n_pages * page, hkv, d)
+        k[:, frames:] = 0
+        v[:, frames:] = 0
+        common = dict(q_offset=0, causal=False, adaptive=True,
+                      kv_rep=hq // hkv, hq=hq)
+        tag = f"{arch} {hq}/{hkv} d={d}, {frames} keys padded to " \
+              f"{n_pages * page}"
+        for sq in (prompt, 1):
+            cases.append(("ita_attention_onepass",
+                          (i8(bh, sq, d), k, v, lm, om, kv_len),
+                          dict(block_kv=page, **common),
+                          f"onepass non-causal sq={sq} {tag}"))
+        total = B * n_pages + 3
+        table = (torch.randperm(total - 1, generator=g, device=DEV)
+                 [:B * n_pages] + 1).to(torch.int32).view(B, n_pages)
+        kp, vp = i8(total, page, hkv, d), i8(total, page, hkv, d)
+        for sq in (SERVE["chunk_size"], 1):
+            cases.append(("ita_attention_onepass_paged",
+                          (i8(bh, sq, d), kp, vp, table, lm, om, kv_len),
+                          dict(common), f"onepass paged non-causal sq={sq} "
+                          f"{tag}"))
+    return cases
+
+
 def twopass_cases(rng_seed=2):
     """(args, kwargs, label) of ``ita_attention_twopass`` at qwen2-7b
     shapes (kernel-layout K/V, GQA 28/4): the 512-token causal prefill,
@@ -826,7 +918,7 @@ def run_case(name, args, kw):
 
 def check_kernels(checks):
     from repro_torch.kernels.ita_attention import kernel as K
-    shapes = model_shape_cases()
+    shapes = model_shape_cases() + cross_cases()
     for name, args, kw, label in kernel_cases() + [
             c for c in shapes if not c[0].startswith(PAGED)]:
         got = run_case(name, args, kw)
@@ -846,9 +938,10 @@ def check_kernels(checks):
     for args, kw, label in twopass_cases():
         check_twopass(checks, args, kw, label)
     check_twopass_oneshot(checks)
-    log(f"[kernels] bit-exact vs plain at qwen2-7b shapes and at phase "
+    log(f"[kernels] bit-exact vs plain at qwen2-7b shapes, at phase "
         f"9's and 10's (32/32 heads of 96, 16/16 of 128, 10/1 of 256 with "
-        f"window 2048): {checks.n}")
+        f"window 2048) and at phase 11's non-causal cross calls (20/20 of "
+        f"64 over 1500 keys, 64/8 of 128 over 1601): {checks.n}")
 
 
 def check_row_invariance():
@@ -1154,9 +1247,11 @@ def log_capture(label, first, kept):
 def smoke_width_reference():
     """The smoke-width configs on the card against the CPU's plain
     versions (qwen2-7b unpinned and with each pin, recurrentgemma-2b,
-    rwkv6-7b): prefill and two decode steps' logits within 5e-2 (float
-    products round differently on the two devices, which can move an int8
-    step of the attention; RWKV's per-head group norm magnifies a rounding
+    rwkv6-7b, whisper-large-v3 and llama-3.2-vision-90b unpinned and
+    onepass-pinned over a random frontend, their cross gates opened):
+    prefill and two decode steps' logits within 5e-2 (float products
+    round differently on the two devices, which can move an int8 step of
+    the attention; RWKV's per-head group norm magnifies a rounding
     difference where a head's row cancels)."""
     import torch
 
@@ -1165,15 +1260,18 @@ def smoke_width_reference():
     for arch, backend in SMOKE_REFERENCE:
         cfg = get_config(arch, smoke=True, attention_impl="ita",
                          attention_backend=backend)
-        tokens = torch.randint(0, cfg.vocab_size, (2, 20),
-                               generator=torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+        frontend = torch.randn((2, cfg.n_frontend_tokens, cfg.frontend_dim),
+                               generator=gen) if cfg.frontend_dim else None
         logits = {}
         for dev in ("cpu", "cuda"):
-            model = init_model(cfg, seed=3, device="cpu").to(dev)
+            model = open_gates(init_model(cfg, seed=3, device="cpu")).to(dev)
             caches = init_caches(cfg, 2, 24, device=dev)
             with torch.inference_mode():
-                lg, caches = forward(model, tokens, cfg, mode="prefill",
-                                     caches=caches)
+                lg, caches = forward(
+                    model, tokens, cfg, mode="prefill", caches=caches,
+                    frontend=None if frontend is None else frontend.to(dev))
                 seq = [lg[:, -1:].float().cpu()]
                 tok = torch.argmax(seq[0], -1)
                 for step in range(2):
@@ -1189,6 +1287,18 @@ def smoke_width_reference():
                                  f"from the CPU's by {err} (pin {backend!r})")
         log(f"[reference] {cfg.name}, pin {backend or 'none'}: card vs CPU "
             f"logits max |d| {err:.3g}")
+
+
+def open_gates(model):
+    """The cross layers' gates set to ``CROSS_GATE`` (a zero gate, the
+    reference's initial value, hides the cross layer)."""
+    import torch
+    with torch.no_grad():
+        for blk in model.blocks:
+            for gate in ("gate_attn", "gate_mlp"):
+                if hasattr(blk, gate):
+                    getattr(blk, gate).fill_(CROSS_GATE)
+    return model
 
 
 def full_width_model():
@@ -2885,9 +2995,10 @@ def int8_matmul_pad(x_q):
 # ---------------------------------------------------------------------------
 
 GEMMA2_LONG, GEMMA2_LONG_GEN = 4608, 16  # run (ii): the local rings wrap
-# run (ii)'s depth: 4 (local, global) periods of gemma2-27b's 23, widths
-# unchanged (cut to keep the script near 800 s once phase 9 was added)
-GEMMA2_LONG_PERIODS = 4
+# run (ii)'s depth: 1 (local, global) period of gemma2-27b's 23, widths
+# unchanged (cut from 4 periods to keep the script inside its time once
+# phase 11 was added)
+GEMMA2_LONG_PERIODS = 1
 
 
 def served_by(fn):
@@ -3676,6 +3787,352 @@ def phase10(checks):
     return line, subs
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the encoder-decoder and cross-attention blocks at full width
+# ---------------------------------------------------------------------------
+
+def cross_model(arch, **over):
+    """``arch`` at full width (``over``: its cuts), random weights from
+    seed 0, ITA, pinned to the onepass backend, the cross gates opened;
+    a random frontend of batch ``B`` (CPU generator, seed 11) on the
+    card."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    cfg = get_config(arch, attention_impl="ita", attention_backend=PIN,
+                     **over)
+    t0 = time.perf_counter()
+    model = open_gates(init_model(cfg, seed=0, device=DEV))
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    frontend = torch.randn((B, cfg.n_frontend_tokens, cfg.frontend_dim),
+                           generator=torch.Generator().manual_seed(11)
+                           ).to(DEV)
+    log(f"[phase11] {cfg.name} full width: {cfg.n_layers} decoder layers "
+        f"{cfg.layer_groups}, {cfg.n_encoder_layers} encoder layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_type}), vocab "
+        f"{cfg.vocab_size}, frontend {cfg.n_frontend_tokens} x "
+        f"{cfg.frontend_dim}, param_dtype {cfg.param_dtype}; weights "
+        f"{nbytes / 1e9:.2f} GB, init {time.perf_counter() - t0:.1f} s; "
+        f"allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    return model, cfg, nbytes, frontend
+
+
+def lap(what):
+    log(f"[wall] {what} done at {time.perf_counter() - T0:.1f} s")
+
+
+def cross_cache_bytes(cfg, batch):
+    """The static int8 cross caches (k8 and v8 of every cross layer)."""
+    n_cross = sum(sum(k in ("cross", "attn_cross") for k in pat) * n
+                  for pat, n in cfg.layer_groups)
+    return 2 * n_cross * batch * cfg.n_frontend_tokens * cfg.n_kv_heads \
+        * cfg.head_dim
+
+
+def cross_floor_ms(model, cfg, batch):
+    """A decode step's floor: the decoder's weights read once (of an
+    untied embedding only the batch's rows; not the cross layers'
+    ``wk``/``wv``, which a decode step never reads, nor the encoder or
+    ``frontend_proj``) and the cross caches."""
+    cross_kv = {f"blocks.{i}.{'xattn' if blk.kind == 'attn_cross' else 'attn'}"
+                f".{w}" for i, blk in enumerate(model.blocks)
+                if blk.kind in ("cross", "attn_cross") for w in ("wk", "wv")}
+    nbytes = sum(p.numel() * p.element_size()
+                 for name, p in model.named_parameters()
+                 if not (name.startswith(("encoder", "frontend_proj"))
+                         or name in cross_kv
+                         or (name == "embed" and not cfg.tie_embeddings)))
+    return 1e3 * (nbytes + cross_cache_bytes(cfg, batch)) / HBM_BYTES_PER_S
+
+
+def pad_copy_ms(cfg):
+    """Device time of one decode step's pad-copies of the cross caches to
+    the 128-key tile (``ops._pad_seq`` of k8 and v8 in every cross layer,
+    as the onepass wrapper runs them, each over its own cache: together
+    they do not fit the L2), summed over the kernels ``torch.profiler``
+    records; and the bytes they move."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ita_attention import ops
+    shape = (B, cfg.n_frontend_tokens, cfg.n_kv_heads, cfg.head_dim)
+    n_cross = cross_cache_bytes(cfg, B) // (2 * torch.Size(shape).numel())
+    caches = [torch.zeros(shape, dtype=torch.int8, device=DEV)
+              for _ in range(2 * n_cross)]
+    for c in caches[:2]:
+        ops._pad_seq(c, 128)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c in caches:
+            ops._pad_seq(c, 128)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    padded = -(-cfg.n_frontend_tokens // 128) * 128
+    moved = 2 * n_cross * B * cfg.n_kv_heads * cfg.head_dim \
+        * (cfg.n_frontend_tokens + padded)
+    return us / 1e3, moved
+
+
+def encode_s(model, cfg, frontend):
+    """Wall seconds of the encoder alone (the frontend to the memory),
+    warm: after the ``generate()`` calls that ran it."""
+    import torch
+
+    from repro_torch.models.transformer import _encode
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _encode(model, cfg, frontend)
+        torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def unpinned_raises(model, cfg, prompts, frontend, label):
+    """The unpinned call (the decode kernel over the unaligned cross
+    cache) must raise the reference's text."""
+    from repro_torch.runtime.generate import generate
+    want = (f"decode KV ring capacity {cfg.n_frontend_tokens} is not a "
+            f"block_kv=128 multiple")
+    try:
+        generate(model, dataclasses.replace(cfg, attention_backend=""),
+                 prompts, 2, frontend=frontend, loop="stepwise", device=DEV)
+    except ValueError as err:
+        if want not in str(err):
+            raise AssertionError(f"{label}: unpinned raised {err!r}")
+        log(f"[phase11] {label} unpinned: raised as the reference does: "
+            f"{str(err)[:120]}")
+        return
+    raise AssertionError(f"{label}: the unpinned decode did not raise")
+
+
+def cross_counts(cfg):
+    """(self-attention layers, cross-attention layers) of the stack."""
+    def count(kinds):
+        return sum(sum(k in kinds for k in pat) * r
+                   for pat, r in cfg.layer_groups)
+    return count(("attn", "attn_cross")), count(("cross", "attn_cross"))
+
+
+def cross_served(seen, cfg, label):
+    """The encoder on the QAT forward of ``ita_chunked_xla``, everything
+    else on the onepass backend."""
+    check_served(seen, {"train": "ita_chunked_xla", "prefill": PIN,
+                        "decode": PIN}, label,
+                 required=("train", "prefill", "decode") if
+                 cfg.n_encoder_layers else ("prefill", "decode"))
+
+
+def cross_generate(model, cfg, prompts, frontend, label, gen, checks):
+    """``generate()`` pinned to onepass, fused twice and stepwise (equal
+    tokens and launches), the backends counted (``cross_served``);
+    layer 0's B2 calls (self and cross, prefill and first decode step)
+    held to plain. Returns the kept call's result, the stepwise one's,
+    the backends, the launches and the kept calls by role."""
+    n_self, n_cross = cross_counts(cfg)
+    kinds = [k for pat, r in cfg.layer_groups for _ in range(r)
+             for k in pat]
+    # B2 calls of one prefill, in order: per layer, self then cross
+    order = [role for k in kinds for role in
+             (("self", "cross") if k == "attn_cross"
+              else ("cross",) if k == "cross" else ("self",))]
+    first_cross = order.index("cross")
+    want = dict.fromkeys(SOURCES, 0)
+    want["ita_attention_onepass"] = (n_self + n_cross) * gen
+    keep = (0, first_cross, len(order), len(order) + first_cross)
+    kept, step, seen, rec, launches, rows = generate_twice(
+        model, cfg, prompts, label, "ita_attention_onepass", keep, want,
+        gen=gen, frontend=frontend)
+    if rows != {prompts.shape[1]: n_self + n_cross,
+                1: (n_self + n_cross) * (gen - 1)}:
+        raise AssertionError(f"{label}: B2 calls by query rows {rows}")
+    cross_served(seen, cfg, label)
+    calls = {"prefill": rec.kept[0], "cross_prefill": rec.kept[first_cross],
+             "decode": rec.kept[len(order)],
+             "cross": rec.kept[len(order) + first_cross]}
+    for role, call in calls.items():
+        args, kw, out = call
+        if (role.startswith("cross")) == kw.get("causal"):
+            raise AssertionError(f"{label}: {role} call causal="
+                                 f"{kw.get('causal')}")
+        checks.compare("ita_attention_onepass", out,
+                       plain_of("ita_attention_onepass")(*args, **kw),
+                       f"{label}, layer 0 {role} (q{tuple(args[0].shape)} "
+                       f"k{tuple(args[1].shape)} kv_len "
+                       f"{int(args[5].reshape(-1)[0])})")
+    return kept, step, seen, launches, calls
+
+
+def whisper_phase(checks):
+    """11a: whisper-large-v3 at full width and depth (module docstring).
+    Returns the figures and the kernels' sub-rows."""
+    import torch
+
+    from repro_torch.models import forward, init_caches
+    from repro_torch.runtime.generate import generate
+    model, cfg, nbytes, frontend = cross_model("whisper-large-v3")
+    prompts = torch.randint(0, cfg.vocab_size, (B, WHISPER_PROMPT),
+                            generator=torch.Generator().manual_seed(12))
+    gen = WHISPER_GEN
+    n_self, n_cross = cross_counts(cfg)
+    unpinned_raises(model, cfg, prompts, frontend, "11a")
+    lap("11a unpinned refusal")
+    res, step, seen, n_one, calls = cross_generate(
+        model, cfg, prompts, frontend, "11a (a) rings", gen, checks)
+    lap("11a (a) rings")
+    # (b) paged: one fused call, its tokens the rings', B3 at every self
+    # decode; its first B3 call (the capture's eager warm-up) held to plain
+    recs = recording(PAGED, (0,))
+    try:
+        (res_p, launches_p, _), seen_p = served_by(lambda: run_generate(
+            model, cfg, prompts, gen=gen, frontend=frontend, paged=True))
+    finally:
+        unrecord(recs)
+    want_p = dict.fromkeys(SOURCES, 0)
+    want_p["ita_attention_onepass"] = n_self + n_cross * gen
+    want_p["ita_attention_onepass_paged"] = n_self * (gen - 1)
+    if launches_p != want_p:
+        raise AssertionError(f"11a (b): launches {launches_p} != {want_p}")
+    cross_served(seen_p, cfg, "11a (b) paged")
+    rec_p = recs["ita_attention_onepass_paged"]
+    check_recorded(checks, "ita_attention_onepass_paged", rec_p, 0,
+                   "11a (b), layer 0 of the first decode step (B3)")
+    if not torch.equal(res_p.tokens, res.tokens):
+        raise AssertionError("11a: paged tokens differ from the rings'")
+    enc_s = encode_s(model, cfg, frontend)
+    lap("11a (b) paged")
+    with torch.inference_mode():
+        logits, _ = forward(model, prompts[:1, -64:].to(DEV), cfg,
+                            mode="prefill", frontend=frontend[:1],
+                            caches=init_caches(cfg, 1, 64, device=DEV))
+    if not torch.isfinite(logits).all():
+        raise AssertionError("11a: non-finite logits")
+    # 16 tokens: the profiler's host work grows with the events (a
+    # 64-token call records ~400,000 kernels and took ~47 s to sum)
+    _, busy = profile_run(f"11a whisper fused generate (rings), "
+                          f"{WHISPER_PROFILE_GEN} tokens",
+                          lambda: generate(model, cfg, prompts,
+                                           WHISPER_PROFILE_GEN,
+                                           frontend=frontend, device=DEV))
+    lap("11a profile")
+    pad_ms, pad_bytes = pad_copy_ms(cfg)
+    floor = cross_floor_ms(model, cfg, B)
+    figs = {"weights_gb": nbytes / 1e9, "floor_ms": floor,
+            "encoder_s": enc_s, "prefill_s": res.prefill_s,
+            "decode_tok_s": res.decode_tok_s,
+            "step_ms": 1e3 * res.decode_s / res.decode_steps,
+            "stepwise_tok_s": step.decode_tok_s,
+            # the paged run's one fused call captured its step
+            "paged_decode_tok_s": res_p.n_decode_tokens
+            / (res_p.decode_s - res_p.capture_s),
+            "cross_bytes": cross_cache_bytes(cfg, B), "busy": busy,
+            "pad_ms": pad_ms, "pad_bytes": pad_bytes}
+    log(f"[phase11] 11a whisper-large-v3: served by {seen}; encoder "
+        f"{enc_s:.3f} s, prefill (encoder included) "
+        f"{figs['prefill_s']:.3f} s, decode {figs['decode_tok_s']:.1f} "
+        f"tok/s ({figs['step_ms']:.2f} ms a replayed step against a floor "
+        f"of {floor:.3f} ms: the decoder's weights but the cross wk/wv, "
+        f"and the cross caches), stepwise {figs['stepwise_tok_s']:.1f} "
+        f"tok/s, paged {figs['paged_decode_tok_s']:.1f} tok/s (tokens "
+        f"equal; one fused call, its capture's {res_p.capture_s:.3f} s "
+        f"left out), busy {busy:.1%}; cross caches "
+        f"{figs['cross_bytes']} "
+        f"bytes; their pad-copy to the 128-key tile {pad_ms:.3f} ms of "
+        f"device time a step ({pad_bytes} bytes read and written); tokens "
+        f"{res.tokens[0, :8].tolist()}; launches a call: B2 {n_one} "
+        f"(rings), B2 {launches_p['ita_attention_onepass']} and B3 "
+        f"{launches_p['ita_attention_onepass_paged']} (paged); "
+        f"{card_line()}")
+    dec = n_self * (gen - 1)
+    sub = {"ita_attention_onepass": {
+        "whisper_prefill": subrow("ita_attention_onepass", calls["prefill"],
+                                  n_self, "11a self prefill"),
+        "whisper_cross_prefill": subrow(
+            "ita_attention_onepass", calls["cross_prefill"], n_self,
+            "11a cross prefill (non-causal)"),
+        "whisper_decode": subrow("ita_attention_onepass", calls["decode"],
+                                 dec, "11a self decode"),
+        "whisper_cross": subrow("ita_attention_onepass", calls["cross"],
+                                dec, "11a cross decode (non-causal)")},
+        "ita_attention_onepass_paged": {
+            "whisper": subrow("ita_attention_onepass_paged", rec_p.kept[0],
+                              dec, "11a (b) paged self decode")}}
+    return figs, sub
+
+
+def vision_phase(checks):
+    """11b: llama-3.2-vision-90b at full width, ``VISION_PERIODS`` of its
+    20 periods (module docstring). Returns the figures and sub-rows."""
+    import torch
+
+    from repro_torch.runtime.generate import generate
+    model, cfg, nbytes, frontend = cross_model(
+        "llama-3.2-vision-90b",
+        layer_groups=((("attn", "attn", "attn", "attn", "cross"),
+                       VISION_PERIODS),))
+    prompts = prompt_batch(cfg)
+    unpinned_raises(model, cfg, prompts, frontend, "11b")
+    res, step, seen, n_one, calls = cross_generate(
+        model, cfg, prompts, frontend, "11b", GEN, checks)
+    lap("11b generate")
+    _, busy = profile_run("11b llama-vision fused generate",
+                          lambda: generate(model, cfg, prompts, GEN,
+                                           frontend=frontend, device=DEV))
+    floor = cross_floor_ms(model, cfg, B)
+    figs = {"weights_gb": nbytes / 1e9, "floor_ms": floor,
+            "prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+            "step_ms": 1e3 * res.decode_s / res.decode_steps,
+            "stepwise_tok_s": step.decode_tok_s, "busy": busy,
+            "cross_bytes": cross_cache_bytes(cfg, B)}
+    log(f"[phase11] 11b llama-3.2-vision-90b ({VISION_PERIODS} of 20 "
+        f"periods): served by {seen}; prefill {figs['prefill_s']:.3f} s, "
+        f"decode {figs['decode_tok_s']:.1f} tok/s ({figs['step_ms']:.2f} ms"
+        f" a replayed step against a floor of {floor:.3f} ms), stepwise "
+        f"{figs['stepwise_tok_s']:.1f} tok/s, busy {busy:.1%}; cross caches"
+        f" {figs['cross_bytes']} bytes; tokens {res.tokens[0, :8].tolist()};"
+        f" B2 {n_one} launches a call; {card_line()}")
+    n_cross = VISION_PERIODS
+    sub = {"ita_attention_onepass": {
+        "llama_vision_cross_prefill": subrow(
+            "ita_attention_onepass", calls["cross_prefill"], n_cross,
+            "11b cross prefill (non-causal)"),
+        "llama_vision_cross": subrow(
+            "ita_attention_onepass", calls["cross"], n_cross * (GEN - 1),
+            "11b cross decode (non-causal)")}}
+    return figs, sub
+
+
+def phase11(checks):
+    """Phase 11: whisper-large-v3 (11a) and llama-3.2-vision-90b cut to
+    ``VISION_PERIODS`` periods (11b), each in its own frame, freed before
+    the next. Returns a result line and the kernels' sub-rows."""
+    import torch
+    out = {}
+    for name, fn in (("w", whisper_phase), ("v", vision_phase)):
+        out[name] = fn(checks)
+        gc.collect()
+        torch.cuda.empty_cache()
+    (w, subs), (v, vsubs) = out["w"], out["v"]
+    for kernel, rows in vsubs.items():
+        subs.setdefault(kernel, {}).update(rows)
+    line = (f"[result] phase 11: whisper-large-v3 ({w['weights_gb']:.2f} "
+            f"GB) encoder {w['encoder_s']:.3f} s, prefill "
+            f"{w['prefill_s']:.3f} s, decode {w['decode_tok_s']:.1f} tok/s,"
+            f" step {w['step_ms']:.2f} ms (floor {w['floor_ms']:.3f}), "
+            f"stepwise {w['stepwise_tok_s']:.1f} tok/s, paged "
+            f"{w['paged_decode_tok_s']:.1f} tok/s, busy {w['busy']:.1%}, "
+            f"cross caches {w['cross_bytes']} bytes, pad-copy "
+            f"{w['pad_ms']:.3f} ms a step; llama-3.2-vision-90b "
+            f"({VISION_PERIODS} period, {v['weights_gb']:.2f} GB) prefill "
+            f"{v['prefill_s']:.3f} s, decode {v['decode_tok_s']:.1f} tok/s,"
+            f" step {v['step_ms']:.2f} ms (floor {v['floor_ms']:.3f}), "
+            f"busy {v['busy']:.1%}")
+    return line, subs
+
+
 def qwen2_phases(checks):
     """Phases 3-7 and 8a-8b on full-width qwen2-7b. Returns the kernels
     line's rows and the result line; the model and everything built on it
@@ -3755,17 +4212,14 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     checks = Checks()
-
-    def wall(what):
-        log(f"[wall] {what} done at {time.perf_counter() - T0:.1f} s")
     check_kernels(checks)
     check_row_invariance()
     check_moe_row_invariance()
     check_kv_cache_engine(checks)
     smoke_width_reference()
-    wall("phase 2")
+    lap("phase 2")
     rows, summary = qwen2_phases(checks)
-    wall("phases 3-8b")
+    lap("phases 3-8b")
     # phase 8c needs the card to itself: qwen2-7b's weights, graphs and
     # pools went with qwen2_phases' frame
     gc.collect()
@@ -3774,18 +4228,22 @@ def main():
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, reserved "
         f"{torch.cuda.memory_reserved() / 1e9:.2f} GB")
     gemma2 = gemma2_at_full_width()
-    wall("phase 8c")
+    lap("phase 8c")
     gc.collect()
     torch.cuda.empty_cache()
     phase9_line, phase9_subs = phase9(checks)
-    wall("phase 9")
+    lap("phase 9")
     gc.collect()
     torch.cuda.empty_cache()
     phase10_line, phase10_subs = phase10(checks)
-    wall("phase 10")
+    lap("phase 10")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase11_line, phase11_subs = phase11(checks)
+    lap("phase 11")
     for row in rows:
-        row.update(phase9_subs.get(row["name"], {}))
-        row.update(phase10_subs.get(row["name"], {}))
+        for subs in (phase9_subs, phase10_subs, phase11_subs):
+            row.update(subs.get(row["name"], {}))
     log(summary)
     log(f"[result] phase 8: " + "; ".join(
         f"gemma2 ({r}, {gemma2[r]['layers']} layers) prefill "
@@ -3797,6 +4255,7 @@ def main():
         + f"; {card}")
     log(f"{phase9_line}; {card}")
     log(f"{phase10_line}; {card}")
+    log(f"{phase11_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

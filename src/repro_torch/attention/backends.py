@@ -6,8 +6,9 @@ its ``supports(spec)`` verdicts:
 
 - ``ita_decode_pallas``  — the fused decode kernel (a single query tile
   over an int8 KV ring; skips KV tiles past the valid prefix).
-- ``ita_chunked_xla``    — streaming DA/DI/EN in plain torch ops (the
-  unpinned integer prefill; the S×S matrix never materializes).
+- ``ita_chunked_xla``    — streaming DA/DI/EN in plain torch ops: the
+  unpinned integer prefill and the QAT train forward (STE rounds and
+  floors; the encoder's attention); the S×S matrix never materializes.
 - ``ita_onepass_pallas`` — the fused flash-style kernel, bit-identical to
   ``ita_decode_pallas`` row for row at equal block_kv.
 - ``ita_twopass_pallas`` — the paper's two-pass dataflow (the int8 A
@@ -35,6 +36,7 @@ from repro_torch.attention import xla as X
 from repro_torch.attention.chunked import streaming_attention
 from repro_torch.attention.registry import Backend, register_backend
 from repro_torch.attention.spec import AttentionSpec, QuantScales
+from repro_torch.core.quant import FakeQuant
 from repro_torch.kernels.common import default_blocks, device_tensor
 from repro_torch.kernels.ita_attention.ops import fused_attention
 
@@ -144,19 +146,35 @@ def _chunked_supports(spec: AttentionSpec):
 def _chunked_run(q, k, v, spec, scales, *, q_offset=0, kv_len=None, **opts):
     _require_zero_q_offset(q_offset, "ita_chunked_xla")
     scales.require("s_q", "s_k", "s_v")
+    common = dict(scale=_qscale(spec, q), s_q=scales.s_q, s_k=scales.s_k,
+                  s_v=scales.s_v, causal=spec.causal, window=spec.window,
+                  kv_len=kv_len, softcap=spec.softcap,
+                  q_chunk=opts.get("q_chunk", _DEF_Q_CHUNK),
+                  kv_chunk=opts.get("kv_chunk", _DEF_KV_CHUNK))
     if spec.mode == "train":
-        raise NotImplementedError(
-            "the QAT train forward (ita_ste + fake_quant) comes with the "
-            "training slice of the port (ROADMAP, \"Training\")")
+        # the QAT forward: STE rounds and floors through the deployed
+        # shift-only semantics over fake-quantized V, then the output
+        # fake-quantized through s_out (the grid decode deploys on)
+        out = streaming_attention(q, k, _fake_quant(v, scales.s_v),
+                                  impl="ita_ste", **common)
+        if scales.s_out is not None:
+            out = _fake_quant(out, scales.s_out)
+        return out
     out = streaming_attention(
         _quantize(q, scales.s_q, 2), _quantize(k, scales.s_k, 2),
-        _quantize(v, scales.s_v, 2), impl="ita_int", scale=_qscale(spec, q),
-        s_q=scales.s_q, s_k=scales.s_k, s_v=scales.s_v, causal=spec.causal,
-        window=spec.window, kv_len=kv_len, softcap=spec.softcap,
-        adaptive=spec.softmax == "adaptive",
-        q_chunk=opts.get("q_chunk", _DEF_Q_CHUNK),
-        kv_chunk=opts.get("kv_chunk", _DEF_KV_CHUNK))
+        _quantize(v, scales.s_v, 2), impl="ita_int",
+        adaptive=spec.softmax == "adaptive", **common)
     return _requant_out(out, spec, scales, 2)
+
+
+def _fake_quant(x, scale):
+    """``core.quant.fake_quant`` in the dtype JAX promotes ``x`` and the
+    0-d ``scale`` to (a bfloat16 activation over a bfloat16 scale stays
+    bfloat16; a Python scale takes ``x``'s dtype)."""
+    s = torch.as_tensor(scale, device=x.device) if torch.is_tensor(scale) \
+        else device_tensor(scale, x.dtype, x.device)
+    dt = torch.promote_types(x.dtype, s.dtype)
+    return FakeQuant.apply(x.to(dt), s.to(dt))
 
 
 def _direct_supports(spec: AttentionSpec):

@@ -1,6 +1,6 @@
 """Streaming (chunked) attention (``repro.attention.chunked``): the
-``impl="ita_int"`` and ``impl="float"`` arithmetics of
-``streaming_attention``, so the S×S matrix never materializes.
+three arithmetics of ``streaming_attention``, so the S×S matrix never
+materializes.
 
 - ``ita_int`` — the paper's DA/DI/EN dataflow at chunk granularity: int8
   Q·Kᵀ chunks requantized onto the ITA logit grid, integer DA (Σ >>=
@@ -8,6 +8,14 @@
   clips them to int8 here so the A·V product rides int8 operands; Σ uses
   the same clipped numerators), adaptive or paper DI. The unpinned ITA
   prefill of the serving path.
+- ``ita_ste`` — the QAT forward: Q and K rounded onto the int8 grid with
+  straight-through rounds, base-2 weights ``2^-k`` with straight-through
+  floored shifts, and the same shift-based running-max correction as the
+  integer path, in float32. The reference's encoder runs it even when it
+  serves (``ita_chunked_xla`` in train mode). Integer-valued operands
+  keep the logits exact: ``lg`` and ``kk`` are the JAX package's bit for
+  bit, and only the float32 ``w·v`` sums may differ in order. The
+  weights are exact powers of two carrying ``exp2``'s gradient.
 - ``float`` — the classic online softmax (exp rescale corrections), the
   float baseline's prefill (``float_xla``).
 
@@ -15,8 +23,7 @@ The JAX package computes both outside any Pallas kernel, and so does the
 port: plain torch ops, with the integer products taken as exact float32
 products (``int_matmul``). The chunk schedule (q chunks, the causally
 reachable kv chunks of each, their order) is the JAX package's, because
-the integer Σ shifts make the result depend on it. The QAT arithmetic
-(``ita_ste``) comes with the training slice.
+the integer Σ shifts make the result depend on it.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 from repro_torch.attention.xla import scale_product
 from repro_torch.attention.xla import softcap as _softcap
 from repro_torch.core.quant import EPS_MAX, SOFTMAX_SHIFT
+from repro_torch.core.softmax import _clip, _ste_floor, _ste_round
 from repro_torch.kernels.common import (device_tensor, floor_log2,
                                         int_matmul, pow2_neg)
 
@@ -60,19 +68,26 @@ def _pad_axis1(x, pad):
     return torch.cat([x, x.new_zeros(shape)], dim=1)
 
 
+def _pow2_neg_ste(k):
+    """``2^-k`` of an integer-valued float ``k``, exact, with ``exp2``'s
+    gradient."""
+    e = torch.exp2(-k)
+    return e + (pow2_neg(k.detach()) - e).detach()
+
+
 def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
                         s_v=None, causal=True, window=0, kv_len=None,
                         softcap=0.0, adaptive=True, q_chunk=Q_CHUNK,
                         kv_chunk=KV_CHUNK):
     """q (B,Sq,H,hd); k/v (B,Skv,G,hd), int8 for ``ita_int``. Returns
     (B,Sq,H,hd) float32: softmax(QKᵀ)·V in the chosen arithmetic (for
-    ``ita_int`` dequantized through ``s_v``; the scales 0-d tensors of
-    the model's ``param_dtype``, ``s_q * s_k * scale`` formed in it).
-    ``kv_len`` a scalar. Queries start at position 0."""
-    if impl not in ("ita_int", "float"):
-        raise NotImplementedError(
-            f"impl={impl!r}: the QAT forward (ita_ste) comes with the "
-            f"training slice of the port (ROADMAP, \"Training\")")
+    ``ita_int`` dequantized through ``s_v``; for ``ita_ste`` of float
+    Q/K quantized through ``s_q``/``s_k`` and of ``v`` as given; the
+    scales 0-d tensors of the model's ``param_dtype``, ``s_q * s_k *
+    scale`` formed in it). ``kv_len`` a scalar. Queries start at
+    position 0."""
+    if impl not in ("ita_int", "ita_ste", "float"):
+        raise ValueError(f"impl={impl!r} is not ita_int, ita_ste or float")
     dev = q.device
     b, sq_in, h, hd = q.shape
     skv_in, g = k.shape[1], k.shape[2]
@@ -89,14 +104,18 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     n_q = sq // cq
 
     # (B, G, M, S, hd) queries; (B, G, hd, S) keys; (B, G, S, hd) values
-    is_int = impl == "ita_int"
+    is_int, ste = impl == "ita_int", impl == "ita_ste"
     cast = (lambda t: t.to(torch.int8)) if is_int else (lambda t: t.float())
-    q_i = cast(q).reshape(b, sq, g, m_, hd).permute(0, 2, 3, 1, 4)
-    k_t = cast(k).permute(0, 2, 3, 1)
+    q, k = cast(q), cast(k)
+    if ste:                              # onto the int8 grid, STE rounds
+        q = _clip(_ste_round(q / _f32(s_q, dev)), -128, 127)
+        k = _clip(_ste_round(k / _f32(s_k, dev)), -128, 127)
+    q_i = q.reshape(b, sq, g, m_, hd).permute(0, 2, 3, 1, 4)
+    k_t = k.permute(0, 2, 3, 1)
     v_i = cast(v).permute(0, 2, 1, 3)
     scale_t = _f32(np.float32(scale), dev)
     eps = _f32(np.float32(EPS_MAX), dev)
-    if is_int:
+    if is_int or ste:
         fmult = scale_product(s_q, s_k, scale, dev)
         lmult = fmult / eps
 
@@ -115,6 +134,15 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
         sig = torch.zeros((b, g, m_, cq, 1), dtype=m.dtype, device=dev)
         acc = torch.zeros((b, g, m_, cq, hd), dtype=torch.float32,
                           device=dev)
+        if ste:
+            m, sig, acc = _ste_chunks(qc, k_t, v_i, m, sig, acc, q0=q0,
+                                      lo=lo, n_steps=n_steps, cq=cq,
+                                      ckv=ckv, skv=skv, causal=causal,
+                                      window=window, kv_len=kv_len,
+                                      softcap=softcap, lmult=lmult,
+                                      fmult=fmult, eps=eps)
+            outs.append(acc / torch.clamp(sig, min=1e-9))
+            continue
         for step in range(n_steps):
             k0 = (lo + step) * ckv
             ks = min(k0, skv - ckv)             # dynamic_slice clamps
@@ -164,3 +192,33 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     out = torch.cat(outs, dim=3) if n_q > 1 else outs[0]
     out = out.permute(0, 3, 1, 2, 4)                     # (B,Sq,G,M,hd)
     return out.reshape(b, sq, h, hd)[:, :sq_in]
+
+
+def _ste_chunks(qc, k_t, v_i, m, sig, acc, *, q0, lo, n_steps, cq, ckv, skv,
+                causal, window, kv_len, softcap, lmult, fmult, eps):
+    """The QAT forward's kv loop of one q chunk: the running max ``m``,
+    the sum ``sig`` and the accumulator ``acc`` (float32) after the
+    chunk's reachable kv chunks, as ``jax.lax.scan`` of the reference's
+    ``body`` leaves them."""
+    shift = 2.0 ** SOFTMAX_SHIFT
+    for step in range(n_steps):
+        k0 = (lo + step) * ckv
+        ks = min(k0, skv - ckv)                 # dynamic_slice clamps
+        kc = k_t[..., ks:ks + ckv].unsqueeze(2)          # (B,G,1,hd,ckv)
+        vc = v_i[:, :, ks:ks + ckv].unsqueeze(2)         # (B,G,1,ckv,hd)
+        valid = _chunk_mask(cq, ckv, q0, k0, causal, window, kv_len,
+                            qc.device)
+        s = int_matmul(qc, kc)                  # integer-valued, exact
+        lf = s * lmult if not softcap \
+            else _softcap(s * fmult, softcap) / eps
+        lg = _clip(_ste_round(lf), -128.0, 127.0)
+        x = torch.where(valid, lg, NEG)
+        new_m = torch.maximum(m, x.amax(dim=-1, keepdim=True))
+        delta = _ste_floor(_clip((new_m - m) / shift, 0.0, 1e4))
+        kk = _ste_floor((new_m - lg) / shift)
+        w = torch.where(valid, _pow2_neg_ste(_clip(kk, 0.0, 30.0)), 0.0)
+        corr = _pow2_neg_ste(torch.clamp(delta, max=30.0))
+        sig = sig * corr + w.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(w, vc)
+        m = new_m
+    return m, sig, acc

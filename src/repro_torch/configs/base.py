@@ -3,9 +3,11 @@
 A ``ModelConfig`` names the layer stack as *layer groups*:
 ``(pattern, n_periods)`` pairs. Pattern elements name block kinds
 (``attn`` global self-attention, ``local``/``swa`` sliding window,
-``cross``, ``attn_cross``, ``rglru``, ``rwkv``); the port builds the
-``attn``, ``local``, ``swa``, ``rglru`` and ``rwkv`` kinds so far. Field names and defaults
-match the JAX package, so one config means the same thing in both.
+``cross`` gated cross-attention, ``attn_cross`` self + cross attention
+(whisper's decoder layer), ``rglru``, ``rwkv``; ``enc``, the encoder's
+bidirectional layer, is implied by ``n_encoder_layers``). Field names
+and defaults match the JAX package, so one config means the same thing
+in both.
 """
 
 from __future__ import annotations

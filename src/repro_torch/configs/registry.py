@@ -6,47 +6,38 @@ blocks with local attention), the dense ``qwen2-7b``,
 ``phi3-mini-3.8b`` and ``deepseek-coder-33b``, ``gemma2-27b``
 (local/global attention with softcaps, served by the direct integer
 backend), the mixtures of experts ``olmoe-1b-7b`` and ``mixtral-8x7b``,
-and the attention-free ``rwkv6-7b``, each with its smoke width. The
-encoder–decoder architectures come with their blocks (ROADMAP §A
-item 7).
+the attention-free ``rwkv6-7b``, the encoder–decoder
+``whisper-large-v3`` and the vision–language ``llama-3.2-vision-90b``
+(gated cross-attention layers), each with its smoke width: all ten.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import (deepseek_coder_33b, gemma2_27b, mixtral_8x7b,
+from repro_torch.configs import (deepseek_coder_33b, gemma2_27b,
+                                 llama32_vision_90b, mixtral_8x7b,
                                  olmoe_1b_7b, phi3_mini_3_8b, qwen2_7b,
-                                 recurrentgemma_2b, rwkv6_7b)
+                                 recurrentgemma_2b, rwkv6_7b,
+                                 whisper_large_v3)
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
     "recurrentgemma-2b": recurrentgemma_2b,
+    "whisper-large-v3": whisper_large_v3,
     "qwen2-7b": qwen2_7b,
     "phi3-mini-3.8b": phi3_mini_3_8b,
     "deepseek-coder-33b": deepseek_coder_33b,
     "gemma2-27b": gemma2_27b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "mixtral-8x7b": mixtral_8x7b,
+    "llama-3.2-vision-90b": llama32_vision_90b,
     "rwkv6-7b": rwkv6_7b,
-}
-
-# the reference's other architectures, and what brings each
-_LATER = {
-    "whisper-large-v3": "the encoder-decoder and cross-attention blocks",
-    "llama-3.2-vision-90b": "the encoder-decoder and cross-attention "
-                            "blocks",
 }
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
-    if arch not in _MODULES:
-        brings = _LATER.get(arch, "no planned slice")
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (this slice registers "
-            f"{ARCH_IDS}); it comes with {brings} (ROADMAP §A item 7, "
-            f"\"Model breadth\")")
     cfg = _MODULES[arch].SMOKE if smoke else _MODULES[arch].CONFIG
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

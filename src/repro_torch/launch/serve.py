@@ -11,15 +11,26 @@ the paged int8 pool.
         --prompt-len 512 --gen 32
     python -m repro_torch.launch.serve --arch rwkv6-7b --batch 4 \
         --prompt-len 512 --gen 32
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --batch 4 \
+        --prompt-len 192 --gen 64 --attention-impl ita \
+        --attention-backend ita_onepass_pallas
 
 Weights are random from ``--seed`` at the full width of the config (bf16
 on the card, about 15.2 GB for qwen2-7b and rwkv6-7b, 5.4 GB for
 recurrentgemma-2b and 54.4 GB for gemma2-27b); ``--smoke`` takes the
 narrow config. The recurrent archs (``recurrentgemma-2b``,
 ``rwkv6-7b``) run ``generate()`` on rings or ``--paged``; like the JAX
-package, ``--continuous`` refuses them and ``--ragged`` too. ``--attention-impl`` picks the
-attention arithmetic: ``ita`` (the default; ITA's int8 pipeline),
-``ibert`` (I-BERT's integer softmax on the same int8 pipeline) or
+package, ``--continuous`` refuses them and ``--ragged`` too. The
+encoder–decoder archs (``whisper-large-v3``; ``llama-3.2-vision-90b``,
+about 180 GB at full width, more than one card) take a random frontend
+of (batch, n_frontend_tokens, frontend_dim) drawn from the seed's
+generator, as the JAX CLI draws one; ``--continuous`` refuses them as
+the JAX package does. At 1500 and 1601 frames the unpinned ITA decode
+raises in both packages (its cross cache is no multiple of the 128-key
+tile): pin ``--attention-backend ita_onepass_pallas``.
+``--attention-impl`` picks the attention arithmetic: ``ita`` (the
+default; ITA's int8 pipeline), ``ibert`` (I-BERT's integer softmax on
+the same int8 pipeline) or
 ``float`` (the float softmax over bf16 caches), the paper's baselines.
 Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
 ``--ragged`` serves right-padded prompts of random lengths in
@@ -199,9 +210,13 @@ def main(argv=None):
         lengths = torch.randint(max(1, args.prompt_len // 2),
                                 args.prompt_len + 1, (args.batch,),
                                 generator=gen)
+    frontend = None
+    if cfg.frontend_dim:
+        frontend = torch.randn((args.batch, cfg.n_frontend_tokens,
+                                cfg.frontend_dim), generator=gen)
     sampler = torch.Generator(device=dev)
     sampler.manual_seed(args.seed)
-    res = generate(model, cfg, prompts, args.gen,
+    res = generate(model, cfg, prompts, args.gen, frontend=frontend,
                    temperature=args.temperature, generator=sampler,
                    prompt_lengths=lengths, eos_id=args.eos_id,
                    early_exit=args.eos_id is not None, paged=args.paged,

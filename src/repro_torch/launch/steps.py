@@ -34,11 +34,13 @@ def make_prefill_step(cfg):
     position: a row's logits do not depend on the rows beside it
     (``models.layers.linear``), so these are the bits of the full
     logits' last row, without the (B, S, V) float32 tensor (8.4 GB for
-    gemma2-27b's 256k vocabulary at 4 x 512 tokens)."""
-    def prefill_step(model, tokens, caches, lengths=None):
+    gemma2-27b's 256k vocabulary at 4 x 512 tokens). ``frontend``: an
+    encoder–decoder model's frontend embeddings, encoded once here into
+    the cross layers' static caches; the decode step never takes it."""
+    def prefill_step(model, tokens, caches, lengths=None, frontend=None):
         x, caches = forward(model, tokens, cfg, mode="prefill",
-                            caches=caches, lengths=lengths,
-                            skip_unembed=True)
+                            caches=caches, frontend=frontend,
+                            lengths=lengths, skip_unembed=True)
         if lengths is None:
             last = x[:, -1:]
         else:

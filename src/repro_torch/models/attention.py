@@ -9,8 +9,12 @@ prompt, then write the ring), the mixed chunk of the serve step
 (``q_lens``: append per-row ragged widths into the paged pool, then
 attend through the ragged-q paged kernel) and decode (append, then
 attend the ring or, for a ``PagedKVState``, the pool through its page
-table; ``live`` masks dead slots). Cross-attention comes with the slice
-that needs it.
+table; ``live`` masks dead slots). Cross-attention (``kind="cross"``)
+takes K/V from the memory ``mem`` (the encoder's output or the projected
+patch embeddings), is non-causal and takes no RoPE; its cache is the
+static ``{"k8", "v8"}`` pair of (B, n_frontend_tokens, G, hd), written
+at every prefill and only read at decode, where the layer projects no
+K/V at all.
 """
 
 from __future__ import annotations
@@ -67,32 +71,44 @@ class Attention(nn.Module):
                                s_v=getattr(self, "s_v", None),
                                s_out=getattr(self, "s_out", None))
 
-    def forward(self, x, *, cfg, kind="global", positions=None, cache=None,
-                mode="train", lengths=None, live=None, q_lens=None):
+    def forward(self, x, *, cfg, kind="global", positions=None, mem=None,
+                cache=None, mode="train", lengths=None, live=None,
+                q_lens=None):
         """Returns ``(y, new_cache)``. ``cfg`` is the call's config (its
         ``attention_backend`` pin applies per call, as in the JAX
-        package). ``cache``: a ``KVCacheState`` ring or a ``PagedKVState``
-        pool (int8 for quantized impls). ``lengths`` (B,): ragged prefill
-        of right-padded prompts. ``live`` (B,) bool: decode-time slot mask
+        package). ``kind``: global | local | swa | cross (K/V from
+        ``mem`` (B, S_mem, d)). ``cache``: a ``KVCacheState`` ring or a
+        ``PagedKVState`` pool (int8 for quantized impls), or a cross
+        layer's ``{"k8", "v8"}``. ``lengths`` (B,): ragged prefill of
+        right-padded prompts. ``live`` (B,) bool: decode-time slot mask
         (dead slots write nothing and keep their position). ``q_lens``
         (B,): the mixed chunked-prefill step over a paged pool — row ``b``
         carries ``q_lens[b]`` real tokens of the presented width."""
         h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        if kind not in ("global", "local", "swa"):
-            raise NotImplementedError(
-                f"attention kind {kind!r} comes with a later slice")
-        window = {"global": 0, "local": cfg.local_window,
+        cross = kind == "cross"
+        window = {"global": 0, "cross": 0, "local": cfg.local_window,
                   "swa": cfg.window}[kind]
-        causal = cfg.causal
+        causal = not cross and cfg.causal
         dt = x.dtype
 
-        q, k, v = linear(x, self.wq), linear(x, self.wk), linear(x, self.wv)
+        q = linear(x, self.wq)
         if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
+            q = q + self.bq
         q = q.view(*q.shape[:-1], h, hd)
-        k = k.view(*k.shape[:-1], g, hd)
-        v = v.view(*v.shape[:-1], g, hd)
-        if positions is not None and cfg.rope_theta > 0:
+        if cross and cache is not None and mode == "decode":
+            k = v = None                        # the static cross cache
+        else:
+            kv_src = mem if cross else x
+            if kv_src is None:
+                raise ValueError(
+                    f"{cfg.name}: a cross-attention layer needs the memory "
+                    f"of a frontend (pass frontend=)")
+            k, v = linear(kv_src, self.wk), linear(kv_src, self.wv)
+            if cfg.qkv_bias:
+                k, v = k + self.bk, v + self.bv
+            k = k.view(*k.shape[:-1], g, hd)
+            v = v.view(*v.shape[:-1], g, hd)
+        if positions is not None and not cross and cfg.rope_theta > 0:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
 
@@ -124,6 +140,10 @@ class Attention(nn.Module):
         new_cache = cache
         if cache is None:
             y = run(q, k, v, mode=mode)
+        elif cross:
+            if mode != "decode":                # (re)written at prefill
+                new_cache = dict(cache, k8=_q(k, "s_k"), v8=_q(v, "s_v"))
+            y = run(q, new_cache["k8"], new_cache["v8"], mode=mode)
         elif mode == "prefill":
             y = run(q, k, v, mode=mode)
             new_cache = cache.prefill_write(_q(k, "s_k"), _q(v, "s_v"),

@@ -1,5 +1,6 @@
 """Shared layers (``repro.models.layers``): RMSNorm with a ``1 + scale``
-gain, RoPE, the SwiGLU and GeGLU MLPs, embedding and unembedding.
+gain, LayerNorm, RoPE, sinusoidal positions, the SwiGLU and GeGLU MLPs,
+the biased GELU MLP, embedding and unembedding.
 
 Every projection goes through ``linear`` and every norm reduces through
 the same fixed row blocks: both compute in blocks of exactly
@@ -18,6 +19,7 @@ both), so every call gives each token the same bits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -74,6 +76,38 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+class LayerNorm(nn.Module):
+    """LayerNorm's parameters: ``scale`` (ones) and ``bias`` (zeros),
+    (d,) in ``dtype`` (the reference's ``param_dtype``)."""
+
+    def __init__(self, d: int, *, dtype, device):
+        super().__init__()
+        self.scale = const_param((d,), 1.0, dtype=dtype, device=device)
+        self.bias = const_param((d,), 0.0, dtype=dtype, device=device)
+
+    def forward(self, x):
+        return layernorm(self.scale, self.bias, x)
+
+
+def layernorm(scale, bias, x: torch.Tensor, eps: float = 1e-6):
+    """The reference's LayerNorm in float32: the mean, then the mean of
+    the centred squares (not ``F.layer_norm``, whose arithmetic differs),
+    each reduced in the fixed row blocks."""
+    xf = x.float()
+    mu = in_row_blocks(xf, lambda rows: torch.mean(rows, dim=-1,
+                                                   keepdim=True))
+    xc = xf - mu
+    var = in_row_blocks(xc * xc,
+                        lambda rows: torch.mean(rows, dim=-1, keepdim=True))
+    y = xc * torch.rsqrt(var + eps) * scale + bias
+    return y.to(x.dtype)
+
+
+def apply_norm(norm, x: torch.Tensor):
+    """A block's norm: a ``LayerNorm`` module, or RMSNorm's gain tensor."""
+    return norm(x) if isinstance(norm, LayerNorm) else rmsnorm(norm, x)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (..., S, H, D); positions: broadcastable to (..., S)."""
     d = x.shape[-1]
@@ -87,6 +121,34 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int) -> np.ndarray:
+    """Whisper-style sinusoidal embeddings (seq, d) float32 of positions
+    ``0..seq-1`` (the encoder's), computed in numpy as the reference
+    computes them: float64 angles, rounded once."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(0, d, 2)[None, :] / d
+    ang = pos / (10000.0 ** dim)
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return out
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings (..., d) float32 of the (possibly per-row)
+    ``positions`` (int, (S,) or (B, S)) on their device, in float32 as
+    the reference's decoder computes them (its ``forward``): the angle
+    ``p / 10000^(2i/d)``, sines at even and cosines at odd features."""
+    def f32(value):          # a tensor operand: no reciprocal-multiply
+        return torch.full((), value, dtype=torch.float32,
+                          device=positions.device)
+    dim = torch.arange(0, d, 2, dtype=torch.float32,
+                       device=positions.device) / f32(d)
+    ang = positions[..., None].float() / torch.pow(f32(10000.0), dim)
+    pe = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe.reshape(*ang.shape[:-1], d)
 
 
 class SwiGLU(nn.Module):
@@ -115,6 +177,27 @@ class GeGLU(SwiGLU):
     @staticmethod
     def act(v):
         return F.gelu(v, approximate="tanh")
+
+
+class GeluMLP(nn.Module):
+    """The biased MLP ``gelu(x @ w_up + b_up) @ w_down + b_down`` with
+    tanh-approximate GELU (whisper). The biases hold ``param_dtype``-
+    rounded values in the compute dtype, as the reference casts them at
+    each use."""
+
+    def __init__(self, d: int, f: int, *, dtype, device, generator=None,
+                 param_dtype=torch.float32):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator,
+                  param_dtype=param_dtype)
+        self.w_up = normal_param((d, f), d ** -0.5, **kw)
+        self.b_up = const_param((f,), 0.0, dtype=dtype, device=device)
+        self.w_down = normal_param((f, d), f ** -0.5, **kw)
+        self.b_down = const_param((d,), 0.0, dtype=dtype, device=device)
+
+    def forward(self, x):
+        h = F.gelu(linear(x, self.w_up) + self.b_up, approximate="tanh")
+        return linear(h, self.w_down) + self.b_down
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

@@ -1,39 +1,56 @@
 """Model assembly (``repro.models.transformer``) for decoders of
-attention blocks (``attn`` global, ``local``/``swa`` sliding window) and
+attention blocks (``attn`` global, ``local``/``swa`` sliding window),
 recurrent blocks (``rglru``: RG-LRU, ``models.rglru``; ``rwkv``: RWKV6
-time and channel mix, ``models.rwkv6``) in layer groups, run by a Python
-loop over layers where the JAX package scans period-stacked parameters.
-The MLP of an attention or RG-LRU block is SwiGLU, GeGLU or, with
-``mlp_type="moe"``, the mixture of experts of ``models.moe``; an RWKV
-block's is its channel mix. Gemma2's extras are here too: post-norms on
-both residual branches, scaled embeddings and the final logit softcap.
+time and channel mix, ``models.rwkv6``) and cross-attention blocks
+(``cross``: llama-vision's gated cross-attention layer; ``attn_cross``:
+whisper's self attention, cross attention and MLP), in layer groups, run
+by a Python loop over layers where the JAX package scans period-stacked
+parameters. The MLP of a block is SwiGLU, GeGLU, the biased GELU MLP or,
+with ``mlp_type="moe"``, the mixture of experts of ``models.moe``; an
+RWKV block's is its channel mix. Gemma2's extras are here too: post-norms
+on both residual branches, scaled embeddings and the final logit
+softcap; whisper's: LayerNorm, sinusoidal positions and an encoder.
+
+An encoder–decoder model takes a ``frontend`` (B, n_frontend_tokens,
+frontend_dim): the stubbed frontend's embeddings (whisper's 1500 audio
+frames, llama-vision's 1601 patch embeddings). ``_encode`` projects it
+(``frontend_proj``, when ``frontend_dim != d_model``) and, with encoder
+layers, adds sinusoidal positions and runs the bidirectional ``enc``
+stack in train mode, as the reference does even when it serves (its
+attention is the QAT forward of ``ita_chunked_xla`` under ITA). The
+memory feeds the cross layers at prefill, which write it into their
+static int8 caches; a decode step reads only those caches.
 
     model = init_model(cfg, seed=0)                  # on the card
     caches = init_caches(cfg, batch, max_len)        # one ring per attention
                                                      # layer (paged=True:
                                                      # pools), state per
-                                                     # recurrent layer
+                                                     # recurrent layer, the
+                                                     # static cross caches
     logits, caches = forward(model, tokens, cfg, mode="prefill",
-                             caches=caches)
+                             caches=caches, frontend=frontend)
 
 ``from_jax_params`` loads a parameter pytree of the JAX package (numpy
-arrays, ``groups[g][pattern_pos][leaf]`` stacked over periods) into the
-port's modules, which is how the tests hold the two to the same weights.
-Its leaves may be float32 or, under ``param_dtype="bfloat16"``,
-``ml_dtypes.bfloat16``. Other block kinds (cross-attention, encoders)
-come with later slices.
+arrays, ``groups[g][pattern_pos][leaf]`` stacked over periods; the
+encoder's ``encoder.groups[0][0]`` over its layers) into the port's
+modules, which is how the tests hold the two to the same weights. Its
+leaves may be float32 or, under ``param_dtype="bfloat16"``,
+``ml_dtypes.bfloat16``.
 
 ``param_dtype`` is honoured as the JAX package honours it, which casts
-every leaf: projections and embeddings hold ``param_dtype``-rounded
-values in the compute dtype (the reference casts them to it at each
-use), the router and the recurrent leaves the reference uses in float32
-hold them in float32, and the norm gains, the QAT scales and RG-LRU's
-``lam`` are kept in ``param_dtype`` itself, where the reference computes
-with them in that dtype (``1 + scale`` of a norm; ``s_q * s_k * scale``
-of the streaming and direct attention paths; ``softplus(lam)``).
+every leaf: projections, biases and embeddings hold ``param_dtype``-
+rounded values in the compute dtype (the reference casts them to it at
+each use), the router and the recurrent leaves the reference uses in
+float32 hold them in float32, and the norm gains and biases, the QAT
+scales, the cross gates and RG-LRU's ``lam`` are kept in ``param_dtype``
+itself, where the reference computes with them in that dtype (``1 +
+scale`` of a norm; ``s_q * s_k * scale`` of the streaming and direct
+attention paths; ``tanh(gate)``; ``softplus(lam)``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -46,32 +63,38 @@ from repro_torch.models.attention import Attention
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import rwkv6 as RW
-from repro_torch.models.layers import (GeGLU, SwiGLU, const_param, embed,
-                                       normal_param, rmsnorm, unembed)
+from repro_torch.models.layers import (GeGLU, GeluMLP, LayerNorm, SwiGLU,
+                                       apply_norm, const_param, embed,
+                                       linear, normal_param,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       unembed)
 
-# block kind -> the attention layer's kind (its window)
-_ATTN_KINDS = {"attn": "global", "local": "local", "swa": "swa"}
+# self-attention block kind -> the attention layer's kind (its window);
+# "enc" is the encoder's (run non-causally)
+_ATTN_KINDS = {"attn": "global", "enc": "global", "local": "local",
+               "swa": "swa"}
+_CROSS_KINDS = ("cross", "attn_cross")
 _RECURRENT_KINDS = ("rglru", "rwkv")
-_MLPS = {"swiglu": SwiGLU, "geglu": GeGLU}
-# "moe": models.moe.MoE, built from cfg; "rwkv": the channel mix of an
-# all-rwkv stack
-_MLP_KINDS = (*_MLPS, "moe", "rwkv")
+_KINDS = (*_ATTN_KINDS, *_CROSS_KINDS, *_RECURRENT_KINDS)
+# a non-gated mlp_type is the biased GELU MLP, as the reference's
+# init_mlp/apply_mlp read it
+_GATED = {"swiglu": SwiGLU, "geglu": GeGLU}
 
 
 def _check_ported(cfg):
-    kinds = {k for pat, _ in cfg.layer_groups for k in pat}
-    blocks = (*_ATTN_KINDS, *_RECURRENT_KINDS)
-    mlp_ok = cfg.mlp_type in _MLPS \
-        or (cfg.mlp_type == "moe" and kinds <= set(_ATTN_KINDS)) \
-        or (cfg.mlp_type == "rwkv" and kinds == {"rwkv"})
-    if kinds - set(blocks) or not mlp_ok or cfg.norm_type != "rmsnorm" \
-            or cfg.n_encoder_layers or cfg.frontend_dim \
-            or cfg.sinusoidal_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: this slice of the port builds decoders of "
-            f"{blocks} blocks with {_MLP_KINDS} MLPs (moe under attention "
-            f"blocks, rwkv for rwkv stacks) and RMSNorm; the other blocks "
-            f"come with later slices (ROADMAP, \"Model breadth\")")
+    """An unknown block kind raises ``ValueError(kind)``, as the
+    reference's ``init_block`` does."""
+    for pattern, _ in cfg.layer_groups:
+        for kind in pattern:
+            if kind not in _KINDS:
+                raise ValueError(kind)
+
+
+def has_cross(cfg) -> bool:
+    """Whether the stack has cross-attention layers (which need a
+    frontend's memory at prefill)."""
+    return any(k in _CROSS_KINDS for pat, _ in cfg.layer_groups
+               for k in pat)
 
 
 def layer_kinds(cfg):
@@ -86,68 +109,113 @@ def _has_post_norms(cfg) -> bool:
 
 
 def _norm(cfg, device):
-    return const_param((cfg.d_model,), 0.0, dtype=cfg.param_torch_dtype(),
-                       device=device)
+    """A block's norm: RMSNorm's gain (zeros: ``1 + scale``) or a
+    ``LayerNorm`` (scale and bias), in ``param_dtype``."""
+    if cfg.norm_type == "rmsnorm":
+        return const_param((cfg.d_model,), 0.0,
+                           dtype=cfg.param_torch_dtype(), device=device)
+    return LayerNorm(cfg.d_model, dtype=cfg.param_torch_dtype(),
+                     device=device)
+
+
+def _mlp(cfg, kind, kw):
+    """The block's MLP as the reference builds it: RWKV's channel mix, the
+    MoE under self-attention kinds, SwiGLU in a cross block of a MoE
+    stack, else the cfg's gated MLP or the biased GELU MLP."""
+    if kind == "rwkv":
+        return RW.ChannelMix(cfg, **kw)
+    mlp_type = cfg.mlp_type
+    if mlp_type == "moe":
+        if kind in _ATTN_KINDS:
+            return MOE.MoE(cfg, **kw)
+        if kind == "cross":
+            mlp_type = "swiglu"
+    cls = _GATED.get(mlp_type, GeluMLP)
+    return cls(cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
+               param_dtype=cfg.param_torch_dtype(), **kw)
 
 
 class Block(nn.Module):
     """Pre-norm block: x + mix(norm1(x)), then x + mlp(norm2(x)). The
-    mixer is attention (``attn``) for the attention kinds, with post-norms
-    (gemma2) normed before each residual add: x + post_norm(branch); an
-    RG-LRU (``mixer``, then the cfg's MLP) for ``rglru``; RWKV6's time mix
-    (``mixer``) and channel mix (``mlp``) for ``rwkv``. A recurrent
-    mixer takes no state in train mode and the cache's state otherwise,
-    as the reference's does."""
+    mixer is attention (``attn``) for the self-attention kinds, with
+    post-norms (gemma2) normed before each residual add: x +
+    post_norm(branch); cross-attention over the memory for ``cross``,
+    both branches scaled by ``tanh`` of their gates (``gate_attn``,
+    ``gate_mlp``); self attention, then ``norm_x`` and cross attention
+    (``xattn``), then the MLP for ``attn_cross``; an RG-LRU (``mixer``,
+    then the cfg's MLP) for ``rglru``; RWKV6's time mix (``mixer``) and
+    channel mix (``mlp``) for ``rwkv``. A recurrent mixer takes no state
+    in train mode and the cache's state otherwise, as the reference's
+    does."""
 
     def __init__(self, cfg, kind, *, device, generator=None):
         super().__init__()
         self.kind = kind
         kw = dict(device=device, generator=generator)
         self.norm1 = _norm(cfg, device)
-        if kind in _ATTN_KINDS:
+        if kind in _ATTN_KINDS or kind in _CROSS_KINDS:
             self.attn = Attention(cfg, **kw)
         elif kind == "rglru":
             self.mixer = RG.RGLRU(cfg, **kw)
         else:
             self.mixer = RW.TimeMix(cfg, **kw)
+        if kind == "attn_cross":
+            self.norm_x = _norm(cfg, device)
+            self.xattn = Attention(cfg, **kw)
         self.norm2 = _norm(cfg, device)
-        if kind == "rwkv":
-            self.mlp = RW.ChannelMix(cfg, **kw)
-        elif cfg.mlp_type == "moe":
-            self.mlp = MOE.MoE(cfg, **kw)
-        else:
-            self.mlp = _MLPS[cfg.mlp_type](
-                cfg.d_model, cfg.d_ff, dtype=cfg.compute_dtype(),
-                param_dtype=cfg.param_torch_dtype(), **kw)
+        self.mlp = _mlp(cfg, kind, kw)
+        if kind == "cross":
+            for gate in ("gate_attn", "gate_mlp"):
+                setattr(self, gate, const_param(
+                    (), 0.0, dtype=cfg.param_torch_dtype(), device=device))
         if kind in _ATTN_KINDS and _has_post_norms(cfg):
             self.post_norm1 = _norm(cfg, device)
             self.post_norm2 = _norm(cfg, device)
 
     def _residual(self, x, y, post):
         post = getattr(self, post, None)
-        return x + (y if post is None else rmsnorm(post, y))
+        return x + (y if post is None else apply_norm(post, y))
 
-    def forward(self, x, *, cfg, positions, cache, mode, lengths=None,
-                live=None, q_lens=None):
+    def _gated(self, y, gate):
+        gate = getattr(self, gate, None)
+        return y if gate is None else y * torch.tanh(gate).to(y.dtype)
+
+    def forward(self, x, *, cfg, positions, cache, mode, mem=None,
+                lengths=None, live=None, q_lens=None):
         if self.kind in _RECURRENT_KINDS:
             return self._recurrent(x, cfg, cache, mode)
-        h = rmsnorm(self.norm1, x)
-        y, new_mix = self.attn(h, cfg=cfg, kind=_ATTN_KINDS[self.kind],
-                               positions=positions,
+        h = apply_norm(self.norm1, x)
+        cross = self.kind == "cross"
+        y, new_mix = self.attn(h, cfg=cfg,
+                               kind="cross" if cross
+                               else _ATTN_KINDS.get(self.kind, "global"),
+                               positions=positions, mem=mem,
                                cache=None if cache is None else cache["mix"],
                                mode=mode, lengths=lengths, live=live,
                                q_lens=q_lens)
-        x = self._residual(x, y, "post_norm1")
-        x = self._residual(x, self.mlp(rmsnorm(self.norm2, x)), "post_norm2")
-        return x, (None if cache is None else dict(cache, mix=new_mix))
+        x = self._residual(x, self._gated(y, "gate_attn"), "post_norm1")
+        new_cross = None
+        if self.kind == "attn_cross":
+            y, new_cross = self.xattn(
+                apply_norm(self.norm_x, x), cfg=cfg, kind="cross", mem=mem,
+                cache=None if cache is None else cache["cross"], mode=mode)
+            x = x + y
+        y = self._gated(self.mlp(apply_norm(self.norm2, x)), "gate_mlp")
+        x = self._residual(x, y, "post_norm2")
+        if cache is None:
+            return x, None
+        if self.kind == "attn_cross":
+            return x, dict(cache, mix=new_mix, cross=new_cross)
+        return x, dict(cache, mix=new_mix)
 
     def _recurrent(self, x, cfg, cache, mode):
         def state(key):
             return None if cache is None or mode == "train" \
                 else cache.get(key)
-        y, new_mix = self.mixer(rmsnorm(self.norm1, x), cfg, state("mix"))
+        y, new_mix = self.mixer(apply_norm(self.norm1, x), cfg,
+                                state("mix"))
         x = x + y
-        h = rmsnorm(self.norm2, x)
+        h = apply_norm(self.norm2, x)
         if self.kind == "rwkv":
             y, new_mlp = self.mlp(h, cfg, state("mlp"))
             x = x + y
@@ -159,7 +227,9 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Embedding, the blocks in execution order (group-major, then period,
-    then pattern position), final norm and unembedding."""
+    then pattern position), final norm and unembedding; with a frontend,
+    ``frontend_proj`` (frontend_dim, d_model) when the widths differ, and
+    with encoder layers the ``encoder`` blocks and ``encoder_norm``."""
 
     def __init__(self, cfg, *, device, generator=None):
         super().__init__()
@@ -176,6 +246,15 @@ class Transformer(nn.Module):
             Block(cfg, kind, device=device, generator=generator)
             for kind in layer_kinds(cfg))
         self.final_norm = _norm(cfg, device)
+        if cfg.n_encoder_layers:
+            self.encoder = nn.ModuleList(
+                Block(cfg, "enc", device=device, generator=generator)
+                for _ in range(cfg.n_encoder_layers))
+            self.encoder_norm = _norm(cfg, device)
+        if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+            self.frontend_proj = normal_param(
+                (cfg.frontend_dim, cfg.d_model), cfg.frontend_dim ** -0.5,
+                **kw)
 
     def unembed_weight(self) -> torch.Tensor:
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
@@ -184,9 +263,9 @@ class Transformer(nn.Module):
 def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
     """Random weights from ``seed`` at the JAX package's distributions
     (``scale · N(0, 1)`` projections, experts, routers and embeddings,
-    zero biases and norm gains, 0.05 quantization scales), rounded to
-    ``param_dtype`` and stored as the module docstring says, on
-    ``device`` (default the card; raises when CUDA is missing)."""
+    zero biases, norm gains and cross gates, 0.05 quantization scales),
+    rounded to ``param_dtype`` and stored as the module docstring says,
+    on ``device`` (default the card; raises when CUDA is missing)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -194,18 +273,20 @@ def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
         return Transformer(cfg, device=dev, generator=gen)
 
 
-def _layer_leaves(tree, cfg):
-    """Yield (flat layer index, block param dict of numpy arrays)."""
+def _layer_leaves(groups, layer_groups):
+    """Yield (flat layer index, block param dict of numpy arrays: a dict
+    of leaves per module, an array per bare leaf such as a gate)."""
+    def at(a, period):
+        return np.asarray(a)[period]
     idx = 0
-    for g, (pattern, n) in enumerate(cfg.layer_groups):
-        group = tree["groups"][g]
+    for g, (pattern, n) in enumerate(layer_groups):
         for period in range(n):
             for pos in range(len(pattern)):
-                blk = group[pos]
+                blk = groups[g][pos]
                 yield idx, {
-                    mod: {leaf: np.asarray(a)[period]
-                          for leaf, a in blk[mod].items()}
-                    for mod in blk}
+                    mod: ({leaf: at(a, period) for leaf, a in sub.items()}
+                          if isinstance(sub, dict) else at(sub, period))
+                    for mod, sub in blk.items()}
                 idx += 1
 
 
@@ -225,18 +306,37 @@ def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
                 a = a.astype(np.float32)
             param.copy_(torch.from_numpy(a).to(param.dtype))
 
+        def put_norm(norm, leaves):
+            if isinstance(norm, LayerNorm):
+                put(norm.scale, leaves["scale"])
+                put(norm.bias, leaves["bias"])
+            else:
+                put(norm, leaves["scale"])
+
+        def put_blocks(blocks, groups, layer_groups):
+            for i, blk in _layer_leaves(groups, layer_groups):
+                mine = blocks[i]
+                for name, leaves in blk.items():
+                    part = getattr(mine, name)
+                    if name.startswith(("norm", "post_norm")):
+                        put_norm(part, leaves)
+                    elif isinstance(leaves, dict):
+                        for leaf, a in leaves.items():
+                            put(getattr(part, leaf), a)
+                    else:                       # a gate
+                        put(part, leaves)
+
         put(model.embed, tree["embed"]["table"])
         if not cfg.tie_embeddings:
             put(model.unembed, tree["embed"]["unembed"])
-        put(model.final_norm, tree["final_norm"]["scale"])
-        for i, blk in _layer_leaves(tree, cfg):
-            mine = model.blocks[i]
-            for norm in ("norm1", "norm2", "post_norm1", "post_norm2"):
-                if norm in blk:
-                    put(getattr(mine, norm), blk[norm]["scale"])
-            for mod in ("attn", "mixer", "mlp"):
-                for leaf, a in blk.get(mod, {}).items():
-                    put(getattr(getattr(mine, mod), leaf), a)
+        put_norm(model.final_norm, tree["final_norm"])
+        put_blocks(model.blocks, tree["groups"], cfg.layer_groups)
+        if cfg.n_encoder_layers:
+            put_blocks(model.encoder, tree["encoder"]["groups"],
+                       ((("enc",), cfg.n_encoder_layers),))
+            put_norm(model.encoder_norm, tree["encoder"]["final_norm"])
+        if hasattr(model, "frontend_proj"):
+            put(model.frontend_proj, tree["frontend_proj"])
     return model
 
 
@@ -253,12 +353,16 @@ def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
     shapes and dtypes: ``{"mix": {"h" (B, dr) float32, "conv" (B, 3, dr)
     compute dtype}}`` for ``rglru``, ``{"mix": {"shift" (B, d), "s"
     (B, H, dh, dh)}, "mlp": {"shift" (B, d)}}`` in float32 for
-    ``rwkv``."""
+    ``rwkv``. A ``cross`` layer's is ``{"mix": {"k8", "v8"}}``, its
+    static memory cache of (B, n_frontend_tokens, G, hd) zeros in the KV
+    dtype (never paged); an ``attn_cross`` layer's ``{"mix": ring or
+    pool, "cross": {"k8", "v8"}}``."""
     dev = resolve_device(device)
     _check_ported(cfg)
     kv_dt = torch.int8 if cfg.attention_impl != "float" \
         else cfg.compute_dtype()
-    capacity = {"attn": max_len, "local": min(max_len, cfg.local_window),
+    capacity = {"attn": max_len, "enc": max_len,
+                "local": min(max_len, cfg.local_window),
                 "swa": min(max_len, cfg.window)}
 
     def kv_cache(size):
@@ -278,7 +382,17 @@ def init_caches(cfg, batch: int, max_len: int, *, paged: bool = False,
         if kind == "rwkv":
             st = RW.init_rwkv_state(batch, cfg, device=dev)
             return {"mix": st["tm"], "mlp": st["cm"]}
+        if kind == "cross":
+            return {"mix": cross_cache()}
+        if kind == "attn_cross":
+            return {"mix": kv_cache(max_len), "cross": cross_cache()}
         return {"mix": kv_cache(capacity[kind])}
+
+    def cross_cache():
+        shape = (batch, cfg.n_frontend_tokens, cfg.n_kv_heads,
+                 cfg.head_dim)
+        return {"k8": torch.zeros(shape, dtype=kv_dt, device=dev),
+                "v8": torch.zeros(shape, dtype=kv_dt, device=dev)}
     return [layer(kind) for kind in layer_kinds(cfg)]
 
 
@@ -290,19 +404,47 @@ def embed_scale(cfg, dtype, device) -> torch.Tensor:
                       device=device)
 
 
+def _encode(model: Transformer, cfg, frontend):
+    """The memory the cross layers attend: the frontend (B, S_mem,
+    frontend_dim) in the compute dtype, projected by ``frontend_proj``
+    when present; with encoder layers, plus the numpy sinusoidal
+    positions, through the encoder stack (non-causal, train mode) and its
+    final norm."""
+    dev, dt = model.embed.device, cfg.compute_dtype()
+    mem = torch.as_tensor(frontend, device=dev).to(dt)
+    if hasattr(model, "frontend_proj"):
+        mem = linear(mem, model.frontend_proj)
+    if cfg.n_encoder_layers:
+        s = mem.shape[1]
+        if cfg.sinusoidal_pos:
+            pos = sinusoidal_positions(s, cfg.d_model)
+            mem = mem + torch.from_numpy(pos).to(device=dev, dtype=dt)
+        enc_cfg = dataclasses.replace(cfg, causal=False)   # bidirectional
+        positions = torch.arange(s, dtype=torch.int32, device=dev)
+        for blk in model.encoder:
+            mem, _ = blk(mem, cfg=enc_cfg, positions=positions, cache=None,
+                         mode="train")
+        mem = apply_norm(model.encoder_norm, mem)
+    return mem
+
+
 def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
-            pos0=None, lengths=None, live=None, q_lens=None,
+            frontend=None, pos0=None, lengths=None, live=None, q_lens=None,
             skip_unembed=False):
     """tokens (B, S) int. Returns ``(logits (B, S, V) float32,
-    new_caches)``. ``pos0``: the first token's position, a scalar or a
-    (B,) per-sequence vector (ragged decode). ``lengths`` (B,): ragged
-    prefill of right-padded prompts. ``live`` (B,) bool: decode-time
-    slot mask of continuous batching (dead slots neither write their
-    caches nor advance). ``q_lens`` (B,) int32: the mixed chunked-prefill
-    step over paged caches (row ``b`` holds ``q_lens[b]`` real tokens).
-    ``skip_unembed`` returns the final-norm hidden states (B, S, d) in
-    place of the logits (the mixed step unembeds one row per sequence,
-    ``unembed(model.unembed_weight(), x)``)."""
+    new_caches)``. ``frontend`` (B, S_mem, frontend_dim): the stubbed
+    frontend's embeddings, encoded into the cross layers' memory (needed
+    by every mode of a stack with cross layers but decode over filled
+    cross caches, which reads the caches alone). ``pos0``: the first
+    token's position, a scalar or a (B,) per-sequence vector (ragged
+    decode). ``lengths`` (B,): ragged prefill of right-padded prompts.
+    ``live`` (B,) bool: decode-time slot mask of continuous batching
+    (dead slots neither write their caches nor advance). ``q_lens`` (B,)
+    int32: the mixed chunked-prefill step over paged caches (row ``b``
+    holds ``q_lens[b]`` real tokens). ``skip_unembed`` returns the
+    final-norm hidden states (B, S, d) in place of the logits (the mixed
+    step unembeds one row per sequence, ``unembed(model.unembed_weight(),
+    x)``)."""
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     x = embed(model.embed, tokens)
@@ -315,14 +457,20 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     else:
         pos0 = device_tensor(pos0, torch.int32, dev)
         positions = pos0[..., None] + ar if pos0.ndim else pos0 + ar
+    if cfg.sinusoidal_pos:
+        # from the (possibly per-row) positions on the device, so decode
+        # takes them too
+        pe = sinusoidal_at(positions, cfg.d_model)
+        x = x + (pe if pe.ndim == 3 else pe[None]).to(x.dtype)
+    mem = None if frontend is None else _encode(model, cfg, frontend)
     new_caches = [] if caches is not None else None
     for i, blk in enumerate(model.blocks):
         x, nc = blk(x, cfg=cfg, positions=positions,
                     cache=None if caches is None else caches[i], mode=mode,
-                    lengths=lengths, live=live, q_lens=q_lens)
+                    mem=mem, lengths=lengths, live=live, q_lens=q_lens)
         if new_caches is not None:
             new_caches.append(nc)
-    x = rmsnorm(model.final_norm, x)
+    x = apply_norm(model.final_norm, x)
     if skip_unembed:
         return x, new_caches
     return unembed(model.unembed_weight(), x, cfg.logit_softcap), new_caches

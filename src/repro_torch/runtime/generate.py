@@ -127,8 +127,9 @@ def _validate_ragged(cfg, lengths, prompt_len: int):
 
 
 def _first_paged(caches):
-    """The first attention layer's ``PagedKVState``, or None for ring
-    caches (and for stacks without attention layers)."""
+    """The first attention layer's ``PagedKVState`` (an ``attn_cross``
+    layer's self-attention pool included), or None for ring caches (and
+    for stacks without self-attention layers)."""
     from repro_torch.attention import PagedKVState
     return next((c["mix"] for c in caches
                  if isinstance(c["mix"], PagedKVState)), None)
@@ -154,6 +155,24 @@ def _validate_pool_provision(caches, batch: int, tokens_per_seq: int):
             f"oversubscribed pool")
 
 
+def _validate_frontend(cfg, frontend, batch: int):
+    """A stack with cross layers needs ``frontend=`` (B,
+    n_frontend_tokens, frontend_dim) — the JAX package fails on it with a
+    ``TypeError`` deep in the first cross layer; the port names it."""
+    from repro_torch.models.transformer import has_cross
+    if frontend is None:
+        if has_cross(cfg):
+            raise ValueError(
+                f"{cfg.name} has cross-attention layers: generate() needs "
+                f"frontend= embeddings of shape ({batch}, "
+                f"{cfg.n_frontend_tokens}, {cfg.frontend_dim})")
+        return
+    want = (batch, cfg.n_frontend_tokens, cfg.frontend_dim)
+    if tuple(frontend.shape) != want:
+        raise ValueError(f"frontend= of shape {tuple(frontend.shape)}; "
+                         f"{cfg.name} takes {want}")
+
+
 def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
     """Reused ``caches=`` must match what this call would allocate: rings
     of this batch and max_len, or paged pools of this batch and max_len
@@ -176,8 +195,18 @@ def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
     fields = ("k", "page_table", "free_stack") if paged is not None \
         else ("k",)
 
+    def cross(i, c, e, key):
+        """(name, got, want) of a static cross cache ``{"k8", "v8"}``."""
+        if not isinstance(c.get(key), dict) or set(c[key]) != set(e[key]):
+            raise ValueError(f"caches= layer {i} {key!r} is not the "
+                             f"cross cache {{k8, v8}} of {cfg.name!r}")
+        return [(f"{key}.{leaf}", c[key][leaf], e[key][leaf])
+                for leaf in e[key]]
+
     def tensors(i, c, e):
         """(name, got, want) of layer ``i``'s tensors."""
+        if isinstance(e["mix"], dict) and "k8" in e["mix"]:
+            return cross(i, c, e, "mix")        # a cross layer
         if isinstance(e["mix"], dict):          # a recurrent layer
             if set(c) != set(e) or any(
                     not isinstance(c[k], dict) or set(c[k]) != set(e[k])
@@ -191,7 +220,8 @@ def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
             raise ValueError(f"caches= layer {i} mixes ring and paged "
                              f"caches")
         return [(f, getattr(c["mix"], f), getattr(e["mix"], f))
-                for f in fields]
+                for f in fields] + (cross(i, c, e, "cross")
+                                    if "cross" in e else [])
 
     for i, (c, e) in enumerate(zip(caches, expected, strict=True)):
         for f, got, want in tensors(i, c, e):
@@ -204,7 +234,8 @@ def _validate_caches(caches, cfg, batch: int, max_len: int, dev):
                     f"on {dev})")
 
 
-def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
+def generate(model, cfg, prompts, gen: int, *, frontend=None,
+             temperature: float = 0.0,
              generator: torch.Generator | None = None,
              max_len: int | None = None, caches=None, prompt_lengths=None,
              eos_id: int | None = None, pad_id: int = 0,
@@ -214,7 +245,13 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
     """Prefill the prompt batch, then decode ``gen`` tokens.
 
     ``prompts`` (B, S) int, right-padded when ``prompt_lengths`` (B,)
-    declares a ragged batch. ``max_len`` sizes the KV rings (default
+    declares a ragged batch. ``frontend`` (B, n_frontend_tokens,
+    frontend_dim): an encoder–decoder model's frontend embeddings (a
+    stack with cross layers needs it), encoded once at prefill into the
+    cross layers' static caches, which the decode steps only read: the
+    decode step (captured or eager) never runs the encoder, where the
+    JAX package passes the frontend to every step and XLA drops the
+    unused encoder. ``max_len`` sizes the KV rings (default
     S + gen; smaller values evict the oldest tokens; capacities above one
     KV block are block-aligned). ``paged=True`` allocates the KV as
     shared paged pools (``PagedKVState``, ``page_size``/``num_pages``;
@@ -251,6 +288,7 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
     exact_float32_matmul()
     prompts = torch.as_tensor(prompts, device=dev).long()
     b, prompt_len = prompts.shape
+    _validate_frontend(cfg, frontend, b)
     if gen <= 0:
         return GenerateResult(torch.zeros((b, 0), dtype=torch.int32,
                                           device=dev), 0.0, 0.0, 0, 0)
@@ -276,7 +314,7 @@ def generate(model, cfg, prompts, gen: int, *, temperature: float = 0.0,
         _sync(dev)
         t0 = time.perf_counter()
         logits, caches = make_prefill_step(cfg)(model, prompts, caches,
-                                                lengths)
+                                                lengths, frontend)
         tok = sample_token(logits, generator, temperature, sample=sample)
         _sync(dev)
         t_prefill = time.perf_counter() - t0

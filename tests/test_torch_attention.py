@@ -209,14 +209,24 @@ def test_dispatch_float_inputs_match_jax(backend):
 
 def test_all_backends_registered_and_qat_train_raises():
     """All seven backends are registered, in the JAX package's priority
-    order (auto-dispatch depends on it); the one arithmetic still to come,
-    the QAT train forward of ``ita_chunked_xla``, raises naming the
-    training slice."""
+    order (auto-dispatch depends on it); the QAT train forward, which
+    raised until the encoder needed it, is served by ``ita_chunked_xla``
+    as in the JAX package and equals its output (the STE forward on
+    values whose ``w·v`` sums are exact: V on a power-of-two grid)."""
     assert TA.list_backends() == JA.list_backends() == list(PORTED)
-    x = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TA.dispatch(x, x, x, spec=TA.AttentionSpec(mode="train", impl="ita"),
-                    scales=TA.QuantScales.per_tensor(0.05, s_out=0.05))
+    rng = np.random.default_rng(8)
+    q = rng.normal(0, 1.5, (1, 6, 2, 16)).astype(np.float32)
+    k = rng.normal(0, 1.5, (1, 6, 2, 16)).astype(np.float32)
+    v = rng.integers(-8, 8, (1, 6, 2, 16)).astype(np.float32) * 0.125
+    spec = dict(mode="train", impl="ita", q_len=6, n_heads=2)
+    assert TA.list_backends(TA.AttentionSpec(**spec))[0] \
+        == JA.list_backends(JA.AttentionSpec(**spec))[0] == "ita_chunked_xla"
+    want = JA.dispatch(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       spec=JA.AttentionSpec(**spec),
+                       scales=JA.QuantScales.per_tensor(0.05, s_out=0.125))
+    got = TA.dispatch(_t(q), _t(k), _t(v), spec=TA.AttentionSpec(**spec),
+                      scales=TA.QuantScales.per_tensor(0.05, s_out=0.125))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # --------------------------------------------------------------------------

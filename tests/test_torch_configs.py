@@ -4,10 +4,10 @@ package, on the CPU: phi3-smoke (MHA, 4/4 heads) and deepseek-smoke
 with the JAX package's weights through ``from_jax_params``: prefill
 logits within 5e-2 (the bound of ``tests/test_torch_gemma2.py``: a float
 projection that rounds otherwise can move an int8 step of 0.05) and
-greedy tokens equal to JAX's. The registry lists the eight ported
-architectures in the JAX registry's order and refuses the other two
-(the encoder–decoder ones), naming what brings them; every registered
-config, full and smoke, is the JAX package's field for field.
+greedy tokens equal to JAX's. The registry lists all ten architectures
+in the JAX registry's order; every registered config, full and smoke,
+is the JAX package's field for field, the four once refused by name
+(the recurrent and the encoder–decoder ones) among them.
 
 The reference runs with an exact ``exp2`` (ROADMAP §C).
 """
@@ -69,20 +69,16 @@ def test_dense_config_logits_and_greedy_tokens_match_jax(arch):
 
 
 def test_registry_lists_the_ported_archs_in_jax_order():
-    assert TR.ARCH_IDS == ("recurrentgemma-2b", "qwen2-7b",
-                           "phi3-mini-3.8b", "deepseek-coder-33b",
-                           "gemma2-27b", "olmoe-1b-7b", "mixtral-8x7b",
-                           "rwkv6-7b")
-    assert TR.ARCH_IDS == tuple(a for a in JR.ARCH_IDS if a in TR.ARCH_IDS)
+    assert TR.ARCH_IDS == ("recurrentgemma-2b", "whisper-large-v3",
+                           "qwen2-7b", "phi3-mini-3.8b",
+                           "deepseek-coder-33b", "gemma2-27b",
+                           "olmoe-1b-7b", "mixtral-8x7b",
+                           "llama-3.2-vision-90b", "rwkv6-7b")
+    assert TR.ARCH_IDS == JR.ARCH_IDS
     for arch in TR.ARCH_IDS:
         for smoke in (False, True):
             assert dataclasses.asdict(TR.get_config(arch, smoke=smoke)) \
                 == dataclasses.asdict(JR.get_config(arch, smoke=smoke))
-
-
-# the archs refused until the blocks named came (models/rglru.py,
-# models/rwkv6.py)
-NOW_PORTED = {"recurrentgemma-2b", "rwkv6-7b"}
 
 
 @pytest.mark.parametrize("arch, brings", [
@@ -90,15 +86,13 @@ NOW_PORTED = {"recurrentgemma-2b", "rwkv6-7b"}
     ("whisper-large-v3", "encoder-decoder"),
     ("llama-3.2-vision-90b", "encoder-decoder")])
 def test_registry_refuses_the_unported_archs(arch, brings):
-    """The encoder–decoder archs are refused, naming what brings them;
-    the recurrent ones, refused until their blocks came, are registered
-    and are the JAX package's configs, full and smoke."""
-    assert arch in JR.ARCH_IDS
-    if arch in NOW_PORTED:
-        assert arch in TR.ARCH_IDS
-        for smoke in (False, True):
-            assert dataclasses.asdict(TR.get_config(arch, smoke=smoke)) \
-                == dataclasses.asdict(JR.get_config(arch, smoke=smoke))
-        return
-    with pytest.raises(NotImplementedError, match=brings):
-        TR.get_config(arch)
+    """The archs the registry once refused, naming the blocks that would
+    bring them (``brings``), are all registered now and are the JAX
+    package's configs, full and smoke; their blocks build."""
+    assert arch in JR.ARCH_IDS and arch in TR.ARCH_IDS
+    for smoke in (False, True):
+        assert dataclasses.asdict(TR.get_config(arch, smoke=smoke)) \
+            == dataclasses.asdict(JR.get_config(arch, smoke=smoke))
+    from repro_torch.models import init_model
+    model = init_model(TR.get_config(arch, smoke=True), device="cpu")
+    assert len(model.blocks) == TR.get_config(arch, smoke=True).n_layers

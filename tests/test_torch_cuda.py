@@ -1061,3 +1061,102 @@ def test_cuda_recurrent_fused_generate_equals_stepwise(arch, paged):
             loop, K.LAUNCHES)
     for loop in ("fused", "fused again"):
         assert torch.equal(runs[loop].tokens, runs["stepwise"].tokens), loop
+
+
+# the cross-attention shapes: whisper-large-v3's 20/20 heads of 64 over
+# 1500 frames, llama-3.2-vision-90b's 64/8 of 128 over 1601 patches
+CROSS_CASES = [(20, 20, 64, 1500), (64, 8, 128, 1601)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CROSS_CASES, ids=[
+    f"h{c[0]}-kv{c[1]}-d{c[2]}-skv{c[3]}" for c in CROSS_CASES])
+def test_cuda_noncausal_cross_attention_matches_plain(case):
+    """B2 and B3 non-causal, as the cross layers call them: the memory's
+    keys zero-padded to the 128-key tile (1500 -> 1536, 1601 -> 1664)
+    with ``kv_len`` the unpadded count, queries at offset 0: a prefill of
+    40 rows, a decode-shaped row (sq 1) and the paged kernel over a pool
+    of 128-token pages (kv_len ending mid-page), against their plain
+    versions and the ring kernel on the gathered pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    exact_float32_matmul()
+    hq, hkv, d, skv = case
+    b, page = 2, 128
+    n_pages = -(-skv // page)
+    rng = np.random.default_rng(skv)
+    bh, rep = b * hq, hq // hkv
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).cuda()
+
+    def i8(*shape):
+        return t(rng.integers(-128, 128, shape, dtype=np.int8))
+    k, v = i8(b, n_pages * page, hkv, d), i8(b, n_pages * page, hkv, d)
+    k[:, skv:] = 0
+    v[:, skv:] = 0
+    lmult = t(rng.uniform(0.004, 0.03, bh).astype(np.float32))
+    omult = t(rng.uniform(0.5, 2.0, bh).astype(np.float32))
+    kv_len = t(np.full(bh, skv, np.int32))
+    total = b * n_pages + 3
+    pt = t(rng.permutation(np.arange(1, total))[:b * n_pages]
+           .reshape(b, n_pages).astype(np.int32))
+    kp, vp = i8(total, page, hkv, d), i8(total, page, hkv, d)
+    for sq in (40, 1):
+        q = i8(bh, sq, d)
+        kw = dict(q_offset=0, causal=False, adaptive=True, kv_rep=rep,
+                  hq=hq)
+        got = K.ita_attention_onepass(q, k, v, lmult, omult, kv_len,
+                                      block_kv=page, **kw)
+        want = K.attention_plain(q, k, v, lmult, omult, kv_len,
+                                 block_kv=page, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), sq
+        got = K.ita_attention_onepass_paged(q, kp, vp, pt, lmult, omult,
+                                            kv_len, **kw)
+        want = K.paged_attention_plain(q, kp, vp, pt, lmult, omult, kv_len,
+                                       **kw)
+        ring = K.ita_attention_onepass(q, K.gather_pages(kp, pt),
+                                       K.gather_pages(vp, pt), lmult, omult,
+                                       kv_len, block_kv=page, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), sq
+        assert torch.equal(got, ring), sq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,pin,paged", [
+    ("whisper-large-v3", "", False),
+    ("whisper-large-v3", "ita_onepass_pallas", True),
+    ("llama-3.2-vision-90b", "ita_onepass_pallas", False)],
+    ids=["whisper", "whisper-pinned-paged", "llama-vision-pinned"])
+def test_cuda_encdec_fused_generate_equals_stepwise(arch, pin, paged):
+    """whisper-smoke and llama-vision-smoke on the card: the fused loop's
+    tokens equal the stepwise loop's and a second fused call's; the
+    captured decode step reads the static cross caches (one kernel call
+    per cross layer and step) and never runs the encoder."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (CUDA graphs)")
+    exact_float32_matmul()
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_model
+    from repro_torch.runtime.generate import generate
+    cfg = get_config(arch, smoke=True, attention_impl="ita",
+                     attention_backend=pin)
+    model = init_model(cfg, seed=0, device="cuda")
+    with torch.no_grad():
+        for blk in model.blocks:
+            for gate in ("gate_attn", "gate_mlp"):
+                if hasattr(blk, gate):
+                    getattr(blk, gate).fill_(0.5)
+    g = torch.Generator().manual_seed(2)
+    prompts = torch.randint(0, cfg.vocab_size, (3, 20), generator=g)
+    frontend = torch.randn((3, cfg.n_frontend_tokens, cfg.frontend_dim),
+                           generator=g)
+    runs = {}
+    for loop in ("stepwise", "fused", "fused again"):
+        runs[loop] = generate(model, cfg, prompts, 10, frontend=frontend,
+                              loop=loop.split()[0], paged=paged)
+        torch.cuda.synchronize()
+    for loop in ("fused", "fused again"):
+        assert torch.equal(runs[loop].tokens, runs["stepwise"].tokens), loop

@@ -212,7 +212,14 @@ def test_serve_cli_lists_backend_verdicts(capsys):
 
 
 def test_unported_config_raises():
+    """Every block kind of the reference builds now; an unknown kind
+    raises ``ValueError(kind)``, as the reference's ``init_block``
+    does."""
     cfg = dataclasses.replace(t_config("qwen2-7b", smoke=True),
                               layer_groups=((("attn_cross",), 1),))
-    with pytest.raises(NotImplementedError, match="later slices"):
-        init_model(cfg, device="cpu")
+    assert len(init_model(cfg, device="cpu").blocks) == 1
+    for make, c in ((lambda c: init_model(c, device="cpu"), cfg),
+                    (lambda c: j_init_model(jax.random.PRNGKey(0), c),
+                     j_config("qwen2-7b", smoke=True))):
+        with pytest.raises(ValueError, match="^mamba$"):
+            make(dataclasses.replace(c, layer_groups=((("mamba",), 1),)))
