@@ -53,7 +53,8 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    20/20 heads of 64 over 1500 keys padded to 1536 (``kv_len`` 1500)
    and llama-3.2-vision-90b's 64/8 of 128 over 1601 padded to 1664
    (a prefill and a decode-shaped row; B3 over 128-token pages).
-3. Drive ``generate()`` on full-width qwen2-7b (random bf16 weights from a
+3. Drive ``generate()`` on full-width qwen2-7b, its depth cut to
+   ``QWEN2_LAYERS`` (14) of its 28 layers (random bf16 weights from a
    seed, batch 4, prompt 512, 32 tokens), its decode step replayed from a
    CUDA graph (``loop="fused"``, the default; captured at the first call,
    kept for the second): (a) unpinned — chunked prefill, then the decode
@@ -64,7 +65,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    held token for token against ``loop="stepwise"`` (the step's ops
    eagerly) on the same inputs. The launch counters are zeroed before
    each run and read after it (a replay counts the launches its capture
-   saw); the inputs and outputs of layers 0 and 27 of one prefill call
+   saw); the inputs and outputs of layers 0 and 13 of one prefill call
    and one decode step (the first, run eagerly before the capture; run
    (b): also layer 0 of its first decode step, a decode-shaped onepass
    call) are kept and held to the plain versions afterwards. The
@@ -93,7 +94,7 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    (each step's eager warm-up before its capture) are held to their
    plain versions. Then the trace once more with ``admission="stall"``
    under the ``ita_onepass_pallas`` pin: a ragged prefill of the
-   admitted prompts through the ring onepass kernel (28 launches an
+   admitted prompts through the ring onepass kernel (14 launches an
    admission round) copied into pool pages, then captured decode steps
    (through the paged onepass kernel, which the pin reaches); every
    request's tokens must equal the chunked serve's, and layer 0's ring
@@ -175,8 +176,9 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    After qwen2-7b is freed: gemma2-27b at full width (46 alternating
    local-4096/global layers, d 4608, 32/16 heads, GeGLU 36864, vocab
    256000, softcaps 50 and 30, query scale 144^-0.5; random bf16 weights
-   from seed 0, ITA): (i) batch 4, prompt 512, 32 tokens; (ii) 2 of its
-   46 layers (``GEMMA2_LONG_PERIODS``), batch 1, prompt 4608, 16 tokens
+   from seed 0, ITA): (i) 16 of its 46 layers (``GEMMA2_PERIODS``),
+   batch 4, prompt 512, 32 tokens; (ii) 2 of its 46 layers
+   (``GEMMA2_LONG_PERIODS``), batch 1, prompt 4608, 16 tokens
    (the local rings wrap); prefill served by
    ``ita_chunked_xla``, decode by ``ita_direct_xla``, no fused kernel,
    fused tokens equal stepwise; prefill s, decode tok/s, the replayed
@@ -247,6 +249,29 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    as (a). Sub-rows ``whisper_*`` and ``llama_vision_*`` of the kernels
    line.
 
+12. Training, after phase 11's models are freed (random weights from
+   seed 0, ITA). (a) phi3-mini-3.8b at full width and depth (32 layers,
+   d 3072, 32/32 heads of 96, SwiGLU 8192, vocab 32064; bf16 storage, a
+   float32 master, float32 ``mu``/``nu``): 8 steps of
+   ``make_train_step`` (AdamW, lr 1e-3, warmup 1, per-block remat) on one
+   repeated synthetic batch of 4 x 513 tokens, the last one profiled;
+   gates: finite losses and grad norms, the last loss below the first,
+   every layer's ``s_q``/``s_k`` moved and ``s_v``/``s_out`` unchanged,
+   every attention call on ``ita_chunked_xla`` in train mode, no kernel
+   launched; printed: seconds a step, tokens/s, busy share, peak
+   allocation. (b) The trained weights served with gradients off and the
+   optimizer state freed: ``generate()`` unpinned at batch 4, prompt 512,
+   16 tokens, fused twice and stepwise with equal tokens and launches
+   (the chunked prefill, then B4), layer 0's first B4 call held to plain
+   and timed as the ``phi3_trained`` sub-row. (c) phi3-mini at full
+   width cut to 1 layer: ``TrainDriver`` 6 straight steps against 3
+   steps, a checkpoint, a restore and 3 more, parameters and optimizer
+   state bit-identical, deterministic algorithms on (an op without a
+   deterministic version is named); each save's bytes and the caller's
+   seconds, in a temporary directory removed afterwards. (d) phi3-smoke's
+   train step on the card against the CPU's: ``float`` within 1e-5,
+   ``ita``'s loss within 5e-3 (a flipped ``s_out`` tie).
+
 It prints the card, the kernels' JSON line and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
 exits non-zero and prints no result.
@@ -257,6 +282,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -275,6 +301,9 @@ LONG_RING = 2304                 # 18 tiles: more than a cluster's CTAs
 STREAMING = "/streaming"         # a decode case run without a cluster
 DEV = "cuda"
 WIDTH = {}                       # config overrides (none: full width)
+# phases 3-8b's depth: 14 of qwen2-7b's 28 layers, widths unchanged (the
+# script's slowest run took 1010 s of its 1200 with all 28 and phase 12)
+QWEN2_LAYERS = 14
 
 SOURCES = {
     "ita_attention_onepass": (
@@ -1306,7 +1335,8 @@ def full_width_model():
 
     from repro_torch.configs.registry import get_config
     from repro_torch.models import init_model
-    cfg = get_config("qwen2-7b", attention_impl="ita", **WIDTH)
+    cfg = get_config("qwen2-7b", attention_impl="ita",
+                     layer_groups=((("attn",), QWEN2_LAYERS),), **WIDTH)
     t0 = time.perf_counter()
     model = init_model(cfg, seed=0, device=DEV)
     torch.cuda.synchronize()
@@ -2999,6 +3029,10 @@ GEMMA2_LONG, GEMMA2_LONG_GEN = 4608, 16  # run (ii): the local rings wrap
 # unchanged (cut from 4 periods to keep the script inside its time once
 # phase 11 was added)
 GEMMA2_LONG_PERIODS = 1
+# run (i)'s depth: 8 of gemma2-27b's 23 (local, global) periods, widths
+# unchanged (cut from all 23 to keep the script inside its time once
+# phase 12 was added)
+GEMMA2_PERIODS = 8
 
 
 def served_by(fn):
@@ -3190,8 +3224,9 @@ def softmax_family(softmax_inputs, checks):
 
 def gemma2_at_full_width():
     """Phase 8c: gemma2-27b (random bf16 weights, seed 0, ITA): (i) at
-    full width and depth, batch 4, prompt 512, 32 tokens; (ii) at full
-    width and ``GEMMA2_LONG_PERIODS`` of its 23 (local, global) periods,
+    full width and ``GEMMA2_PERIODS`` of its 23 (local, global) periods,
+    batch 4, prompt 512, 32 tokens; (ii) at full width and
+    ``GEMMA2_LONG_PERIODS`` of its periods,
     batch 1, prompt 4608, 16 tokens, so the 4096-entry local rings wrap
     and the window binds. Prefill must be served by ``ita_chunked_xla``,
     decode by ``ita_direct_xla``, no fused attention kernel may launch,
@@ -3206,7 +3241,7 @@ def gemma2_at_full_width():
     gen = torch.Generator().manual_seed(0)
     out = {}
     for run, (b, plen, n), periods in (
-            ("i", (B, PROMPT, GEN), full.layer_groups[0][1]),
+            ("i", (B, PROMPT, GEN), GEMMA2_PERIODS),
             ("ii", (1, GEMMA2_LONG, GEMMA2_LONG_GEN), GEMMA2_LONG_PERIODS)):
         cfg = dataclasses.replace(
             full, layer_groups=((full.layer_groups[0][0], periods),))
@@ -4133,24 +4168,337 @@ def phase11(checks):
     return line, subs
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: training at full width, then serving the trained weights
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "phi3-mini-3.8b"
+TRAIN_B, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 512, 8, 1e-3
+TRAINED_GEN = 16                 # 12b's tokens
+RESUME_LAYERS = 1                # 12c's depth: 1 of phi3-mini's 32 layers
+RESUME_STEPS = 6                 # 12c: 6 straight against 3 + restore + 3
+QAT_SCALES = ("s_q", "s_k", "s_v", "s_out")
+
+
+def train_setup(cfg, steps, device=DEV, seed=0):
+    """``cfg``'s model (random weights from ``seed``) with its AdamW state
+    and train step (lr ``TRAIN_LR``, warmup 1), and its synthetic batch
+    pipeline at ``TRAIN_B`` x ``TRAIN_SEQ``."""
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.optimizer import (AdamWConfig, init_opt_state,
+                                             train_params)
+    model = init_model(cfg, seed=seed, device=device)
+    opt_state = init_opt_state(train_params(model))
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                            total_steps=steps))
+    pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=seed),
+                        batch=TRAIN_B, seq_len=TRAIN_SEQ, device=device)
+    return model, opt_state, step, pipe
+
+
+def train_full_width(checks):
+    """12a: phi3-mini-3.8b at full width and depth, ``TRAIN_STEPS`` steps
+    of ``make_train_step`` on one repeated synthetic batch, driven
+    directly (``TrainDriver``'s final save would write ~46 GB). Gates:
+    finite losses and grad norms, the last loss below the first, every
+    layer's ``s_q``/``s_k`` moved and ``s_v``/``s_out`` unchanged, every
+    attention call served by ``ita_chunked_xla`` in train mode, no kernel
+    launched. The last step runs under the profiler. Returns the model,
+    its config and the figures."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(TRAIN_ARCH, attention_impl="ita")
+    t0 = time.perf_counter()
+    model, opt_state, step, pipe = train_setup(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      list(model.parameters()) + list(opt_state.mu.values())
+                      + list(opt_state.nu.values())
+                      + list(opt_state.master.values()))
+    log(f"[phase12] {cfg.name} full width: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, SwiGLU {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{n_params / 1e9:.3f} B parameters (stored {cfg.dtype}, master "
+        f"float32), parameters + mu + nu + master {state_bytes / 1e9:.2f} "
+        f"GB, init {time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    batch = pipe.next()
+    scales = {n: p.detach().clone() for n, p in model.named_parameters()
+              if n.endswith(QAT_SCALES)}
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+
+    def steps():
+        nonlocal opt_state
+        for i in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == TRAIN_STEPS - 1:
+                (opt_state, m), busy = profile_run(
+                    "12a train step", lambda: step(model, opt_state, batch))
+            else:
+                opt_state, m = step(model, opt_state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            log(f"[phase12] 12a step {i + 1}: loss {losses[-1]:.5f}, grad "
+                f"norm {norms[-1]:.4f}, lr {float(m['lr']):.2e}, "
+                f"{secs[-1]:.3f} s")
+        return busy
+    reset_launches()
+    busy, seen = served_by(steps)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses + norms)):
+        raise AssertionError(f"12a: non-finite loss or grad norm: {losses}, "
+                             f"{norms}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"12a: the loss did not fall: {losses}")
+    if set(seen) != {("ita_chunked_xla", "train")}:
+        raise AssertionError(f"12a: attention served by {seen}")
+    if any(launches.values()):
+        raise AssertionError(f"12a: a fused kernel launched: {launches}")
+    params = dict(model.named_parameters())
+    for n, before in scales.items():
+        moved = not torch.equal(params[n].detach(), before)
+        if moved != n.endswith(("s_q", "s_k")):
+            raise AssertionError(f"12a: {n} {'moved' if moved else 'stayed'}"
+                                 f" ({before.item()} -> {params[n].item()})")
+    per_step = statistics.mean(secs[1:-1])
+    tokens = TRAIN_B * TRAIN_SEQ
+    figs = {"params_b": n_params / 1e9, "state_gb": state_bytes / 1e9,
+            "peak_gb": peak / 1e9, "first_s": secs[0], "step_s": per_step,
+            "tok_s": tokens / per_step, "busy": busy, "losses": losses,
+            "attention_calls": sum(seen.values())}
+    log(f"[phase12] 12a {TRAIN_STEPS} steps at {TRAIN_B} x {TRAIN_SEQ} (tokens "
+        f"{TRAIN_B} x {TRAIN_SEQ + 1}): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in norms)}; first step "
+        f"{secs[0]:.3f} s, then {per_step:.3f} s a step (steps 2-"
+        f"{TRAIN_STEPS - 1}), {tokens / per_step:.0f} tokens/s; profiled "
+        f"step {secs[-1]:.3f} s, busy {busy:.1%}; peak allocated "
+        f"{peak / 1e9:.2f} GB; attention {seen}; kernel launches "
+        f"{sum(launches.values())}; s_q/s_k moved, s_v/s_out unchanged; "
+        f"{card_line()}")
+    del opt_state, batch
+    return model, cfg, figs
+
+
+def serve_trained(model, cfg, checks):
+    """12b: the trained phi3-mini's gradients switched off and its
+    optimizer state freed, ``generate()`` unpinned at batch 4, prompt
+    512, ``TRAINED_GEN`` tokens, fused twice and stepwise (equal tokens
+    and launches), the chunked prefill then B4 every step, layer 0's
+    first B4 call held to plain. Returns figures and the B4 sub-row."""
+    import torch
+    model.requires_grad_(False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = cfg.n_layers
+    want = dict.fromkeys(SOURCES, 0)
+    want["ita_attention_decode"] = n * (TRAINED_GEN - 1)
+    res, step_res, seen, rec, n_dec, _ = generate_twice(
+        model, cfg, prompt_batch(cfg), "12b phi3 trained",
+        "ita_attention_decode", (0,), want, gen=TRAINED_GEN)
+    check_served(seen, {"prefill": "ita_chunked_xla",
+                        "decode": "ita_decode_pallas"}, "12b")
+    check_recorded(checks, "ita_attention_decode", rec, 0,
+                   "12b trained phi3, layer 0 of the first decode step")
+    figs = {"prefill_s": res.prefill_s, "decode_tok_s": res.decode_tok_s,
+            "step_ms": 1e3 * res.decode_s / res.decode_steps,
+            "stepwise_tok_s": step_res.decode_tok_s}
+    log(f"[phase12] 12b trained phi3 generate (unpinned): served by {seen};"
+        f" prefill {figs['prefill_s']:.3f} s, decode "
+        f"{figs['decode_tok_s']:.1f} tok/s ({figs['step_ms']:.2f} ms a "
+        f"replayed step), stepwise {figs['stepwise_tok_s']:.1f} tok/s; "
+        f"tokens {res.tokens[0, :8].tolist()}; B4 launches {n_dec}; "
+        f"{card_line()}")
+    sub = {"ita_attention_decode": {"phi3_trained": subrow(
+        "ita_attention_decode", rec.kept[0], n_dec, "12b trained phi3")}}
+    return figs, sub
+
+
+def resume_bit_identical():
+    """12c: phi3-mini at full width cut to ``RESUME_LAYERS`` layer(s):
+    ``TrainDriver`` for ``RESUME_STEPS`` straight steps against half of
+    them, a checkpoint, a restore in a new driver and the other half;
+    parameters and optimizer state must be bit-identical. Deterministic
+    algorithms are on for the phase (``warn_only``: an op without a
+    deterministic version warns, and is named here). Checkpoints go to a
+    temporary directory, removed afterwards. Returns the figures."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from repro_torch.checkpoint.checkpointing import Checkpointer
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import tree_leaves
+    from repro_torch.runtime.fault_tolerance import FTConfig, TrainDriver
+    full = get_config(TRAIN_ARCH, attention_impl="ita")
+    cfg = dataclasses.replace(
+        full, layer_groups=((full.layer_groups[0][0], RESUME_LAYERS),))
+    saves = []
+    real_save = Checkpointer.save
+
+    def timed_save(self, step, tree, extra=None, blocking=False):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fut = real_save(self, step, tree, extra=extra, blocking=blocking)
+        saves.append({"step": step, "blocking": blocking,
+                      "caller_s": time.perf_counter() - t,
+                      "bytes": sum(x.numel() * x.element_size()
+                                   for x in tree_leaves(tree))})
+        return fut
+
+    def driver(ckdir, every):
+        model, opt_state, step, pipe = train_setup(cfg, RESUME_STEPS)
+        return TrainDriver(FTConfig(ckpt_dir=ckdir, ckpt_every=every,
+                                    keep=1), step, model, opt_state, pipe)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    half = RESUME_STEPS // 2
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    Checkpointer.save = timed_save
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            straight = driver(f"{root}/straight", 10 ** 6)
+            straight.run(RESUME_STEPS, log_every=0)
+            shutil.rmtree(f"{root}/straight")
+            first = driver(f"{root}/resume", half)
+            first.run(half, log_every=0)
+            del first
+            resumed = driver(f"{root}/resume", half)
+            t = time.perf_counter()
+            if not resumed.maybe_restore() or resumed.step != half:
+                raise AssertionError("12c: no checkpoint to restore")
+            restore_s = time.perf_counter() - t
+            resumed.run(RESUME_STEPS, log_every=0)
+        a = tree_leaves({"params": dict(straight.model.named_parameters()),
+                         "opt": straight.opt_state})
+        b = tree_leaves({"params": dict(resumed.model.named_parameters()),
+                         "opt": resumed.opt_state})
+        differ = [i for i, (x, y) in enumerate(zip(a, b))
+                  if not torch.equal(x, y)]
+        if len(a) != len(b) or differ:
+            raise AssertionError(f"12c: {len(differ)} of {len(a)} tensors "
+                                 f"differ after the resume")
+    finally:
+        Checkpointer.save = real_save
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    nondet = sorted({str(w.message).split(" does not have a deterministic")[0]
+                     [:120] for w in caught
+                     if "deterministic" in str(w.message)})
+    n_params = sum(p.numel() for p in straight.model.parameters())
+    figs = {"params_m": n_params / 1e6, "saves": saves,
+            "restore_s": restore_s, "nondeterministic": nondet,
+            "tensors": len(a)}
+    log(f"[phase12] 12c {cfg.name} at {RESUME_LAYERS} layer(s), full width "
+        f"({n_params / 1e6:.1f} M parameters): {RESUME_STEPS} straight steps"
+        f" == {half} + checkpoint + restore + {half}, {len(a)} tensors "
+        f"(parameters, mu, nu, master, count) bit-identical; saves "
+        + "; ".join(f"step {s['step']} {s['bytes']} B, caller "
+                    f"{s['caller_s']:.3f} s{' (blocking)' * s['blocking']}"
+                    for s in saves)
+        + f"; restore {restore_s:.3f} s; ops without a deterministic "
+        f"version: {nondet or 'none'}; {card_line()}")
+    return figs
+
+
+def train_step_card_vs_cpu():
+    """12d: phi3-smoke, one train step at ``TRAIN_B`` x ``TRAIN_SEQ`` on
+    the card against the CPU's on the same weights and batch
+    (``repro_torch.launch.train_parity``, which ``tests/test_torch_cuda.py``
+    runs too): ``float`` loss and grad norm within 1e-5, parameters within
+    1e-5 of their scale but the under 1% a near-zero gradient stepped the
+    other way (by at most 2·lr); ``ita`` loss as is within 5e-3 (a
+    flipped ``s_out`` tie), and with the output fake-quant replaced by
+    identity on both: loss within 1e-5, grad norm within 1e-4, every
+    gradient within 1e-2 of its norm (a Q/K STE round may flip at a tie),
+    the ``s_q``/``s_k`` gradients of the STE backward within 5e-5 and not
+    zero, ``s_v``/``s_out`` zero, parameters held as under ``float``."""
+    from repro_torch.launch.train_parity import (describe,
+                                                 train_step_card_vs_cpu as
+                                                 card_vs_cpu)
+    out = {}
+    for impl in ("float", "ita"):
+        figs = card_vs_cpu(TRAIN_ARCH, impl, device=DEV, lr=TRAIN_LR,
+                           batch=TRAIN_B, seq=TRAIN_SEQ)
+        out[impl] = figs["loss_rel"]
+        log(f"[phase12] 12d phi3-smoke train step, card vs CPU, "
+            f"{describe(impl, figs)}")
+    return out
+
+
+def phase12(checks):
+    """Phase 12: 12a train phi3-mini-3.8b at full width, 12b serve its
+    trained weights (B4), then, after it is freed, 12c the bit-identical
+    resume at one layer and 12d the card against the CPU. Returns a
+    result line and the kernels' sub-rows."""
+    import torch
+    model, cfg, train = train_full_width(checks)
+    lap("12a train")
+    serve, subs = serve_trained(model, cfg, checks)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("12b serve")
+    resume = resume_bit_identical()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("12c resume")
+    card_cpu = train_step_card_vs_cpu()
+    line = (f"[result] phase 12: {TRAIN_ARCH} train ({train['params_b']:.3f}"
+            f" B parameters, state {train['state_gb']:.2f} GB) "
+            f"{train['step_s']:.3f} s a step at {TRAIN_B} x {TRAIN_SEQ}, "
+            f"{train['tok_s']:.0f} tokens/s, first step "
+            f"{train['first_s']:.3f} s, busy {train['busy']:.1%}, peak "
+            f"allocated {train['peak_gb']:.2f} GB, loss "
+            f"{train['losses'][0]:.4f} -> {train['losses'][-1]:.4f}; trained "
+            f"serve prefill {serve['prefill_s']:.3f} s, decode "
+            f"{serve['decode_tok_s']:.1f} tok/s ({serve['step_ms']:.2f} ms), "
+            f"stepwise {serve['stepwise_tok_s']:.1f} tok/s; resume at "
+            f"{RESUME_LAYERS} layer ({resume['params_m']:.1f} M) "
+            f"bit-identical, saves "
+            + ", ".join(f"{s['bytes']} B {s['caller_s']:.3f} s"
+                        f"{' blocking' * s['blocking']}"
+                        for s in resume["saves"])
+            + f", restore {resume['restore_s']:.3f} s; card vs CPU loss rel "
+            f"float {card_cpu['float']:.2e}, ita {card_cpu['ita']:.2e}")
+    return line, subs
+
+
 def qwen2_phases(checks):
     """Phases 3-7 and 8a-8b on full-width qwen2-7b. Returns the kernels
     line's rows and the result line; the model and everything built on it
     are freed with this frame."""
     model, cfg = full_width_model()
     metrics, captured = full_width(model, cfg, checks)
+    lap("phase 3")
     softmax_inputs, softmax_launches = full_width_softmax(
         captured["twopass"][2][1], checks)
     served, serve_launches, serve_captured = full_width_serve(model, cfg,
                                                               checks)
     captured.update(serve_captured)
+    lap("phases 4-5 serve")
     preqs, solo, max_len = prefix_serve(model, cfg, serve_trace(cfg))
     overload = overload_serve(model, cfg, preqs, solo, max_len, checks)
     cow_step(model, cfg, checks)
+    lap("phase 5 prefix, overload, copy on write")
     recovery = recovery_phase(model, cfg, serve_trace(cfg), served["tokens"],
                               preqs, solo, overload["sampled_tokens"], checks)
+    lap("phase 5 recovery")
     baselines = baselines_at_full_width(model, cfg, metrics["tokens"])
     family_launches, family = softmax_family(softmax_inputs, checks)
+    lap("phase 8a-8b")
     # ring and twopass kernels: the generate() runs; paged kernels: the
     # serve; the softmax: its run on run (c)'s A
     rows = time_kernels(captured, softmax_inputs,
@@ -4158,6 +4506,7 @@ def qwen2_phases(checks):
                          "ita_softmax": softmax_launches + family_launches},
                         checks,
                         served["mean_ms"])
+    lap("phase 6")
     linear_launches, linear_ops = full_width_linear(model, cfg, checks)
     rows += time_linear(linear_ops, linear_launches, checks)
     summary = (
@@ -4241,8 +4590,12 @@ def main():
     torch.cuda.empty_cache()
     phase11_line, phase11_subs = phase11(checks)
     lap("phase 11")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase12_line, phase12_subs = phase12(checks)
+    lap("phase 12")
     for row in rows:
-        for subs in (phase9_subs, phase10_subs, phase11_subs):
+        for subs in (phase9_subs, phase10_subs, phase11_subs, phase12_subs):
             row.update(subs.get(row["name"], {}))
     log(summary)
     log(f"[result] phase 8: " + "; ".join(
@@ -4256,6 +4609,7 @@ def main():
     log(f"{phase9_line}; {card}")
     log(f"{phase10_line}; {card}")
     log(f"{phase11_line}; {card}")
+    log(f"{phase12_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

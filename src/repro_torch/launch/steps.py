@@ -1,5 +1,9 @@
-"""Prefill / decode steps, sampling, the decode loop and the
+"""Train / prefill / decode steps, sampling, the decode loop and the
 continuous-batching serve segments (``repro.launch.steps``).
+
+``make_train_step`` is the reference's jitted ``value_and_grad`` of
+``loss_fn`` followed by AdamW, as autograd's backward and the in-place
+``optim.optimizer.adamw_update`` over the model's parameters.
 
 The JAX package jits the steps and scans every decode step in one
 dispatch. The port's counterpart is ``CapturedSteps``: a step captured
@@ -25,8 +29,40 @@ import torch
 
 from repro_torch.attention.state import scatter_drop
 from repro_torch.device import resolve_device
-from repro_torch.models import forward
+from repro_torch.models import forward, loss_fn
 from repro_torch.models.layers import unembed
+from repro_torch.optim.optimizer import (AdamWConfig, adamw_update,
+                                         train_params)
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig):
+    """``train_step(model, opt_state, batch) -> (opt_state, metrics)``:
+    the loss and its gradients by autograd, then one AdamW step that
+    writes the model's parameters in place. ``metrics``: ``loss``,
+    ``nll``, ``aux``, ``grad_norm`` and ``lr``, detached 0-d tensors on
+    the model's device (nothing is read back to the host). Switches the
+    model's parameters to ``requires_grad`` and clears their gradients
+    after the update. On the card the integer products of the QAT
+    forward need full float32 matmuls (``exact_float32_matmul``), which
+    the step sets."""
+    from repro_torch.kernels.common import exact_float32_matmul
+    exact_float32_matmul()
+
+    def train_step(model, opt_state, batch):
+        params = train_params(model)
+        for p in params.values():
+            p.grad = None
+        loss, metrics = loss_fn(model, batch, cfg)
+        loss.backward()
+        opt_state, stats = adamw_update(
+            {n: p.grad for n, p in params.items()}, opt_state, params,
+            opt_cfg, grad_dtype=cfg.param_torch_dtype())
+        for p in params.values():
+            p.grad = None
+        return opt_state, {"loss": loss.detach(),
+                           **{k: v.detach() for k, v in metrics.items()},
+                           **stats}
+    return train_step
 
 
 def make_prefill_step(cfg):

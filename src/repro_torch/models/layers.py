@@ -63,8 +63,32 @@ def in_row_blocks(x: torch.Tensor, fn) -> torch.Tensor:
     return out[:m].reshape(*lead, out.shape[-1])
 
 
+class _Linear(torch.autograd.Function):
+    """``linear`` under autograd: the forward in the fixed row blocks, the
+    backward as the JAX package differentiates ``x @ w``, one product
+    each over all rows. The weight's gradient is then one GEMM whose
+    float32 accumulator is rounded once to the compute dtype, not a sum
+    of per-block bf16 partials rounded at every add."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return in_row_blocks(x, lambda rows: rows @ w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = g @ w.mT if ctx.needs_input_grad[0] else None
+        gw = (x.reshape(-1, x.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+              if ctx.needs_input_grad[1] else None)
+        return gx, gw
+
+
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x (..., K) @ w (K, N)``, in fixed row blocks."""
+    """``x (..., K) @ w (K, N)``, in fixed row blocks (``_Linear`` when
+    autograd records it)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Linear.apply(x, w)
     return in_row_blocks(x, lambda rows: rows @ w)
 
 

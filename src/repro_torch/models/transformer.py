@@ -55,6 +55,7 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
@@ -181,7 +182,9 @@ class Block(nn.Module):
         return y if gate is None else y * torch.tanh(gate).to(y.dtype)
 
     def forward(self, x, *, cfg, positions, cache, mode, mem=None,
-                lengths=None, live=None, q_lens=None):
+                lengths=None, live=None, q_lens=None, aux=None):
+        """Returns ``(x, new_cache)``. ``aux``: a list the block appends
+        its MoE load-balance loss to (train mode; a MoE block only)."""
         if self.kind in _RECURRENT_KINDS:
             return self._recurrent(x, cfg, cache, mode)
         h = apply_norm(self.norm1, x)
@@ -200,8 +203,11 @@ class Block(nn.Module):
                 apply_norm(self.norm_x, x), cfg=cfg, kind="cross", mem=mem,
                 cache=None if cache is None else cache["cross"], mode=mode)
             x = x + y
-        y = self._gated(self.mlp(apply_norm(self.norm2, x)), "gate_mlp")
+        h = apply_norm(self.norm2, x)
+        y = self._gated(self.mlp(h), "gate_mlp")
         x = self._residual(x, y, "post_norm2")
+        if aux is not None and isinstance(self.mlp, MOE.MoE):
+            aux.append(MOE.moe_aux_loss(h, self.mlp.router, self.mlp.k))
         if cache is None:
             return x, None
         if self.kind == "attn_cross":
@@ -290,6 +296,51 @@ def _layer_leaves(groups, layer_groups):
                 idx += 1
 
 
+def jax_named_leaves(tree, cfg):
+    """Yield ``(name, array)``: each leaf of a JAX-package parameter
+    pytree (or of a tree of its layout: gradients, Adam's moments, the
+    master copy) under the name of the port's parameter it maps to
+    (``model.named_parameters()``), one block's slice of the stacked
+    leaves at a time."""
+    def norm(prefix, leaves):
+        if cfg.norm_type == "rmsnorm":
+            yield prefix, leaves["scale"]
+        else:
+            yield f"{prefix}.scale", leaves["scale"]
+            yield f"{prefix}.bias", leaves["bias"]
+
+    def blocks(prefix, groups, layer_groups):
+        for i, blk in _layer_leaves(groups, layer_groups):
+            for mod, leaves in blk.items():
+                name = f"{prefix}.{i}.{mod}"
+                if mod.startswith(("norm", "post_norm")):
+                    yield from norm(name, leaves)
+                elif isinstance(leaves, dict):
+                    for leaf, a in leaves.items():
+                        yield f"{name}.{leaf}", a
+                else:                           # a gate
+                    yield name, leaves
+
+    yield "embed", tree["embed"]["table"]
+    if not cfg.tie_embeddings:
+        yield "unembed", tree["embed"]["unembed"]
+    yield from norm("final_norm", tree["final_norm"])
+    yield from blocks("blocks", tree["groups"], cfg.layer_groups)
+    if cfg.n_encoder_layers:
+        yield from blocks("encoder", tree["encoder"]["groups"],
+                          ((("enc",), cfg.n_encoder_layers),))
+        yield from norm("encoder_norm", tree["encoder"]["final_norm"])
+    if cfg.frontend_dim and cfg.frontend_dim != cfg.d_model:
+        yield "frontend_proj", tree["frontend_proj"]
+
+
+def host_array(array) -> np.ndarray:
+    """A numpy copy; ``ml_dtypes.bfloat16`` widened to float32, exactly
+    (torch cannot take it)."""
+    a = np.array(array)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
 def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
     """Load a JAX-package parameter pytree (numpy arrays; per group, per
     pattern position, leaves stacked over ``n_periods``) into the port's
@@ -299,44 +350,11 @@ def from_jax_params(tree, cfg, *, device="cuda") -> Transformer:
     dev = resolve_device(device)
     with torch.no_grad():
         model = Transformer(cfg, device=dev)
-
-        def put(param, array):
-            a = np.array(array)
-            if a.dtype.name == "bfloat16":      # torch cannot take it
-                a = a.astype(np.float32)
-            param.copy_(torch.from_numpy(a).to(param.dtype))
-
-        def put_norm(norm, leaves):
-            if isinstance(norm, LayerNorm):
-                put(norm.scale, leaves["scale"])
-                put(norm.bias, leaves["bias"])
-            else:
-                put(norm, leaves["scale"])
-
-        def put_blocks(blocks, groups, layer_groups):
-            for i, blk in _layer_leaves(groups, layer_groups):
-                mine = blocks[i]
-                for name, leaves in blk.items():
-                    part = getattr(mine, name)
-                    if name.startswith(("norm", "post_norm")):
-                        put_norm(part, leaves)
-                    elif isinstance(leaves, dict):
-                        for leaf, a in leaves.items():
-                            put(getattr(part, leaf), a)
-                    else:                       # a gate
-                        put(part, leaves)
-
-        put(model.embed, tree["embed"]["table"])
-        if not cfg.tie_embeddings:
-            put(model.unembed, tree["embed"]["unembed"])
-        put_norm(model.final_norm, tree["final_norm"])
-        put_blocks(model.blocks, tree["groups"], cfg.layer_groups)
-        if cfg.n_encoder_layers:
-            put_blocks(model.encoder, tree["encoder"]["groups"],
-                       ((("enc",), cfg.n_encoder_layers),))
-            put_norm(model.encoder_norm, tree["encoder"]["final_norm"])
-        if hasattr(model, "frontend_proj"):
-            put(model.frontend_proj, tree["frontend_proj"])
+        params = dict(model.named_parameters())
+        for name, array in jax_named_leaves(tree, cfg):
+            param = params[name]
+            param.copy_(torch.from_numpy(host_array(array))
+                        .to(param.dtype))
     return model
 
 
@@ -422,15 +440,30 @@ def _encode(model: Transformer, cfg, frontend):
         enc_cfg = dataclasses.replace(cfg, causal=False)   # bidirectional
         positions = torch.arange(s, dtype=torch.int32, device=dev)
         for blk in model.encoder:
-            mem, _ = blk(mem, cfg=enc_cfg, positions=positions, cache=None,
-                         mode="train")
+            mem, _ = _train_block(blk, mem, enc_cfg, positions, None)
         mem = apply_norm(model.encoder_norm, mem)
     return mem
 
 
+def _train_block(blk, x, cfg, positions, mem):
+    """One block in train mode: ``(x, its MoE load-balance loss or
+    None)``. With ``cfg.remat`` and autograd on, its activations are
+    recomputed in the backward (``jax.checkpoint`` of the reference's
+    scan body); ``remat_policy="dots"`` runs as this full remat, which
+    changes memory and time, never the gradients."""
+    def run(x, mem):
+        got = []
+        y, _ = blk(x, cfg=cfg, positions=positions, cache=None,
+                   mode="train", mem=mem, aux=got)
+        return y, (got[0] if got else None)
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(run, x, mem, use_reentrant=False)
+    return run(x, mem)
+
+
 def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
             frontend=None, pos0=None, lengths=None, live=None, q_lens=None,
-            skip_unembed=False):
+            skip_unembed=False, return_aux=False):
     """tokens (B, S) int. Returns ``(logits (B, S, V) float32,
     new_caches)``. ``frontend`` (B, S_mem, frontend_dim): the stubbed
     frontend's embeddings, encoded into the cross layers' memory (needed
@@ -444,7 +477,12 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     holds ``q_lens[b]`` real tokens). ``skip_unembed`` returns the
     final-norm hidden states (B, S, d) in place of the logits (the mixed
     step unembeds one row per sequence, ``unembed(model.unembed_weight(),
-    x)``)."""
+    x)``). ``return_aux`` appends the MoE load-balance loss of train mode
+    (float32 0-d: each MoE block's ``models.moe.moe_aux_loss`` of its
+    normed MLP input, summed per layer group and over groups as the
+    reference's scans sum it; 0 without MoE blocks or outside train
+    mode). Train mode without caches runs each block through
+    ``_train_block`` (remat)."""
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     x = embed(model.embed, tokens)
@@ -464,34 +502,89 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
         x = x + (pe if pe.ndim == 3 else pe[None]).to(x.dtype)
     mem = None if frontend is None else _encode(model, cfg, frontend)
     new_caches = [] if caches is not None else None
-    for i, blk in enumerate(model.blocks):
-        x, nc = blk(x, cfg=cfg, positions=positions,
-                    cache=None if caches is None else caches[i], mode=mode,
-                    mem=mem, lengths=lengths, live=live, q_lens=q_lens)
-        if new_caches is not None:
-            new_caches.append(nc)
+    train = mode == "train" and caches is None
+
+    def zero():
+        return torch.zeros((), dtype=torch.float32, device=dev)
+    aux_total = zero() if return_aux else None
+    start = 0
+    for pattern, n in cfg.layer_groups:
+        stop = start + len(pattern) * n
+        aux = zero() if return_aux else None
+        for i in range(start, stop):
+            blk = model.blocks[i]
+            if train:
+                x, a = _train_block(blk, x, cfg, positions, mem)
+                if a is not None and return_aux:
+                    aux = aux + a
+                continue
+            x, nc = blk(x, cfg=cfg, positions=positions,
+                        cache=None if caches is None else caches[i],
+                        mode=mode, mem=mem, lengths=lengths, live=live,
+                        q_lens=q_lens)
+            if new_caches is not None:
+                new_caches.append(nc)
+        if return_aux:
+            aux_total = aux_total + aux
+        start = stop
     x = apply_norm(model.final_norm, x)
-    if skip_unembed:
-        return x, new_caches
-    return unembed(model.unembed_weight(), x, cfg.logit_softcap), new_caches
+    out = x if skip_unembed \
+        else unembed(model.unembed_weight(), x, cfg.logit_softcap)
+    return (out, new_caches, aux_total) if return_aux else (out, new_caches)
+
+
+def _ce(logits, targets):
+    """Summed cross entropy of float32 ``logits`` (B, S, V) at the int
+    ``targets`` (B, S): ``logsumexp - gold logit``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def _chunk_ce(w, x, targets, softcap):
+    return _ce(unembed(w, x, softcap), targets)
+
+
+def loss_fn(model: Transformer, batch, cfg, aux_weight: float = 0.01):
+    """Causal-LM cross entropy of ``batch["tokens"]`` (B, S+1) (shifted
+    inside; ``batch["frontend"]`` for a stack with cross layers), plus
+    ``aux_weight`` times the MoE load-balance loss of the same forward.
+    Returns ``(loss, {"nll", "aux"})``, float32 0-d tensors.
+
+    ``cfg.ce_chunks > 1`` evaluates the unembedding and the cross entropy
+    in that many sequence chunks (fewer when the chunks would not divide
+    the sequence), each recomputed in the backward, so the (B, S, V)
+    float32 logits never exist whole."""
+    tokens = torch.as_tensor(batch["tokens"], device=model.embed.device)
+    targets = tokens[:, 1:]
+    frontend = batch.get("frontend")
+    if cfg.ce_chunks <= 1:
+        logits, _, aux = forward(model, tokens[:, :-1], cfg, mode="train",
+                                 frontend=frontend, return_aux=True)
+        nll = _ce(logits, targets) / targets.numel()
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+    x, _, aux = forward(model, tokens[:, :-1], cfg, mode="train",
+                        frontend=frontend, skip_unembed=True,
+                        return_aux=True)
+    s = x.shape[1]
+    nc = cfg.ce_chunks
+    while s % nc:
+        nc -= 1
+    c = s // nc
+    w = model.unembed_weight()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        part = (w, x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
+                cfg.logit_softcap)
+        tot = tot + (checkpoint(_chunk_ce, *part, use_reentrant=False)
+                     if torch.is_grad_enabled() else _chunk_ce(*part))
+    nll = tot / targets.numel()
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def moe_aux_loss(model: Transformer, tokens, cfg) -> torch.Tensor:
     """The MoE load-balance loss the JAX package's ``forward`` returns as
-    ``aux`` in train mode: ``models.moe.moe_aux_loss`` of each MoE block
-    on its normed MLP input, summed over blocks (float32 0-d; 0 without
-    MoE blocks). A function only: ``loss_fn`` and training come with a
-    later slice."""
-    inputs = []
-    handles = [blk.mlp.register_forward_pre_hook(
-        lambda mod, inp: inputs.append((mod, inp[0])))
-        for blk in model.blocks if isinstance(blk.mlp, MOE.MoE)]
-    try:
-        forward(model, tokens, cfg, mode="train")
-    finally:
-        for h in handles:
-            h.remove()
-    total = torch.zeros((), dtype=torch.float32, device=model.embed.device)
-    for mod, x in inputs:
-        total = total + MOE.moe_aux_loss(x, mod.router, mod.k)
-    return total
+    ``aux`` in train mode (float32 0-d; 0 without MoE blocks): one train
+    forward of ``tokens`` with ``return_aux``. ``loss_fn`` takes it from
+    its own forward."""
+    return forward(model, tokens, cfg, mode="train", return_aux=True)[2]

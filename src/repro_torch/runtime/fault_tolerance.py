@@ -1,9 +1,23 @@
-"""Seeded fault injection for ``serve_continuous``
-(``repro.runtime.fault_tolerance``, its serving half; the training
-driver comes with the training slice, ROADMAP "Training").
+"""Fault tolerance (``repro.runtime.fault_tolerance``): the training
+driver with checkpoint/restart, and seeded fault injection for
+``serve_continuous``.
 
-A ``ServeFaultPlan`` says which faults to force and when, on the
-scheduler's virtual clock (decode steps); the serve loop polls a
+``TrainDriver`` runs a train step over a ``DataPipeline``:
+
+- **Checkpoint/restart**: asynchronous checkpoints every ``ckpt_every``
+  steps of ``{"params": the model's parameters by name, "opt":
+  OptState}`` with the pipeline's state in ``extra`` (the ``step_%08d``
+  family of ``checkpoint.Checkpointer``); ``maybe_restore`` loads the
+  newest into the model in place and replays the pipeline to its step,
+  so training continues bit for bit.
+- **Stragglers**: the shared ``runtime.watchdog.StragglerWatchdog``
+  (also run by the serve loop over its segments) flags steps slower than
+  ``straggler_factor`` times the moving median; a persistent straggler
+  triggers a protective checkpoint.
+- **Preemption** is simulated with ``inject_failure_at``.
+
+A ``ServeFaultPlan`` says which faults to force in a serve and when, on
+the scheduler's virtual clock (decode steps); the serve loop polls a
 ``ServeFaultInjector`` once per scheduling round, and the injector
 counts what it injected so a test can check that the faults fired.
 """
@@ -11,8 +25,23 @@ counts what it injected so a test can check that the faults fired.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
+import torch
+
+from repro_torch.checkpoint.checkpointing import Checkpointer
+from repro_torch.runtime.watchdog import StragglerWatchdog
+
+
+@dataclasses.dataclass
+class FTConfig:
+    ckpt_dir: str
+    ckpt_every: int = 50
+    keep: int = 3
+    straggler_factor: float = 2.0
+    straggler_ckpt_threshold: int = 3     # consecutive slow steps
+    inject_failure_at: int | None = None  # simulate preemption (tests)
 
 
 class SimulatedCrash(RuntimeError):
@@ -133,3 +162,97 @@ class ServeFaultInjector:
             return 0.0
         self.straggle_events += 1
         return float(self.plan.straggle_s)
+
+
+class TrainDriver:
+    """Runs ``train_step(model, opt_state, batch) -> (opt_state,
+    metrics)`` (``launch.steps.make_train_step``) over ``pipeline``,
+    checkpointing and restoring as the module docstring says. The model
+    is trained in place; this object holds ``opt_state``."""
+
+    def __init__(self, ft: FTConfig, train_step, model, opt_state,
+                 pipeline):
+        self.ft = ft
+        self.step_fn = train_step
+        self.model = model
+        self.opt_state = opt_state
+        self.pipeline = pipeline
+        self.ckpt = Checkpointer(ft.ckpt_dir, keep=ft.keep)
+        self.step = 0
+        self.wd = StragglerWatchdog(
+            factor=ft.straggler_factor,
+            streak_threshold=ft.straggler_ckpt_threshold)
+        self.step_times = self.wd.times        # same list, shared in place
+        self._last_saved = None
+
+    def _state(self) -> dict:
+        return {"params": {n: p.detach()
+                           for n, p in self.model.named_parameters()},
+                "opt": self.opt_state}
+
+    # -- restart ------------------------------------------------------------
+
+    def maybe_restore(self) -> bool:
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return False
+        restored, meta = self.ckpt.restore(self._state(), step=latest)
+        with torch.no_grad():
+            for n, p in self.model.named_parameters():
+                p.copy_(restored["params"][n])
+        self.opt_state = restored["opt"]
+        self.pipeline.load_state_dict(meta["extra"]["pipeline"])
+        self.step = meta["step"]
+        return True
+
+    # -- main loop ----------------------------------------------------------
+
+    @property
+    def straggler_events(self) -> int:
+        return self.wd.events
+
+    def _watchdog(self, dt: float):
+        verdict = self.wd.observe(dt)
+        if verdict.straggler:
+            print(f"[ft] straggler: step {self.step} took {dt:.3f}s "
+                  f"(median {verdict.median:.3f}s)", flush=True)
+            if verdict.persistent:
+                print("[ft] persistent straggler -> protective "
+                      "checkpoint", flush=True)
+                self._save()
+
+    def _save(self, blocking: bool = False):
+        if self._last_saved == self.step:
+            if blocking:
+                self.ckpt.wait()
+            return
+        self._last_saved = self.step
+        self.ckpt.save(self.step, self._state(),
+                       extra={"pipeline": self.pipeline.state_dict()},
+                       blocking=blocking)
+
+    def run(self, num_steps: int, log_every: int = 10):
+        metrics = {}
+        while self.step < num_steps:
+            if self.ft.inject_failure_at is not None \
+                    and self.step == self.ft.inject_failure_at:
+                self.ckpt.wait()
+                raise RuntimeError(f"injected node failure at step "
+                                   f"{self.step}")
+            batch = self.pipeline.next()
+            t0 = time.time()
+            self.opt_state, metrics = self.step_fn(
+                self.model, self.opt_state, batch)
+            if metrics["loss"].is_cuda:          # block_until_ready
+                torch.cuda.synchronize(metrics["loss"].device)
+            self._watchdog(time.time() - t0)
+            self.step += 1
+            if self.step % self.ft.ckpt_every == 0:
+                self._save()
+            if log_every and self.step % log_every == 0:
+                print(f"[train] step {self.step} "
+                      f"loss {float(metrics['loss']):.4f} "
+                      f"({self.step_times[-1]:.2f}s)", flush=True)
+        self._save(blocking=True)
+        self.ckpt.wait()
+        return metrics

@@ -1160,3 +1160,23 @@ def test_cuda_encdec_fused_generate_equals_stepwise(arch, pin, paged):
         torch.cuda.synchronize()
     for loop in ("fused", "fused again"):
         assert torch.equal(runs[loop].tokens, runs["stepwise"].tokens), loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["float", "ita"])
+def test_cuda_train_step_matches_cpu(impl):
+    """phi3-smoke, one ``make_train_step`` step on the card against the
+    CPU's on the same weights and batch, by the check ``chip_smoke.py``
+    12d runs (``repro_torch.launch.train_parity``). ``float``: loss and
+    grad norm within 1e-5, every parameter within 1e-5 of its leaf's
+    scale but the under 1% a near-zero gradient stepped the other way
+    (by at most ``2·lr``: Adam's first step is ``~sign(g)·lr``);
+    ``ita``: the loss within 5e-3 (a flipped ``s_out`` tie), and with the
+    output fake-quant replaced by identity the grad norm, every gradient,
+    the ``s_q``/``s_k`` gradients of the STE backward and the parameters
+    (bounds and readings in its docstring); no fused kernel launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch.train_parity import (describe,
+                                                 train_step_card_vs_cpu)
+    print(describe(impl, train_step_card_vs_cpu("phi3-mini-3.8b", impl)))

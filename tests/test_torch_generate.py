@@ -157,6 +157,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(n for n in sys.modules if n == 'jax' or "
         "n.startswith('jax.') or n == 'repro' or n.startswith('repro.'))\n"
         "assert not bad, bad\n"
+        "for n in ('repro_torch.optim.optimizer', 'repro_torch.data.pipeline',"
+        " 'repro_torch.launch.train', 'repro_torch.runtime.fault_tolerance',"
+        " 'repro_torch.launch.train_parity'):\n"
+        "    assert n in sys.modules, n\n"
         "print(len([n for n in sys.modules if n.startswith('repro_torch')]))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
