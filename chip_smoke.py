@@ -272,7 +272,32 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    train step on the card against the CPU's: ``float`` within 1e-5,
    ``ita``'s loss within 5e-3 (a flipped ``s_out`` tie).
 
-It prints the card, the kernels' JSON line and, last, ``{"ok": true,
+13. The roofline of four paths (``repro_torch.roofline``), each inside
+   the frame where its model already lives: qwen2-7b (a)'s chunked
+   prefill at 4 x 512 and its decode step, olmoe-1b-7b (a)'s decode step
+   and phase 12's phi3-mini-3.8b train step at 4 x 512 (a ninth step,
+   counted, whose weights 12b serves). ``op_costs`` counts one eager
+   step (a replay records nothing): every aten matmul by dtype and
+   family (an operand once per ``linear`` or expert-FFN call), the
+   kernels by their formulas. Printed per path:
+   ``Roofline.row()`` (compute, memory, bottleneck, ``model_flops``,
+   ``useful_ratio``) beside the measured step (the prefill timed once
+   more uncounted; a decode step as its run's replayed step; the train
+   step as 12a's mean), ``mfu`` and ``share``. Gates: ``share`` and
+   ``mfu`` in (0, 1.05]; the counted projection, MLP, router and
+   unembedding FLOPs (and the MoE capacity buffer's) equal
+   ``op_costs.expected_flops`` exactly.
+14. The range certificates (``repro_torch.analysis``): the 18-case
+   matrix at the full geometry (traced on the CPU), all ``ok``; the six
+   lints, the four card lints on the card; and the nine kernels on calls
+   at the declared extremes (Q/K/V saturated at +127, -128 and both;
+   fully masked rows beside rows at the capacity; scales at
+   ``SCALE_BOUNDS``; the GEMM's bias at ±2^20), each bit-exact to its
+   plain version with every output inside its certificate's proven
+   interval.
+
+It prints the card, the kernels' JSON line, the roofline's JSON line
+(``{"roofline": [...]}``, one record per path) and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
 exits non-zero and prints no result.
 """
@@ -293,8 +318,6 @@ T0 = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
-INT8_OPS_PER_S = 1979e12         # H100 SXM dense int8 tensor-core peak
 B, PROMPT, GEN = 4, 512, 32
 RING = 640                       # the main path's ring: 512 + 32 aligned
 LONG_RING = 2304                 # 18 tiles: more than a cluster's CTAs
@@ -1466,6 +1489,7 @@ def full_width(model, cfg, checks):
                                       step_b.decode_tok_s,
                                       step_c.decode_tok_s),
             "capture_s": res_a.capture_s,
+            "step_s": res_a2.decode_s / res_a2.decode_steps,
             "launches": {"ita_attention_decode": la["ita_attention_decode"],
                          "ita_attention_onepass":
                              lb["ita_attention_onepass"],
@@ -2387,84 +2411,41 @@ def mean_kernel_ms(name, rec, inner=5):
 
 def roofline(nbytes, ops):
     """The least time for ``nbytes`` moved and ``ops`` integer operations
-    on this card: ``(ms, "bytes" or "operations")``."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    on this card: ``(ms, "bytes" or "operations")``
+    (``repro_torch.roofline.analysis.least_ms``, the H100's peaks)."""
+    from repro_torch.roofline.analysis import least_ms
+    return least_ms(nbytes, ops)
 
 
-def visible_work(args, kw):
-    """``(pairs, kv_tokens, meta)`` of a ring call: the visible (query,
-    key) pairs and the K/V tokens the rows' masks reach (per kv row, the
-    largest visible key + 1)."""
-    import torch
-
-    from repro_torch.kernels.common import tile_mask
-    from repro_torch.kernels.ita_attention import kernel as K
-    q, k = args[:2]
-    bh, sq, _ = q.shape
-    _, _, meta = K.row_operands(*args[:6], kw.get("q_offset", 0),
-                                kw.get("q_len"), kw.get("kv_rep", 1),
-                                kw.get("hq"))
-    skv = k.shape[1]
-    col = [meta[:, i].view(bh, 1, 1) for i in range(3)]
-    valid = tile_mask(0, 0, sq, skv, kw.get("causal", True),
-                      kw.get("window", 0), kv_len=col[0], q_offset=col[1],
-                      q_len=col[2], device=q.device)
-    reach = torch.where(valid.any(1), torch.arange(skv, device=q.device),
-                        -1).amax(1) + 1                      # (bh,)
-    rep = kw.get("kv_rep", 1)
-    kv_tokens = int(reach.view(-1, rep).amax(1).sum().item())
-    return int(valid.sum().item()), kv_tokens, meta
+def weight_floor(nbytes):
+    """Milliseconds to read ``nbytes`` once from this card's HBM
+    (``repro_torch.roofline.analysis.weight_floor_ms``)."""
+    from repro_torch.roofline.analysis import weight_floor_ms
+    return weight_floor_ms(nbytes)
 
 
 def bound_ms(name, args, kw):
-    """The least time for a ring or paged call's work on this card: each
-    input read once (only the K/V prefix the rows' masks can reach; for a
-    paged call also its page table), the output written once, against the
-    integer ops of the visible (query, key) pairs (Q·Kᵀ and u·V: 4 ops
-    per pair and head-dim element)."""
-    from repro_torch.kernels.ita_attention import kernel as K
-    table_bytes = 0
-    if name in PAGED:          # the same work as the ring of its pages
-        q, k, v, table = args[:4]
-        table_bytes = table.numel() * 4
-        args = (q, K.gather_pages(k, table), K.gather_pages(v, table)) \
-            + tuple(args[4:])
-    q = args[0]
-    bh, _, d = q.shape
-    pairs, kv_tokens, meta = visible_work(args, kw)
-    nbytes = q.numel() * 2 + 2 * kv_tokens * d + meta.numel() * 4 + bh * 8 \
-        + table_bytes
-    return roofline(nbytes, 4 * pairs * d)
+    """The least time for a ring or paged call's work on this card
+    (``repro_torch.roofline.op_costs.attention_work``: each input read
+    once, only the K/V prefix the rows' masks can reach, the output
+    written once, against the visible pairs' integer ops)."""
+    from repro_torch.roofline.op_costs import attention_work
+    return roofline(*attention_work(name, args, kw))
 
 
 def twopass_bounds(args, kw):
-    """Least times of the two passes of a twopass call. Pass 1 reads Q and
-    all of K (A holds the logit of every pair, masked ones included), the
-    multipliers and meta, and writes all of A and three int32 statistics
-    per query row; its ops are Q·Kᵀ at every pair (2 per head-dim
-    element). Pass 2 reads A only at the visible pairs (p is 0 elsewhere,
-    whatever A holds), the statistics, the V prefix the masks reach, the
-    multipliers and meta, and writes out; its ops are p·V at the visible
-    pairs (2 per pair and head-dim element)."""
-    q, k = args[:2]
-    bh, sq, d = q.shape
-    skv = k.shape[1]
-    pairs, kv_tokens, meta = visible_work(args, kw)
-    stats, small = 3 * bh * sq * 4, meta.numel() * 4 + bh * 4
-    return (roofline(q.numel() + k.numel() + bh * sq * skv + stats + small,
-                     2 * bh * sq * skv * d),
-            roofline(pairs + stats + kv_tokens * d + small + bh * sq * d,
-                     2 * pairs * d))
+    """Least times of the two passes of a twopass call
+    (``op_costs.twopass_work``)."""
+    from repro_torch.roofline.op_costs import twopass_work
+    return tuple(roofline(*w) for w in twopass_work(args, kw))
 
 
 def softmax_bound(x, mask):
-    """Least time of a standalone softmax call: x read only where the mask
-    is set (a masked element's output is 0 whatever x holds), the mask
-    read and the f32 output written at every element; ~10 integer ops
-    (DA and EN) per unmasked element."""
-    live = int((mask != 0).sum().item())
-    return roofline(live + mask.numel() + x.numel() * 4, 10 * live)
+    """Least time of a standalone softmax call (``op_costs.softmax_work``:
+    x read only where the mask is set, the mask read and the f32 output
+    written at every element, ~10 integer ops per unmasked element)."""
+    from repro_torch.roofline.op_costs import softmax_work
+    return roofline(*softmax_work(x, mask))
 
 
 def profile_run(label, fn):
@@ -2827,21 +2808,18 @@ def check_linear(checks, x_q, w_q, bias_q, mult, want, label):
 
 
 def matmul_bound(m, k, n):
-    """Least time of one B7a call: x, w, bias and mult read once, out
-    written once, against 2 operations per multiply-add."""
-    return roofline(m * k + k * n + 8 * n + m * n, 2 * m * n * k)
+    """Least time of one B7a call (``op_costs.matmul_work``)."""
+    from repro_torch.roofline.op_costs import matmul_work
+    return roofline(*matmul_work(m, k, n))
 
 
 def ws_bound(m, k, n, block_k=128):
-    """Least time of one B7b call, from the call's own M, K and N: x, w,
-    bias and mult read once, the int32 partial sums read and written once
-    per k tile (the schedule's 2·4·M·N·K/block_k bytes), out written
-    once, against 2 operations per multiply-add. The reference reads
-    each weight tile once; the kernel's re-reads of w (once per m range)
-    are its own design's cost, logged beside the [psum] bytes."""
-    nbytes = m * k + k * n + 8 * n + 2 * 4 * m * n * -(-k // block_k) \
-        + m * n
-    return roofline(nbytes, 2 * m * n * k)
+    """Least time of one B7b call (``op_costs.ws_work``: the int32
+    partial sums read and written once per k tile; the kernel's re-reads
+    of w, once per m range, are its own design's cost, logged beside the
+    [psum] bytes)."""
+    from repro_torch.roofline.op_costs import ws_work
+    return roofline(*ws_work(m, k, n, block_k))
 
 
 def full_width_linear(model, cfg, checks):
@@ -3252,7 +3230,7 @@ def gemma2_at_full_width():
         torch.cuda.synchronize()
         weight_bytes = sum(p.numel() * p.element_size()
                            for p in model.parameters())
-        floor = 1e3 * weight_bytes / HBM_BYTES_PER_S
+        floor = weight_floor(weight_bytes)
         log(f"[gemma2] ({run}) {cfg.name}: {cfg.n_layers} layers (local "
             f"{cfg.local_window} / global), d={cfg.d_model}, "
             f"{cfg.n_heads}/{cfg.n_kv_heads} heads, GeGLU {cfg.d_ff}, vocab "
@@ -3474,9 +3452,9 @@ def moe_floors(model, cfg, routed):
         - expert - model.embed.numel() * model.embed.element_size()
     routed_bytes = rest + expert * routed / cfg.n_experts
     return {"all_gb": (rest + expert) / 1e9,
-            "all_ms": 1e3 * (rest + expert) / HBM_BYTES_PER_S,
+            "all_ms": weight_floor(rest + expert),
             "routed_gb": routed_bytes / 1e9,
-            "routed_ms": 1e3 * routed_bytes / HBM_BYTES_PER_S}
+            "routed_ms": weight_floor(routed_bytes)}
 
 
 def olmoe_serve(model, cfg, checks):
@@ -3564,7 +3542,7 @@ def phase9(checks):
     (9b: generate), each at full width in its own frame, freed before the
     next. Returns a result line and the kernels' sub-rows."""
     import torch
-    subs = {}
+    subs, roof = {}, []
 
     def merge(sub):
         for name, rows in sub.items():
@@ -3584,6 +3562,10 @@ def phase9(checks):
             f"replayed step {figs['step_ms']:.2f} ms; {card_line()}")
         serve, sub = olmoe_serve(model, cfg, checks)
         merge(sub)
+        costs, shape = counted_decode_step(model, cfg)
+        roof.append(roofline_record("olmoe-1b-7b (a) decode step (replayed)",
+                                    costs, cfg, shape,
+                                    figs["step_ms"] / 1e3))
         return dict(figs, weights_gb=nbytes / 1e9, routed=routed,
                     floors=floors, serve=serve)
 
@@ -3591,8 +3573,8 @@ def phase9(checks):
         model, cfg, nbytes = phase9_model("phi3-mini-3.8b")
         figs, sub = generate_phase9(model, cfg, checks, "phi3")
         merge(sub)
-        floor = 1e3 * (nbytes - model.embed.numel()
-                       * model.embed.element_size()) / HBM_BYTES_PER_S
+        floor = weight_floor(nbytes - model.embed.numel()
+                             * model.embed.element_size())
         log(f"[phase9] 9b phi3 replayed step {figs['step_ms']:.2f} ms "
             f"against a weight-read floor of {floor:.2f} ms; {card_line()}")
         return dict(figs, weights_gb=nbytes / 1e9, floor_ms=floor)
@@ -3618,7 +3600,7 @@ def phase9(checks):
             f" step {p['step_ms']:.2f} ms (floor {p['floor_ms']:.2f}), busy "
             f"{p['busy']:.1%}; pinned decode {p['pinned_decode_tok_s']:.1f} "
             f"tok/s")
-    return line, subs
+    return line, subs, roof
 
 
 # ---------------------------------------------------------------------------
@@ -3635,7 +3617,7 @@ def weight_floor_ms(model, cfg):
     nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     if not cfg.tie_embeddings:
         nbytes -= model.embed.numel() * model.embed.element_size()
-    return 1e3 * nbytes / HBM_BYTES_PER_S
+    return weight_floor(nbytes)
 
 
 def recurrent_state_bytes(cfg):
@@ -3880,7 +3862,7 @@ def cross_floor_ms(model, cfg, batch):
                  if not (name.startswith(("encoder", "frontend_proj"))
                          or name in cross_kv
                          or (name == "embed" and not cfg.tie_embeddings)))
-    return 1e3 * (nbytes + cross_cache_bytes(cfg, batch)) / HBM_BYTES_PER_S
+    return weight_floor(nbytes + cross_cache_bytes(cfg, batch))
 
 
 def pad_copy_ms(cfg):
@@ -4285,6 +4267,13 @@ def train_full_width(checks):
         f"{peak / 1e9:.2f} GB; attention {seen}; kernel launches "
         f"{sum(launches.values())}; s_q/s_k moved, s_v/s_out unchanged; "
         f"{card_line()}")
+    # phase 13: a ninth step, counted (its weights are what 12b serves)
+    from repro_torch.configs.base import ShapeConfig
+    costs, opt_state = count_train_step(step, model, opt_state, batch)
+    figs["roofline"] = roofline_record(
+        f"{TRAIN_ARCH} train step", costs, cfg,
+        ShapeConfig(f"train_{TRAIN_B}x{TRAIN_SEQ}", TRAIN_SEQ, TRAIN_B,
+                    "train"), per_step)
     del opt_state, batch
     return model, cfg, figs
 
@@ -4473,7 +4462,159 @@ def phase12(checks):
                         for s in resume["saves"])
             + f", restore {resume['restore_s']:.3f} s; card vs CPU loss rel "
             f"float {card_cpu['float']:.2e}, ita {card_cpu['ita']:.2e}")
-    return line, subs
+    return line, subs, [train["roofline"]]
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: each path's roofline (repro_torch.roofline)
+# ---------------------------------------------------------------------------
+
+def roofline_record(label, costs, cfg, shape, measured_s):
+    """One path's roofline: ``Roofline.row()`` of its counted eager step
+    (``op_costs``) beside the measured step, its ``mfu`` and ``share``.
+    Gates: ``share`` and ``mfu`` in (0, 1.05]; the counted FLOPs outside
+    the attention equal ``op_costs.expected_flops``, the analytic
+    ``model_flops`` matmul term at the rows the port computes, exactly
+    (as ``tests/test_torch_roofline.py`` holds them)."""
+    from repro_torch.roofline import op_costs as OC
+    from repro_torch.roofline.analysis import matmul_term, model_flops
+    roof = costs.roofline(model_flops(cfg, shape))
+    want = OC.expected_flops(cfg, shape)
+    got = {fam: costs.flops.get(fam, 0.0) for fam in want}
+    if got != want:
+        raise AssertionError(f"13 {label}: counted {got} != analytic {want}")
+    mfu, share = roof.mfu(measured_s), roof.share(measured_s)
+    if not (0 < mfu <= 1.05 and 0 < share <= 1.05):
+        raise AssertionError(f"13 {label}: mfu {mfu} or share {share} "
+                             f"outside (0, 1.05]")
+    rec = {"path": label, "arch": cfg.name, "layers": cfg.n_layers,
+           "shape": dataclasses.asdict(shape), "card": card_line(),
+           **roof.row(), "measured_s": measured_s, "mfu": mfu,
+           "share": share, "families": dict(costs.flops),
+           "expected": want, "matmul_term": matmul_term(cfg, shape),
+           "kernel_ops": sum(costs.kernel_ops.values()),
+           "kernel_calls": dict(costs.kernel_calls)}
+    log(f"[roofline] {label}: compute {roof.compute_s * 1e3:.4f} ms (int8 "
+        f"{roof.flops_int8:.4g}, bf16 {roof.flops_bf16:.4g}, fp32 "
+        f"{roof.flops_fp32:.4g}), memory {roof.memory_s * 1e3:.4f} ms "
+        f"({roof.hbm_bytes:.4g} B), bottleneck {roof.bottleneck}, "
+        f"model_flops {roof.model_flops:.4g}, useful {roof.useful_ratio:.4f}"
+        f"; measured {measured_s * 1e3:.3f} ms, mfu {mfu:.5f}, share "
+        f"{share:.5f}; matmul FLOPs by family {rec['families']} (analytic "
+        f"{want}; model_flops' matmul term {rec['matmul_term']:.4g}), "
+        f"kernel calls {rec['kernel_calls']}; {card_line()}")
+    return rec
+
+
+def counted_decode_step(model, cfg):
+    """Prefill run (a)'s prompts eagerly on fresh rings, then count one
+    decode step eagerly (a replay records nothing): ``(costs, shape)``."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import forward, init_caches
+    from repro_torch.roofline import op_costs as OC
+    prompts = prompt_batch(cfg).to(DEV)
+    with torch.inference_mode():
+        logits, caches = forward(model, prompts, cfg, mode="prefill",
+                                 caches=init_caches(cfg, B, RING,
+                                                    device=DEV))
+        tok = torch.argmax(logits[:, -1:], -1)
+        with OC.counting() as costs:
+            forward(model, tok, cfg, mode="decode", caches=caches,
+                    pos0=torch.full((B,), PROMPT, device=DEV))
+    torch.cuda.synchronize()
+    return costs, ShapeConfig(f"decode_{B}x{PROMPT + 1}", PROMPT + 1, B,
+                              "decode")
+
+
+def qwen2_roofline(model, cfg, metrics):
+    """Phase 13 on qwen2-7b (a): the chunked prefill at 4 x 512 (counted
+    once, then timed uncounted) and the decode step (counted eagerly,
+    measured as (a)'s replayed step)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import forward, init_caches
+    from repro_torch.roofline import op_costs as OC
+    prompts = prompt_batch(cfg).to(DEV)
+
+    def prefill():
+        return forward(model, prompts, cfg, mode="prefill",
+                       caches=init_caches(cfg, B, RING, device=DEV))
+    with torch.inference_mode():
+        with OC.counting() as costs:
+            prefill()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    recs = [roofline_record("qwen2-7b (a) prefill", costs, cfg,
+                            ShapeConfig(f"prefill_{B}x{PROMPT}", PROMPT, B,
+                                        "prefill"), prefill_s)]
+    costs, shape = counted_decode_step(model, cfg)
+    recs.append(roofline_record("qwen2-7b (a) decode step (replayed)",
+                                costs, cfg, shape, metrics["step_s"]))
+    return recs
+
+
+def count_train_step(step, model, opt_state, batch):
+    """One more train step, counted (``op_costs``); returns its costs and
+    the optimizer state."""
+    from repro_torch.roofline import op_costs as OC
+    with OC.counting() as costs:
+        opt_state, _ = step(model, opt_state, batch)
+    return costs, opt_state
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the range certificates, the loop lints, the kernels at the
+# declared extremes (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+
+def phase14():
+    """The 18-case matrix at the full geometry (traced on the CPU), all
+    six lints on the card, and the nine kernels at the declared extremes
+    bit-exact to their plain versions inside their certificates' proven
+    output intervals. Returns the result line."""
+    from repro_torch.analysis.extremes import KERNELS, check_extremes
+    from repro_torch.analysis.lints import run_lints
+    from repro_torch.analysis.verify import run_verification
+    t0 = time.perf_counter()
+    rep = run_verification(smoke=False)
+    for c in rep["cases"]:
+        log(f"[analysis] {'PASS' if c['ok'] else 'FAIL'} {c['name']}: "
+            f"{c.get('n_ops')} ops, max|int| {c.get('max_int_magnitude')}, "
+            f"out {c.get('out')}, {c.get('error', '')}"
+            + "".join(f"; finding {f['kind']} {f['prim']} {f['ival']}"
+                      for f in c.get("findings", [])[:3]))
+    bad = [c["name"] for c in rep["cases"] if not c["ok"]]
+    if rep["n_cases"] != 18 or bad:
+        raise AssertionError(f"14: certificates failed: {bad}")
+    matrix_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lints = run_lints(smoke=False, device=DEV)["lints"]
+    for lint in lints:
+        log(f"[analysis] lint {lint['name']}: ran {lint['ran']}, ok "
+            f"{lint['ok']}: {lint['detail']}")
+    if len(lints) != 6 or not all(x["ran"] and x["ok"] for x in lints):
+        raise AssertionError("14: a lint failed or did not run")
+    lints_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = check_extremes(DEV)
+    for r in rows:
+        log(f"[analysis] extremes {r['kernel']} ({r['variant']}): certified "
+            f"{r['certified']}, bit-exact {r['equal']}, inside {r['inside']}"
+            f"; proven {r['proven']}, seen {r['seen']}")
+    bad = [(r["kernel"], r["variant"]) for r in rows
+           if not (r["certified"] and r["equal"] and r["inside"])]
+    if bad or {r["kernel"] for r in rows} != set(KERNELS):
+        raise AssertionError(f"14: kernels at the extremes failed: {bad}")
+    return (f"[result] phase 14: 18/18 certificates at the full geometry "
+            f"({matrix_s:.1f} s), 6/6 lints on the card ({lints_s:.1f} s), "
+            f"{len(rows)} extreme calls of the 9 kernels bit-exact inside "
+            f"their certificates ({time.perf_counter() - t0:.1f} s)")
 
 
 def qwen2_phases(checks):
@@ -4483,6 +4624,8 @@ def qwen2_phases(checks):
     model, cfg = full_width_model()
     metrics, captured = full_width(model, cfg, checks)
     lap("phase 3")
+    roof = qwen2_roofline(model, cfg, metrics)
+    lap("phase 13 qwen2-7b")
     softmax_inputs, softmax_launches = full_width_softmax(
         captured["twopass"][2][1], checks)
     served, serve_launches, serve_captured = full_width_serve(model, cfg,
@@ -4536,7 +4679,7 @@ def qwen2_phases(checks):
         f"{baselines['ibert']['decode_tok_s']:.1f} tok/s; 8b MAE vs float "
         + ", ".join(f"{n} {v:.6f}" for n, v in family["mae"].items())
         + f"; {card_line()}")
-    return rows, summary
+    return rows, summary, roof
 
 
 def main():
@@ -4567,7 +4710,7 @@ def main():
     check_kv_cache_engine(checks)
     smoke_width_reference()
     lap("phase 2")
-    rows, summary = qwen2_phases(checks)
+    rows, summary, roof = qwen2_phases(checks)
     lap("phases 3-8b")
     # phase 8c needs the card to itself: qwen2-7b's weights, graphs and
     # pools went with qwen2_phases' frame
@@ -4580,7 +4723,7 @@ def main():
     lap("phase 8c")
     gc.collect()
     torch.cuda.empty_cache()
-    phase9_line, phase9_subs = phase9(checks)
+    phase9_line, phase9_subs, phase9_roof = phase9(checks)
     lap("phase 9")
     gc.collect()
     torch.cuda.empty_cache()
@@ -4592,8 +4735,11 @@ def main():
     lap("phase 11")
     gc.collect()
     torch.cuda.empty_cache()
-    phase12_line, phase12_subs = phase12(checks)
+    phase12_line, phase12_subs, phase12_roof = phase12(checks)
     lap("phase 12")
+    roof += phase9_roof + phase12_roof
+    phase14_line = phase14()
+    lap("phase 14")
     for row in rows:
         for subs in (phase9_subs, phase10_subs, phase11_subs, phase12_subs):
             row.update(subs.get(row["name"], {}))
@@ -4610,8 +4756,15 @@ def main():
     log(f"{phase10_line}; {card}")
     log(f"{phase11_line}; {card}")
     log(f"{phase12_line}; {card}")
+    log("[result] phase 13: " + "; ".join(
+        f"{r['path']} measured {r['measured_s'] * 1e3:.3f} ms, roofline "
+        f"{max(r['compute_s'], r['memory_s']) * 1e3:.4f} ms "
+        f"({r['bottleneck']}), share {r['share']:.5f}, mfu {r['mfu']:.5f}"
+        for r in roof) + f"; {card}")
+    log(f"{phase14_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
+    print(json.dumps({"roofline": roof}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

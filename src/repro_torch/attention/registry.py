@@ -21,6 +21,7 @@ from collections.abc import Callable
 from typing import Any
 
 from repro_torch.attention.spec import AttentionSpec
+from repro_torch.core.cost_hook import counted
 
 SupportsFn = Callable[[AttentionSpec], bool | str]
 
@@ -113,6 +114,7 @@ def _validate(q, k, v, spec: AttentionSpec, scales):
         raise ValueError(f"impl={spec.impl!r} needs QuantScales")
 
 
+@counted("attention")
 def dispatch(q, k, v, *, spec: AttentionSpec, scales=None,
              q_offset: Any = 0, kv_len: Any = None,
              page_table: Any = None, q_lens: Any = None,

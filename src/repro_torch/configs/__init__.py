@@ -1,1 +1,2 @@
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import (SHAPES, SMOKE_SHAPE,  # noqa: F401
+                                      ModelConfig, ShapeConfig)

@@ -1,4 +1,5 @@
-"""Model configuration dataclass (a copy of ``repro.configs.base``).
+"""Model and shape configuration dataclasses (a copy of
+``repro.configs.base``).
 
 A ``ModelConfig`` names the layer stack as *layer groups*:
 ``(pattern, n_periods)`` pairs. Pattern elements name block kinds
@@ -84,3 +85,22 @@ class ModelConfig:
         (``param_dtype``; its ``init_model`` casts the whole pytree)."""
         return {"bfloat16": torch.bfloat16,
                 "float32": torch.float32}[self.param_dtype]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train|prefill|decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# Smoke-test shape (reduced, CPU-friendly)
+SMOKE_SHAPE = ShapeConfig("smoke", 64, 2, "train")

@@ -28,8 +28,8 @@ Integer hazards, as in ``kernels/common.py``: JAX shifts with
 here takes a non-negative operand. ``_k_of`` clamps ``max - x`` at 0,
 which changes only masked lanes (where ``x`` may exceed the max of the
 valid ones), and every caller replaces those lanes' shift by
-``_MASK_K``. torch has no count-leading-zeros: ``floor_log2`` finds
-``floor(log2 x)`` with integer compares.
+``_MASK_K``. torch has no count-leading-zeros: ``floor_log2`` takes
+``floor(log2 x)`` from the exact float64 exponent of ``x``.
 """
 
 from __future__ import annotations
@@ -50,13 +50,13 @@ _NEG_SENTINEL = -(2 ** B_BITS)
 
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """Exact ``floor(log2 x)`` of a positive int32 tensor (``31 - clz``)."""
-    e = torch.zeros_like(x)
-    for s in (16, 8, 4, 2, 1):
-        hit = x >= (1 << s)
-        e = torch.where(hit, e + s, e)
-        x = torch.where(hit, x >> s, x)
-    return e
+    """Exact ``floor(log2 x)`` of a positive int32 tensor (``31 - clz``):
+    the binary exponent of ``x`` in float64, which holds every int32
+    exactly (``x = m·2^e`` with ``m`` in [0.5, 1), so ``floor(log2 x) =
+    e - 1``). One monotone op, as ``clz`` is for the reference's range
+    verifier (``analysis/ranges.py``)."""
+    _, e = torch.frexp(x.to(torch.float64))
+    return (e - 1).to(x.dtype)
 
 
 def pow2_neg(n: torch.Tensor) -> torch.Tensor:

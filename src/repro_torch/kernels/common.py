@@ -15,8 +15,8 @@ Integer hazards the port handles explicitly:
   (``da_update`` computes ``new_max - logits`` on masked lanes too, where
   it can be negative, and masks the shift amount afterwards).
 - torch has no count-leading-zeros: ``floor_log2`` (``core/softmax.py``)
-  finds ``floor(log2 x)`` with integer compares (float32 would round
-  2^24 < x up).
+  takes ``floor(log2 x)`` from the float64 exponent of ``x`` (exact for
+  every int32; float32 would round 2^24 < x up).
 """
 
 from __future__ import annotations

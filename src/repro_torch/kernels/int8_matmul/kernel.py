@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import int8_matmul_ref as exact_product
+from repro_torch.core.cost_hook import counted
 from repro_torch.kernels import build
 from repro_torch.kernels.common import device_tensor, sm_count
 from repro_torch.kernels.int8_matmul.ref import (int8_matmul_ref,
@@ -255,6 +256,7 @@ def kernel_launcher(x_q, w_q, bias, mult, *, block_m: int = 256,
     return launch, out
 
 
+@counted("int8_matmul")
 def int8_matmul_kernel(x_q, w_q, bias, mult, *, block_m: int = 256,
                        block_n: int = 128, block_k: int = 128,
                        schedule: str = "tpu") -> torch.Tensor:

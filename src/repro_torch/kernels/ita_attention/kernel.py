@@ -52,6 +52,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.cost_hook import counted
 from repro_torch.kernels import build
 from repro_torch.kernels.common import device_tensor, sm_count, tile_mask
 from repro_torch.kernels.ita_attention.ref import (requant_logits,
@@ -496,6 +497,7 @@ def attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                        kv_rep=kv_rep, hq=hq)
 
 
+@counted("ita_attention_onepass")
 def ita_attention_onepass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                           q_offset=0, q_len=None, causal: bool,
                           window: int = 0, adaptive: bool = True,
@@ -515,6 +517,7 @@ def ita_attention_onepass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                    out_mult, kv_len, **kw)
 
 
+@counted("ita_attention_decode")
 def ita_attention_decode(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                          q_offset=0, q_len=None, causal: bool = True,
                          window: int = 0, adaptive: bool = True,
@@ -553,6 +556,7 @@ def paged_attention_plain(q_q, k_pool, v_pool, page_table, logit_mult,
         adaptive=adaptive, block_kv=k_pool.shape[1], kv_rep=kv_rep, hq=hq)
 
 
+@counted("ita_attention_onepass_paged")
 def ita_attention_onepass_paged(q_q, k_pool, v_pool, page_table, logit_mult,
                                 out_mult, kv_len, *, q_offset=0, q_len=None,
                                 causal: bool, window: int = 0,
@@ -573,6 +577,7 @@ def ita_attention_onepass_paged(q_q, k_pool, v_pool, page_table, logit_mult,
                    page_table, logit_mult, out_mult, kv_len, **kw)
 
 
+@counted("ita_attention_decode_paged")
 def ita_attention_decode_paged(q_q, k_pool, v_pool, page_table, logit_mult,
                                out_mult, kv_len, *, q_offset=0, q_len=None,
                                causal: bool = True, window: int = 0,
@@ -729,6 +734,7 @@ def twopass_av_launcher(a, row_max, sigma_inv, e_r, v_q, out_mult, kv_len,
     return _bind(name, args, out, (a, v_q, omult, meta, *stats))
 
 
+@counted("ita_attention_twopass")
 def ita_attention_twopass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                           q_offset=0, causal: bool, window: int = 0,
                           adaptive: bool = False, block_q: int = 128,

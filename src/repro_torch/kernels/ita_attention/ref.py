@@ -28,8 +28,9 @@ import torch
 
 from repro_torch.core.quant import INT8_MAX, INT8_MIN, SOFTMAX_SHIFT
 from repro_torch.kernels.common import (MASK_K, NEG_SENTINEL,
-                                        adaptive_inverse, da_update,
-                                        int_matmul, paper_inverse, pow2_neg)
+                                        SIGMA_INV_MAX, adaptive_inverse,
+                                        da_update, int_matmul, paper_inverse,
+                                        pow2_neg)
 
 
 def _full_mask(sq, skv, causal, window, kv_len, q_offset=0, device=None):
@@ -126,7 +127,11 @@ def twopass_out(a, valid, row_max, sigma_inv, e_r, v_rows, omult, *,
     finalize. Returns (R, sq, d) int8."""
     k = torch.clamp((row_max - a).clamp(min=0) >> SOFTMAX_SHIFT, max=31)
     k = torch.where(valid, k, MASK_K)
-    acc = exact_pv(sigma_inv >> k, v_rows, block_kv)
+    # an identity on every reachable value (a live row's Σ >= 256, a dead
+    # row's shifts are 31), stated so that exact_pv's p <= 256 is proven
+    # by the range certificate (analysis/verify.py)
+    p = torch.clamp(sigma_inv >> k, max=SIGMA_INV_MAX)
+    acc = exact_pv(p, v_rows, block_kv)
     return _requant_twopass(acc, e_r, omult)
 
 

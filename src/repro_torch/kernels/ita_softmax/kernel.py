@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quant import SOFTMAX_SHIFT
+from repro_torch.core.cost_hook import counted
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (MASK_K, NEG_SENTINEL,
                                         adaptive_inverse, da_update,
@@ -98,6 +99,7 @@ def kernel_launcher(x_q, mask, *, block_r: int = 128, block_c: int = 128,
     return launch, out
 
 
+@counted("ita_softmax")
 def ita_softmax_kernel(x_q, mask, *, block_r: int = 128, block_c: int = 128,
                        adaptive: bool = False) -> torch.Tensor:
     """x_q (R, C) int8 logits, mask (R, C) int8 (0 = masked). Returns f32

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cost_hook import counted
+
 
 def normal_param(shape, scale, *, dtype, device, generator=None,
                  param_dtype=torch.float32, shift=0.0):
@@ -84,6 +86,7 @@ class _Linear(torch.autograd.Function):
         return gx, gw
 
 
+@counted("linear")
 def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x (..., K) @ w (K, N)``, in fixed row blocks (``_Linear`` when
     autograd records it)."""

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cost_hook import counted
 from repro_torch.models.layers import ROW_BLOCK, in_row_blocks, normal_param
 
 CAPACITY_FACTOR = 1.25
@@ -156,6 +157,7 @@ def dispatch(x2, r: Routing) -> torch.Tensor:
     return torch.where(valid[..., None], rows, rows.new_zeros(()))
 
 
+@counted("experts")
 def expert_ffn(buf, w_gate, w_up, w_down):
     """SwiGLU of every expert over the blocked buffer: one
     ``(E, 128, d) @ (E, d, f)`` ``torch.bmm`` shape for every block."""

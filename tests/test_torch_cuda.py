@@ -14,7 +14,12 @@ plain torch ops) on the card equal their CPU results, and smoke-width
 tokens from both loops. The recurrent blocks' scans on the card equal
 (RG-LRU) or lie within 1e-5 of (RWKV6's wkv) the CPU's, and
 recurrentgemma-smoke and rwkv6-smoke give the stepwise loop's tokens
-from the fused one.
+from the fused one. The six capture lints run on the card
+(``repro_torch.analysis.lints``), the nine kernels on calls at the
+declared extremes equal their plain versions inside their certificates'
+proven intervals (``analysis/extremes.py``), and ``roofline.op_costs``
+counts a train step's backward and a decode step's kernel on the card
+as on the CPU.
 """
 
 import dataclasses
@@ -23,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis.extremes import KERNELS as EXTREME_KERNELS
 from repro_torch.kernels.common import exact_float32_matmul
 from repro_torch.kernels.ita_attention import kernel as K
 
@@ -1180,3 +1186,83 @@ def test_cuda_train_step_matches_cpu(impl):
     from repro_torch.launch.train_parity import (describe,
                                                  train_step_card_vs_cpu)
     print(describe(impl, train_step_card_vs_cpu("phi3-mini-3.8b", impl)))
+
+
+# ---------------------------------------------------------------------------
+# The range certificates, the loop lints and the roofline's counter on the
+# card (repro_torch.analysis, repro_torch.roofline)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_cuda_card_lints_pass():
+    """All six lints run and pass on the card: each CUDA graph captured
+    once, no recapture under preemption, carries in place, no host sync
+    in a replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.analysis.lints import run_lints
+    exact_float32_matmul()
+    rep = run_lints(smoke=True, device="cuda")
+    assert len(rep["lints"]) == 6
+    assert all(x["ran"] and x["ok"] for x in rep["lints"]), rep["lints"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", EXTREME_KERNELS)
+def test_cuda_kernel_at_extremes_inside_certificate(kernel):
+    """The kernel on calls at the declared extremes (saturated Q/K/V,
+    fully masked rows beside rows at the capacity, scales at
+    SCALE_BOUNDS) equals its plain version bit for bit, every output
+    inside its certificate's proven interval."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.analysis.extremes import check_extremes
+    exact_float32_matmul()
+    rows = check_extremes("cuda", kernels=(kernel,))
+    assert {r["kernel"] for r in rows} == {kernel}
+    bad = [r for r in rows
+           if not (r["certified"] and r["equal"] and r["inside"])]
+    assert not bad, bad
+
+
+@pytest.mark.cuda
+def test_cuda_op_costs_count_train_step_and_decode():
+    """``op_costs`` on the card: a phi3-smoke train step's backward (run
+    by the autograd engine's device thread) and remat are counted as on
+    the CPU; a qwen2-smoke decode step counts B4 by its formula and the
+    projections at whole row blocks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU build)")
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import forward, init_caches, init_model
+    from repro_torch.optim.optimizer import (AdamWConfig, init_opt_state,
+                                             train_params)
+    from repro_torch.roofline import op_costs as OC
+    exact_float32_matmul()
+    cfg = get_config("phi3-mini-3.8b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    opt = init_opt_state(train_params(model))
+    step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                            total_steps=2))
+    batch = DataPipeline(SyntheticSource(cfg.vocab_size, seed=0), batch=2,
+                         seq_len=64, device="cuda").next()
+    with OC.counting() as c:
+        step(model, opt, batch)
+    want = OC.expected_flops(cfg, ShapeConfig("t", 64, 2, "train"))
+    assert c.flops["dense"] == want["dense"], (c.flops, want)
+    assert c.flops["other"] > 0
+    cfg = get_config("qwen2-7b", smoke=True, attention_impl="ita")
+    model = init_model(cfg, seed=0, device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), device="cuda")
+    with torch.inference_mode():
+        _, caches = forward(model, toks, cfg, mode="prefill",
+                            caches=init_caches(cfg, 2, 128, device="cuda"))
+        with OC.counting() as c:
+            forward(model, toks[:, :1], cfg, mode="decode", caches=caches,
+                    pos0=torch.full((2,), 64, device="cuda"))
+    want = OC.expected_flops(cfg, ShapeConfig("d", 65, 2, "decode"))
+    assert c.flops["dense"] == want["dense"]
+    assert c.kernel_calls == {"ita_attention_decode": cfg.n_layers}
