@@ -296,6 +296,23 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    plain version with every output inside its certificate's proven
    interval.
 
+15. The multi-card layer on a mesh of one card: a world-size-1 NCCL
+   process group on a free local port, the (data=1, model=1) mesh over
+   it. (a) qwen2-7b at full width (``QWEN2_LAYERS`` layers, a new model
+   from phase 3's seed): ``generate()`` unpinned and onepass-pinned,
+   then the model sharded in place (``shard_model``; no parameter
+   copied) and the same greedy runs through ``shard_cell``'s prefill and
+   decode steps: tokens and launches (B4 in (a), B2 in (b)) equal to the
+   unsharded runs'. (b) phi3-mini-3.8b at full width cut to 8 layers:
+   two steps of ``shard_train_step`` against ``make_train_step`` from
+   the same seed on the same batch, losses, parameters and AdamW moments
+   bit-identical. (c) ``compressed_psum`` over the NCCL group, equal to
+   its formula. (d) meanwhile, on the CPU in subprocesses,
+   ``python -m repro_torch.launch.dryrun`` on the (16, 16) mesh's cells
+   qwen2-7b decode_32k, mixtral-8x7b train_4k and llama-3.2-vision-90b
+   prefill_32k, all ``ok``, each record's per-device bytes and
+   bottleneck printed. The group is destroyed at the end.
+
 It prints the card, the kernels' JSON line, the roofline's JSON line
 (``{"roofline": [...]}``, one record per path) and, last, ``{"ok": true,
 "device": ...}``. Without CUDA, or without the rest of the repository, it
@@ -4617,6 +4634,276 @@ def phase14():
             f"their certificates ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-card layer on a mesh of one card
+# ---------------------------------------------------------------------------
+
+# 15b's depth: 8 of phi3-mini-3.8b's 32 layers, widths unchanged (two
+# models and their AdamW states side by side)
+PHI3_SHARD_LAYERS = 8
+# 15d: the dry-run's cells on the (16, 16) production mesh, on the CPU
+DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("mixtral-8x7b", "train_4k"),
+                ("llama-3.2-vision-90b", "prefill_32k"))
+
+
+def start_dryruns(out_dir):
+    """15d: one ``python -m repro_torch.launch.dryrun`` subprocess a cell,
+    on the CPU (no card visible), all started at once."""
+    import os
+    procs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    for arch, shape in DRYRUN_CELLS:
+        out = Path(out_dir) / f"{arch}_{shape}.jsonl"
+        procs.append((arch, shape, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def finish_dryruns(procs):
+    """15d: every subprocess's exit code and record; each record's
+    per-device bytes and bottleneck printed."""
+    lines = []
+    for arch, shape, out, proc in procs:
+        stdout, stderr = proc.communicate(timeout=300)
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"15d dry-run {arch} x {shape} exited "
+                                 f"{proc.returncode}: {stderr[-2000:]}")
+        rec = json.loads(out.read_text().splitlines()[-1])
+        if rec["status"] != "ok":
+            raise AssertionError(f"15d dry-run {arch} x {shape}: "
+                                 f"{rec.get('error')}")
+        mem, roof = rec["memory"], rec["roofline"]
+        lines.append(
+            f"{arch} x {shape} [{rec['mesh']}]: arguments "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB/device, outputs "
+            f"{mem['output_bytes'] / 2**30:.3f}, temporaries "
+            f"{mem['temp_bytes'] / 2**30:.3f}, collectives "
+            f"{rec['collectives']['total_bytes']:.4e} B "
+            f"{rec['collectives']['counts']}, bottleneck "
+            f"{roof['bottleneck']} (compute {roof['compute_s']:.4e} s, "
+            f"memory {roof['memory_s']:.4e} s, collective "
+            f"{roof['collective_s']:.4e} s), useful "
+            f"{roof['useful_ratio']:.3f}, {rec['step_s']:.1f} s")
+        log(f"[phase15] 15d dry-run {lines[-1]}")
+    return lines
+
+
+def sharded_generate(model, cfg, prompts, mesh):
+    """``generate()``'s greedy run through ``shard_cell``'s prefill and
+    decode steps on DTensors placed by the rules: ``(tokens, launches,
+    prefill_s, decode_s)``, the launch counters zeroed just before and
+    read just after."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import map_pairs, shard_cell
+    from repro_torch.models import init_caches
+    b, s = prompts.shape
+    max_len = s + GEN
+    prefill = shard_cell(cfg, ShapeConfig("prefill", s, b, "prefill"), mesh)
+    decode = shard_cell(cfg, ShapeConfig("decode", max_len, b, "decode"),
+                        mesh)
+    caches = init_caches(cfg, b, max_len, device=DEV)
+    caches = map_pairs(lambda _, t, sh: SH.place(t, sh), caches,
+                       SH.cache_shardings(caches, b, mesh))
+
+    def batch(t):
+        return SH.place(t, SH.Sharding(mesh, SH.batch_spec(
+            t.shape, mesh, cfg.parallelism)))
+
+    def greedy(logits):
+        return torch.argmax(logits.full_tensor(), dim=-1).to(torch.int32)
+    pos = torch.full((b,), s, dtype=torch.int32, device=DEV)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, batch(prompts.to(DEV)), caches)
+    toks = [greedy(logits)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(GEN - 1):
+        logits, caches = decode(model, batch(toks[-1]), caches,
+                                pos0=SH.place(pos + i, SH.replicated(mesh)))
+        toks.append(greedy(logits))
+    launches = read_launches()
+    t2 = time.perf_counter()
+    return torch.cat(toks, dim=1), launches, t1 - t0, t2 - t1
+
+
+def phase15_qwen2(mesh, card):
+    """15a: qwen2-7b at full width (``QWEN2_LAYERS`` layers, a new model
+    from phase 3's seed in place of the freed one): unsharded
+    ``generate()`` (a) unpinned and (b) onepass-pinned, then the model
+    sharded onto the mesh in place (``shard_model``: on one rank each
+    DTensor holds the very tensor the parameter held) and each run again
+    through ``shard_cell``. Gates: equal tokens; (a)'s B4 and (b)'s B2
+    launched as the unsharded runs launch them."""
+    import torch
+
+    from repro_torch.launch.sharding import shard_model
+    model, cfg = full_width_model()
+    prompts = prompt_batch(cfg)
+    cfgs = {"a": cfg, "b": dataclasses.replace(
+        cfg, attention_backend="ita_onepass_pallas")}
+    want = {k: run_generate(model, c, prompts)[:2] for k, c in cfgs.items()}
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    shard_model(model, mesh)
+    if [p.to_local().data_ptr() for p in model.parameters()] != ptrs:
+        raise AssertionError("15a: shard_model copied a parameter")
+    parts = []
+    for k, c in cfgs.items():
+        toks, launches, pre_s, dec_s = sharded_generate(model, c, prompts,
+                                                        mesh)
+        res, unsharded = want[k]
+        if not torch.equal(toks.cpu(), res.tokens.cpu()):
+            raise AssertionError(f"15a ({k}): sharded tokens differ from "
+                                 f"generate()'s")
+        if launches != unsharded:
+            raise AssertionError(f"15a ({k}): sharded launches {launches} "
+                                 f"!= generate()'s {unsharded}")
+        b2, b4 = launches["ita_attention_onepass"], \
+            launches["ita_attention_decode"]
+        if (b4 if k == "a" else b2) == 0:
+            raise AssertionError(f"15a ({k}): no kernel launched")
+        log(f"[phase15] 15a qwen2-7b ({k}) sharded on (data=1, model=1): "
+            f"tokens equal to generate()'s ({toks[0, :6].tolist()}...); "
+            f"launches B2 {b2}, B4 {b4}; prefill {pre_s:.3f} s, eager "
+            f"decode {B * (GEN - 1) / dec_s:.1f} tok/s; {card}")
+        parts.append(f"({k}) B2 {b2} B4 {b4} prefill {pre_s:.3f} s decode "
+                     f"{B * (GEN - 1) / dec_s:.1f} tok/s")
+    return "15a qwen2-7b sharded tokens equal, " + "; ".join(parts)
+
+
+def phase15_train(mesh, card):
+    """15b: phi3-mini-3.8b at full width cut to ``PHI3_SHARD_LAYERS``
+    layers: two steps of ``make_train_step`` and of ``shard_train_step``
+    on a sharded copy from the same seed, on the same batch. Gate: the
+    losses and every parameter and AdamW moment bit-identical (on one rank
+    the sharded step runs the same kernels on the same tensors)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import shard_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.optimizer import AdamWConfig, init_opt_state
+    cfg = get_config(TRAIN_ARCH, attention_impl="ita",
+                     layer_groups=((("attn",), PHI3_SHARD_LAYERS),))
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, step, pipe = train_setup(cfg, 2)
+    sharded = SH.shard_model(init_model(cfg, seed=0, device=DEV), mesh)
+    s_opt = init_opt_state(dict(sharded.named_parameters()))
+    s_step = shard_train_step(cfg, mesh, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=2))
+    batch = pipe.next()
+    s_batch = {k: SH.place(v, SH.Sharding(mesh, SH.batch_spec(
+        v.shape, mesh, cfg.parallelism))) for k, v in batch.items()}
+    losses, secs = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt, m = step(model, opt, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        s_opt, sm = s_step(sharded, s_opt, s_batch)
+        torch.cuda.synchronize()
+        secs.append((t1 - t0, time.perf_counter() - t1))
+        if not torch.equal(m["loss"], sm["loss"]):
+            raise AssertionError(f"15b: sharded loss {float(sm['loss'])!r} "
+                                 f"!= {float(m['loss'])!r}")
+        losses.append(float(m["loss"]))
+    got = dict(sharded.named_parameters())
+    for n, p in model.named_parameters():
+        for a, b_ in ((p, got[n]), (opt.mu[n], s_opt.mu[n]),
+                      (opt.nu[n], s_opt.nu[n])):
+            if not torch.equal(a, b_.to_local()):
+                raise AssertionError(f"15b: {n} differs after the sharded "
+                                     f"step")
+    n_params = sum(p.numel() for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[phase15] 15b {cfg.name} at full width cut to "
+        f"{PHI3_SHARD_LAYERS} of 32 layers ({n_params / 1e9:.3f} B "
+        f"parameters) on (data=1, model=1): 2 steps at {TRAIN_B} x "
+        f"{TRAIN_SEQ + 1}, losses {losses} bit-identical to "
+        f"make_train_step's, every parameter, mu and nu bit-identical; "
+        f"step s unsharded/sharded "
+        + ", ".join(f"{a:.3f}/{b_:.3f}" for a, b_ in secs)
+        + f"; peak allocated {peak:.2f} GB; {card}")
+    return (f"15b phi3-mini ({PHI3_SHARD_LAYERS} layers) sharded train "
+            f"step bit-identical, step s " + ", ".join(
+                f"{a:.3f}/{b_:.3f}" for a, b_ in secs))
+
+
+def phase15_psum(mesh, card):
+    """15c: ``compressed_psum`` of a float32 (4096, 1024) tensor over the
+    NCCL group (its all-gathers run on one rank too), bit-equal to the
+    reference's formula on this rank's input."""
+    import torch
+
+    from repro_torch.runtime import compression as C
+    x = torch.randn((4096, 1024), generator=torch.Generator(
+        device=DEV).manual_seed(15), device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = C.compressed_psum(x, "data", mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    q, scale = C._quantize(x)
+    want = torch.tensordot(scale.reshape(1), q[None], dims=([0], [0]))
+    if not torch.equal(got, want):
+        raise AssertionError("15c: compressed_psum differs from the "
+                             "formula")
+    err = float((got - x).abs().max())
+    log(f"[phase15] 15c compressed_psum over NCCL (world 1): bit-equal to "
+        f"the formula; max |x - psum| {err:.3e} (scale "
+        f"{float(scale):.3e}); wire {x.numel() + 4} B vs float32 "
+        f"{x.numel() * 4} B; {ms:.3f} ms (first call); {card}")
+    return f"15c compressed_psum bit-equal, {ms:.3f} ms"
+
+
+def phase15(card):
+    """Phase 15: a world-size-1 NCCL process group on a free local port
+    and the (data=1, model=1) mesh over it; 15a-15c on the card while
+    15d's dry-runs run on the CPU; the group destroyed at the end."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import free_port, make_host_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        try:
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                rank=0, world_size=1,
+                device_id=torch.device("cuda", torch.cuda.current_device()))
+            try:
+                mesh = make_host_mesh()
+                log(f"[phase15] NCCL world 1, mesh {mesh}")
+                parts = [phase15_qwen2(mesh, card)]
+                gc.collect()
+                torch.cuda.empty_cache()
+                parts.append(phase15_train(mesh, card))
+                gc.collect()
+                torch.cuda.empty_cache()
+                parts.append(phase15_psum(mesh, card))
+            finally:
+                dist.destroy_process_group()
+            dry = finish_dryruns(procs)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+    return "[result] phase 15: " + "; ".join(parts) + "; 15d dry-run " \
+        + "; ".join(dry)
+
+
 def qwen2_phases(checks):
     """Phases 3-7 and 8a-8b on full-width qwen2-7b. Returns the kernels
     line's rows and the result line; the model and everything built on it
@@ -4740,6 +5027,10 @@ def main():
     roof += phase9_roof + phase12_roof
     phase14_line = phase14()
     lap("phase 14")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase15_line = phase15(card)
+    lap("phase 15")
     for row in rows:
         for subs in (phase9_subs, phase10_subs, phase11_subs, phase12_subs):
             row.update(subs.get(row["name"], {}))
@@ -4762,6 +5053,7 @@ def main():
         f"({r['bottleneck']}), share {r['share']:.5f}, mfu {r['mfu']:.5f}"
         for r in roof) + f"; {card}")
     log(f"{phase14_line}; {card}")
+    log(f"{phase15_line}; {card}")
     log(f"[result] checks {checks.n}; wall {time.perf_counter() - T0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"roofline": roof}))

@@ -19,6 +19,10 @@ materializes.
 - ``float`` — the classic online softmax (exp rescale corrections), the
   float baseline's prefill (``float_xla``).
 
+On the meta device (the dry-run) ``streaming_attention`` returns an
+empty output of its shape and hands its chunk schedule to the cost hook
+(``meta_chunks``), with a backward that does the same for its products.
+
 The JAX package computes both outside any Pallas kernel, and so does the
 port: plain torch ops, with the integer products taken as exact float32
 products (``int_matmul``). The chunk schedule (q chunks, the causally
@@ -33,6 +37,7 @@ import torch
 
 from repro_torch.attention.xla import scale_product
 from repro_torch.attention.xla import softcap as _softcap
+from repro_torch.core.cost_hook import counted
 from repro_torch.core.quant import EPS_MAX, SOFTMAX_SHIFT
 from repro_torch.core.softmax import _clip, _ste_floor, _ste_round
 from repro_torch.kernels.common import (device_tensor, floor_log2,
@@ -102,6 +107,12 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     v = _pad_axis1(v, pad_kv)
     sq, skv = sq_in + pad_q, skv_in + pad_kv
     n_q = sq // cq
+    if dev.type == "meta":
+        steps = sum(max(((min(iq * cq + cq, skv) + ckv - 1) // ckv
+                         if causal else skv // ckv)
+                        - (max(0, (iq * cq - window + 1) // ckv)
+                           if window > 0 else 0), 1) for iq in range(n_q))
+        return _MetaStreaming.apply(q, k, v, (steps, cq, ckv))[:, :sq_in]
 
     # (B, G, M, S, hd) queries; (B, G, hd, S) keys; (B, G, S, hd) values
     is_int, ste = impl == "ita_int", impl == "ita_ste"
@@ -192,6 +203,32 @@ def streaming_attention(q, k, v, *, impl, scale, s_q=None, s_k=None,
     out = torch.cat(outs, dim=3) if n_q > 1 else outs[0]
     out = out.permute(0, 3, 1, 2, 4)                     # (B,Sq,G,M,hd)
     return out.reshape(b, sq, h, hd)[:, :sq_in]
+
+
+@counted("streaming_attention")
+def meta_chunks(q, k, steps: int, cq: int, ckv: int, passes: int = 1):
+    """The work of ``steps`` chunk pairs of a meta call (each a Q·Kᵀ and a
+    weights·V product of ``cq`` queries by ``ckv`` keys), ``passes``
+    times: ``roofline.op_costs`` counts it by formula."""
+    return q.new_empty(q.shape, dtype=torch.float32)
+
+
+class _MetaStreaming(torch.autograd.Function):
+    """``streaming_attention`` on the meta device: the output's shape, and
+    in the backward its two products per chunk pair counted twice."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, schedule):
+        ctx.schedule = schedule
+        ctx.save_for_backward(q, k, v)
+        return meta_chunks(q, k, *schedule)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        meta_chunks(q, k, *ctx.schedule, passes=2)
+        return (torch.zeros_like(q), torch.zeros_like(k),
+                torch.zeros_like(v), None)
 
 
 def _ste_chunks(qc, k_t, v_i, m, sig, acc, *, q0, lo, n_steps, cq, ckv, skv,

@@ -28,11 +28,17 @@ Layout (one directory per step):
 - **Dtypes**: each leaf's torch dtype is recorded; a dtype numpy lacks
   (bf16, the fp8 types) is saved as its raw bits in an integer of the
   same width and viewed back on restore.
+- **Meshes**: a DTensor leaf is saved whole (``full_tensor()``, a
+  collective every rank takes part in; rank 0 writes), so a checkpoint
+  does not depend on the mesh. ``restore(..., shardings=)`` places each
+  leaf by its ``launch.sharding.Sharding`` onto any mesh (the elastic
+  restart); without it a DTensor template leaf takes its own placement.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -84,10 +90,20 @@ def tree_structure(tree) -> str:
     return type(tree).__name__
 
 
+def _writer() -> bool:
+    """Whether this process writes (rank 0 of a process group, or no
+    group)."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """An owned host copy of ``t`` (``to(copy=True)``: on the CPU
-    ``.numpy()`` would alias a tensor the caller keeps mutating)."""
+    ``.numpy()`` would alias a tensor the caller keeps mutating); a
+    DTensor whole."""
     t = t.detach()
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     if t.dtype not in _NUMPY_DTYPES:
         t = t.view(_RAW_OF_WIDTH[t.element_size()])
     return t.to("cpu", copy=True).numpy()
@@ -134,7 +150,11 @@ class Checkpointer:
         # (the serve's prefix index and pin ledger) that keeps changing
         # after save() returns
         meta_json = json.dumps(meta)
-        fut = self._pool.submit(self._write, step, host_leaves, meta_json)
+        if not _writer():                   # another rank writes
+            fut = self._pool.submit(lambda: None)
+        else:
+            fut = self._pool.submit(self._write, step, host_leaves,
+                                    meta_json)
         with self._lock:
             self._pending = fut
         if blocking:
@@ -181,11 +201,15 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, template, step: int | None = None, device=None,
-                verify: bool = True) -> tuple:
+                verify: bool = True, shardings=None) -> tuple:
         """Restore into the structure of ``template``, each leaf on
-        ``device`` (None: the template leaf's device). ``verify`` checks
-        every leaf's crc32 against ``meta.json`` and raises
-        ``CheckpointCorrupt`` on a mismatch. Returns ``(tree, meta)``."""
+        ``device`` (None: the template leaf's device). ``shardings``: a
+        tree of ``launch.sharding.Sharding`` of the template's structure
+        (or None), each leaf placed by its own onto its mesh; a DTensor
+        template leaf without one takes the template's placement.
+        ``verify`` checks every leaf's crc32 against ``meta.json`` and
+        raises ``CheckpointCorrupt`` on a mismatch. Returns ``(tree,
+        meta)``."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -207,6 +231,7 @@ class Checkpointer:
                 f"{path}: tree structure changed ({len(leaves)} leaves vs "
                 f"{meta['n_leaves']} on disk)")
         checksums = meta.get("checksums")
+        places = _placements(leaves, shardings)
         out = []
         for i, tmpl in enumerate(leaves):
             leaf_path = os.path.join(path, f"leaf_{i:05d}.npy")
@@ -224,5 +249,22 @@ class Checkpointer:
             # .to() would hand that alias to a caller that writes the
             # restored pools in place
             t = torch.from_numpy(arr).clone().view(_dtype(meta["dtypes"][i]))
-            out.append(t.to(tmpl.device if device is None else device))
+            t = t.to(tmpl.device if device is None else device)
+            out.append(t if places[i] is None else places[i](t))
         return tree_replace(template, iter(out)), meta
+
+
+def _placements(leaves, shardings) -> list:
+    """Per template leaf, a function placing a whole tensor as the leaf
+    should be, or None: its ``Sharding`` in ``shardings``, else the
+    placement of a DTensor template leaf."""
+    from repro_torch.launch.sharding import Sharding, place, spec_of
+    if shardings is not None:
+        shs = tree_leaves(shardings, leaf=lambda x: isinstance(x, Sharding))
+        if len(shs) != len(leaves):
+            raise ValueError(f"{len(shs)} shardings for {len(leaves)} "
+                             f"leaves")
+        return [functools.partial(place, sharding=sh) for sh in shs]
+    return [functools.partial(place, sharding=Sharding(
+        t.device_mesh, spec_of(t.placements, t.device_mesh, t.ndim)))
+        if hasattr(t, "device_mesh") else None for t in leaves]

@@ -19,7 +19,7 @@ from repro_torch.configs import (deepseek_coder_33b, gemma2_27b,
                                  olmoe_1b_7b, phi3_mini_3_8b, qwen2_7b,
                                  recurrentgemma_2b, rwkv6_7b,
                                  whisper_large_v3)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = {
     "recurrentgemma-2b": recurrentgemma_2b,
@@ -42,3 +42,21 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_skipped: bool = False):
+    """All (arch, shape) dry-run cells; long_500k only for sub-quadratic
+    archs unless ``include_skipped``."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            if shape.name == "long_500k" and not cfg.subquadratic \
+                    and not include_skipped:
+                continue
+            out.append((arch, shape.name))
+    return out

@@ -1,4 +1,4 @@
-"""Token data pipeline (``repro.data.pipeline``) on one device.
+"""Token data pipeline (``repro.data.pipeline``).
 
 Two sources:
 - ``SyntheticSource`` — deterministic tokens from (seed, position), the
@@ -8,10 +8,12 @@ Two sources:
   corpus) read as windows without loading it into memory.
 
 ``DataPipeline`` cuts the source into ``(batch, seq_len + 1)`` windows,
-one per step, and puts them on its device. Its state is one integer, the
-step, so checkpointing the pipeline is checkpointing that integer, and a
-restart replays the same global step exactly. (The reference shards each
-batch over a mesh; the port runs on one card.)
+one per step, and puts them on its device; with ``mesh=`` as DTensors
+placed by ``launch.sharding.batch_shardings`` (every rank cuts the same
+global batch and keeps its chunk, so the global batch does not depend on
+the mesh). Its state is one integer, the step, so checkpointing the
+pipeline is checkpointing that integer, and a restart replays the same
+global step exactly.
 """
 
 from __future__ import annotations
@@ -62,16 +64,28 @@ class DataPipeline:
     """Yields ``{"tokens": (B, S+1) int32}`` batches on ``device`` (the
     card unless the caller asks for the CPU), with ``"frontend"`` (B,
     *frontend_shape) float32 — zeros plus a linspace over the last axis,
-    the reference's stand-in — when ``frontend_shape`` is given."""
+    the reference's stand-in — when ``frontend_shape`` is given. With
+    ``mesh`` (and the config's ``parallelism``) the batches are DTensors
+    over it."""
 
     def __init__(self, source, batch: int, seq_len: int, device="cuda",
-                 frontend_shape=None):
+                 frontend_shape=None, mesh=None, parallelism="tp_fsdp"):
         self.source = source
         self.batch = batch
         self.seq = seq_len
         self.device = resolve_device(device)
         self.frontend_shape = frontend_shape
+        self.mesh = mesh
+        self.parallelism = parallelism
         self.state = PipelineState()
+
+    def _put(self, host: np.ndarray):
+        t = torch.from_numpy(host).to(self.device)
+        if self.mesh is None:
+            return t
+        from repro_torch.launch.sharding import Sharding, batch_spec, place
+        return place(t, Sharding(self.mesh, batch_spec(
+            t.shape, self.mesh, self.parallelism)))
 
     def _host_batch(self, step: int) -> np.ndarray:
         span = self.batch * (self.seq + 1)
@@ -79,13 +93,12 @@ class DataPipeline:
         return flat.reshape(self.batch, self.seq + 1)
 
     def next(self) -> dict:
-        host = self._host_batch(self.state.step)
-        batch = {"tokens": torch.from_numpy(host).to(self.device)}
+        batch = {"tokens": self._put(self._host_batch(self.state.step))}
         if self.frontend_shape is not None:
             fe = np.zeros((self.batch,) + tuple(self.frontend_shape),
                           np.float32)
             fe += np.linspace(0, 1, fe.shape[-1], dtype=np.float32)
-            batch["frontend"] = torch.from_numpy(fe).to(self.device)
+            batch["frontend"] = self._put(fe)
         self.state.step += 1
         return batch
 

@@ -264,6 +264,8 @@ def int8_matmul_kernel(x_q, w_q, bias, mult, *, block_m: int = 256,
     mult (N,) or scalar f32 requant multipliers. Returns int8 (M,N). M, N
     and K must be multiples of the blocks (each capped at its dimension);
     the ``ops.int8_matmul`` wrapper pads."""
+    if x_q.device.type == "meta":           # shapes only (the dry-run)
+        return x_q.new_empty((x_q.shape[0], w_q.shape[1]))
     if x_q.device.type == "cpu":
         bk, bias, mult = _operands(x_q, w_q, bias, mult, block_m, block_n,
                                    block_k, schedule)

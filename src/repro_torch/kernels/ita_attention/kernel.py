@@ -24,8 +24,9 @@ bit. Their plain version gathers each row's pages into a contiguous
 (B, n_pages·page, G, D) ring and runs ``attention_plain`` at
 ``block_kv = page``.
 
-On a CPU tensor a wrapper computes its plain PyTorch version
-(``attention_plain``: the same KV tile schedule through
+On a meta tensor a wrapper returns an empty output of its shape (the
+dry-run's shapes). On a CPU tensor a wrapper computes its plain PyTorch
+version (``attention_plain``: the same KV tile schedule through
 ``ref.stream_rows``, on any device — ``chip_smoke.py`` holds the kernels
 to it on the card). On a CUDA tensor it launches its kernel
 (``csrc/onepass.cu``, ``csrc/decode.cu``, one launcher each for rings
@@ -510,6 +511,8 @@ def ita_attention_onepass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
     (``onepass_geometry``)."""
     kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
               adaptive=adaptive, block_kv=block_kv, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty_like(q_q)
     if q_q.device.type == "cpu":
         return attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
                                **kw)
@@ -532,6 +535,8 @@ def ita_attention_decode(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
                          f"queries per row, got {q_q.shape[1]}")
     kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
               adaptive=adaptive, block_kv=block_kv, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty_like(q_q)
     if q_q.device.type == "cpu":
         return attention_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
                                **kw)
@@ -570,6 +575,8 @@ def ita_attention_onepass_paged(q_q, k_pool, v_pool, page_table, logit_mult,
     ``block_kv = page``."""
     kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
               adaptive=adaptive, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty_like(q_q)
     if q_q.device.type == "cpu":
         return paged_attention_plain(q_q, k_pool, v_pool, page_table,
                                      logit_mult, out_mult, kv_len, **kw)
@@ -591,6 +598,8 @@ def ita_attention_decode_paged(q_q, k_pool, v_pool, page_table, logit_mult,
                          f"queries per row, got {q_q.shape[1]}")
     kw = dict(q_offset=q_offset, q_len=q_len, causal=causal, window=window,
               adaptive=adaptive, kv_rep=kv_rep, hq=hq)
+    if q_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty_like(q_q)
     if q_q.device.type == "cpu":
         return paged_attention_plain(q_q, k_pool, v_pool, page_table,
                                      logit_mult, out_mult, kv_len, **kw)
@@ -747,6 +756,9 @@ def ita_attention_twopass(q_q, k_q, v_q, logit_mult, out_mult, kv_len, *,
     with their heads, ``twopass_geometry``)."""
     kw = dict(q_offset=q_offset, causal=causal, window=window,
               block_kv=block_kv, kv_rep=kv_rep)
+    if q_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty_like(q_q), q_q.new_empty(
+            (q_q.shape[0], q_q.shape[1], k_q.shape[1]))
     if q_q.device.type == "cpu":
         return twopass_plain(q_q, k_q, v_q, logit_mult, out_mult, kv_len,
                              adaptive=adaptive, **kw)

@@ -107,6 +107,8 @@ def ita_softmax_kernel(x_q, mask, *, block_r: int = 128, block_c: int = 128,
     ``ops.ita_softmax`` wrapper pads); any R. ``block_r`` is accepted for
     signature parity and changes nothing."""
     kw = dict(block_r=block_r, block_c=block_c, adaptive=adaptive)
+    if x_q.device.type == "meta":           # shapes only (the dry-run)
+        return torch.empty(x_q.shape, dtype=torch.float32, device="meta")
     if x_q.device.type == "cpu":
         return softmax_plain(x_q, mask, **kw)
     launch, out = kernel_launcher(x_q, mask, **kw)

@@ -1,5 +1,6 @@
 """Train / prefill / decode steps, sampling, the decode loop and the
-continuous-batching serve segments (``repro.launch.steps``).
+continuous-batching serve segments (``repro.launch.steps``), and the
+steps sharded over a mesh.
 
 ``make_train_step`` is the reference's jitted ``value_and_grad`` of
 ``loss_fn`` followed by AdamW, as autograd's backward and the in-place
@@ -16,10 +17,22 @@ per served request, seeded from ``(seed, request index)``
 (``request_generator``); the JAX package's threefry keys give other
 numbers, so sampled streams are compared within the port only (greedy
 tokens are compared across the two).
+
+Sharded steps (``shard_train_step``, ``shard_cell``; the reference's
+``jit_train_step`` and ``lower_cell``) take and return DTensors placed by
+``launch.sharding``'s rules. They unwrap once: each parameter's local
+shard is marked with how ``launch.hints`` gathers it per layer, every
+input is redistributed to the compute layout (the batch split over the
+data axes, the rest whole, K/V heads kept over ``model`` where they are
+tensor parallel), the model runs on local tensors under ``use_hints``,
+and the outputs are wrapped again and redistributed to their rules.
+``params_shape``, ``opt_state_shape``, ``caches_shape`` and
+``input_specs`` are stand-ins on the meta device: no allocation.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import time
@@ -179,10 +192,11 @@ def make_generate_loop(cfg, *, gen: int, sample: bool, eos_id: int | None,
 # Captured steps: one step of a loop replayed from a CUDA graph
 # ---------------------------------------------------------------------------
 
-def tree_leaves(tree) -> list:
+def tree_leaves(tree, leaf=torch.is_tensor) -> list:
     """The tensors of a carry — tensors in dataclasses, dicts, lists and
-    tuples — depth first; anything else is not a leaf."""
-    if torch.is_tensor(tree):
+    tuples — depth first; anything else is not a leaf (``leaf``: what
+    is, in place of tensors)."""
+    if leaf(tree):
         return [tree]
     if dataclasses.is_dataclass(tree):
         parts = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
@@ -192,7 +206,7 @@ def tree_leaves(tree) -> list:
         parts = tree
     else:
         return []
-    return [leaf for part in parts for leaf in tree_leaves(part)]
+    return [x for part in parts for x in tree_leaves(part, leaf)]
 
 
 def tree_replace(tree, leaves):
@@ -718,3 +732,323 @@ def make_serve_segment(cfg, *, segment: int, sample: bool,
         return toks, emits, grants, state, caches, n
 
     return seg
+
+
+# ---------------------------------------------------------------------------
+# Shape stand-ins (meta device)
+# ---------------------------------------------------------------------------
+
+def meta_model(cfg):
+    """The model's parameters on the meta device (shapes and dtypes)."""
+    from repro_torch.models.transformer import Transformer
+    return Transformer(cfg, device=torch.device("meta"))
+
+
+def params_shape(cfg) -> dict:
+    return dict(meta_model(cfg).named_parameters())
+
+
+def opt_state_shape(cfg):
+    from repro_torch.optim.optimizer import init_opt_state
+    return init_opt_state(params_shape(cfg))
+
+
+def caches_shape(cfg, batch, max_len):
+    from repro_torch.models import init_caches
+    return init_caches(cfg, batch, max_len, device="meta")
+
+
+def input_specs(cfg, shape) -> dict:
+    """Meta tensors for every model input of an (arch × shape) cell."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    frontend = ({"frontend": meta((b, cfg.n_frontend_tokens,
+                                   cfg.frontend_dim), torch.float32)}
+                if cfg.frontend_dim else {})
+    if shape.kind == "train":
+        return {"batch": {"tokens": meta((b, s + 1)), **frontend}}
+    if shape.kind == "prefill":
+        return {"tokens": meta((b, s)), "caches": caches_shape(cfg, b, s),
+                **frontend}
+    # decode: one new token per sequence against a seq_len KV cache, at
+    # per-sequence positions (the production shape)
+    return {"tokens": meta((b, 1)), "caches": caches_shape(cfg, b, s),
+            "pos0": meta((b,)), **frontend}
+
+
+# ---------------------------------------------------------------------------
+# Sharded steps
+# ---------------------------------------------------------------------------
+
+def compute_batch_axes(mesh, parallelism, batch) -> tuple:
+    """The axes a step splits a global batch of ``batch`` over: the data
+    axes (``fsdp``: every axis when they divide it), none when they do
+    not divide it."""
+    from repro_torch.launch.mesh import axis_size, batch_axes
+    bax = batch_axes(mesh)
+    if parallelism == "fsdp" \
+            and batch % axis_size(mesh, bax + ("model",)) == 0:
+        return bax + ("model",)
+    return bax if batch % axis_size(mesh, bax) == 0 else ()
+
+
+def _batch_spec(t, cb):
+    return ((cb or None),) + (None,) * (t.ndim - 1)
+
+
+def _tp_dim(mod, leaf, spec, cfg, mesh, parallelism):
+    """The dim of a parameter that tensor parallelism keeps over
+    ``model`` in compute (``hints.tp_dim``), or None: attention's query
+    projections and ``wo`` when the query heads divide ``model`` (K/V's
+    when theirs do too), the MLPs' and experts' model-sharded dims, and
+    the vocabulary of the (un)embedding."""
+    from repro_torch.launch.mesh import axis_size
+    from repro_torch.models import moe
+    from repro_torch.models.attention import Attention
+    from repro_torch.models.layers import GeluMLP, SwiGLU
+    from repro_torch.models.transformer import Transformer
+    m = axis_size(mesh, "model")
+    if parallelism == "fsdp" or m == 1:
+        return None
+    dims = [d for d, e in enumerate(spec) if e is not None
+            and "model" in ((e,) if isinstance(e, str) else e)]
+    if not dims:
+        return None
+    if isinstance(mod, Attention):
+        heads = cfg.n_heads % m == 0
+        if leaf in ("wq", "bq", "wo"):
+            return dims[0] if heads else None
+        if leaf in ("wk", "wv", "bk", "bv"):
+            return dims[0] if heads and cfg.n_kv_heads % m == 0 else None
+        return None
+    if isinstance(mod, (SwiGLU, GeluMLP)) \
+            and leaf in ("w_gate", "w_up", "w_down", "b_up"):
+        return dims[0]
+    if isinstance(mod, moe.MoE) and leaf in ("w_gate", "w_up", "w_down"):
+        return dims[0]
+    if isinstance(mod, Transformer) and leaf in ("embed", "unembed"):
+        return dims[0]
+    return None
+
+
+@contextlib.contextmanager
+def local_params(model, cfg, *, train: bool):
+    """Swap ``model``'s DTensor parameters for their local shards, marked
+    for ``hints.gathered`` (``_shard_steps``, ``_tp_dim``); ``train``
+    makes each shard a leaf that takes its gradient. Yields ``{name:
+    local leaf}``; the DTensors are back after the block."""
+    from repro_torch.launch import hints
+    from repro_torch.launch.sharding import spec_of
+    mesh, par = model.mesh, model.parallelism
+    swapped, leaves = [], {}
+    for mod_name, mod in model.named_modules():
+        for leaf, p in list(mod._parameters.items()):
+            if p is None:
+                continue
+            spec = spec_of(p.placements, mesh, p.ndim)
+            t = p.to_local().detach()     # marks stay off the DTensor's own
+            if train:
+                t.requires_grad_()
+            tpd = _tp_dim(mod, leaf, spec, cfg, mesh, par)
+            t._tp_dim = tpd
+            t._shard_steps = hints.gather_steps(spec, tpd is not None,
+                                                mesh, par)
+            mod._parameters[leaf] = t
+            swapped.append((mod, leaf, p))
+            leaves[f"{mod_name}.{leaf}" if mod_name else leaf] = t
+    try:
+        yield leaves
+    finally:
+        for mod, leaf, p in swapped:
+            mod._parameters[leaf] = p
+
+
+def to_compute(t, spec, mesh):
+    """A DTensor as this rank's local tensor under the compute ``spec``."""
+    from repro_torch.launch.sharding import placements
+    return t.redistribute(mesh, placements(spec, mesh)).to_local()
+
+
+def from_compute(local, spec, sharding):
+    """A local tensor laid out by ``spec`` as a DTensor placed by
+    ``sharding``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import placements
+    mesh = sharding.mesh
+    t = DTensor.from_local(local, mesh, placements(spec, mesh),
+                           run_check=False)
+    return t.redistribute(mesh, sharding.placements())
+
+
+def cache_compute_spec(name, shape, batch, cb, kv_local: bool) -> tuple:
+    """A cache leaf's compute layout: its batch rows split like the
+    step's (``pos`` too), the K/V heads over ``model`` when the layer's
+    K/V heads are tensor parallel, the rest whole."""
+    nd = len(shape)
+    if nd == 0 or name in ("k_scale", "v_scale"):
+        return (None,) * nd
+    spec = [None] * nd
+    if shape[0] == batch and (nd >= 2 or name == "pos"):
+        spec[0] = cb or None
+    if kv_local and name in ("k", "v", "k8", "v8"):
+        spec[2] = "model"
+    return tuple(spec)
+
+
+def map_pairs(fn, a, b, name=""):
+    """``fn(name, leaf_a, leaf_b)`` over two trees of one structure."""
+    if torch.is_tensor(a):
+        return fn(name, a, b)
+    if dataclasses.is_dataclass(a):
+        return dataclasses.replace(a, **{
+            f.name: map_pairs(fn, getattr(a, f.name), getattr(b, f.name), f.name)
+            for f in dataclasses.fields(a)})
+    if isinstance(a, dict):
+        return {k: map_pairs(fn, v, b[k], k) for k, v in a.items()}
+    if isinstance(a, (list, tuple)):
+        return type(a)(map_pairs(fn, x, y, name)
+                       for x, y in zip(a, b, strict=True))
+    return a
+
+
+def cell_shardings(cfg, shape, mesh) -> dict:
+    """Every input and output of a cell placed by the rules: ``params``
+    and, for train, ``opt`` and ``batch``; else ``tokens``, ``caches``,
+    ``logits`` (and ``pos0`` for decode, ``frontend``)."""
+    from repro_torch.launch import sharding as SH
+    par = cfg.parallelism
+    specs = input_specs(cfg, shape)
+    pshape = params_shape(cfg)
+    out = {"params": SH.param_shardings(pshape, mesh, par)}
+    if shape.kind == "train":
+        out["opt"] = SH.opt_state_shardings(
+            pshape, mesh, par,
+            has_master=any(p.dtype == torch.bfloat16
+                           for p in pshape.values()))
+        out["batch"] = SH.batch_shardings(specs["batch"], mesh, par)
+        return out
+    b = shape.global_batch
+    out["caches"] = SH.cache_shardings(specs["caches"], b, mesh)
+    out["logits"] = SH.logits_sharding(mesh, b, cfg.vocab_size, par)
+    rest = {k: v for k, v in specs.items() if k in ("tokens", "frontend")}
+    out.update(SH.batch_shardings(rest, mesh, par))
+    if "pos0" in specs:
+        out["pos0"] = SH.replicated(mesh)
+    return out
+
+
+def _kv_local(cfg, mesh) -> bool:
+    from repro_torch.launch.mesh import axis_size
+    m = axis_size(mesh, "model")
+    return cfg.parallelism != "fsdp" and m > 1 \
+        and cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+
+
+def shard_cell(cfg, shape, mesh, opt_cfg: AdamWConfig | None = None):
+    """The step of one (arch × shape × mesh) cell over DTensors placed by
+    ``cell_shardings`` (the reference's ``lower_cell``, run instead of
+    lowered): ``shard_train_step``'s for train; else ``step(model,
+    tokens, caches, pos0=None, frontend=None) -> (logits, caches)``, the
+    prefill step (last-position logits, as ``make_prefill_step``) or the
+    decode step, on a model sharded by ``sharding.shard_model``."""
+    if shape.kind == "train":
+        return shard_train_step(cfg, mesh, opt_cfg or AdamWConfig())
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch import hints
+    sh = cell_shardings(cfg, shape, mesh)
+    par = cfg.parallelism
+    b = shape.global_batch
+    kv_local = _kv_local(cfg, mesh)
+    prefill = shape.kind == "prefill"
+    inner = make_prefill_step(cfg) if prefill else make_decode_step(cfg)
+    vocab_tp = sh["logits"].spec[2] is not None
+
+    def step(model, tokens, caches, pos0=None, frontend=None):
+        from repro_torch.launch.sharding import placements
+        cb = compute_batch_axes(mesh, par, b)
+
+        def spec(n, t):
+            return cache_compute_spec(n, t.shape, b, cb, kv_local)
+
+        def local(t):
+            return None if t is None else to_compute(t, _batch_spec(t, cb),
+                                                     mesh)
+
+        def wrap(n, t, was):            # back to the input's placements
+            return DTensor.from_local(
+                t, mesh, placements(spec(n, was), mesh),
+                run_check=False).redistribute(mesh, was.placements)
+        with torch.no_grad(), local_params(model, cfg, train=False):
+            c_local = map_pairs(lambda n, t, _: to_compute(t, spec(n, t), mesh),
+                            caches, caches)
+            with hints.use_hints(mesh, par, batch_split=cb):
+                if prefill:
+                    logits, c_new = inner(model, local(tokens), c_local,
+                                          frontend=local(frontend))
+                else:
+                    logits, c_new = inner(model, local(tokens), c_local,
+                                          local(pos0))
+            out = from_compute(logits, ((cb or None), None,
+                                        "model" if vocab_tp else None),
+                               sh["logits"])
+            new = map_pairs(wrap, c_new, caches)
+        return out, new
+    return step
+
+
+def shard_train_step(cfg, mesh, opt_cfg: AdamWConfig):
+    """``train_step(model, opt_state, batch) -> (opt_state, metrics)``
+    over a model sharded by ``sharding.shard_model``, an ``OptState`` of
+    DTensors and a batch of DTensors (the reference's ``jit_train_step``;
+    ``make_train_step``'s signature). Each rank runs its batch chunk; the
+    gradients are reduce-scattered (per layer, in ``hints``) and summed
+    over the data axes a parameter is whole on, then AdamW updates the
+    local shards. ``metrics`` are the global values, replicated."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.common import exact_float32_matmul
+    from repro_torch.launch import hints
+    from repro_torch.launch.sharding import spec_of
+    exact_float32_matmul()
+    par = cfg.parallelism
+
+    def train_step(model, opt_state, batch):
+        b = batch["tokens"].shape[0]
+        cb = compute_batch_axes(mesh, par, b)
+        with local_params(model, cfg, train=True) as leaves:
+            local = {k: to_compute(v, _batch_spec(v, cb), mesh)
+                     for k, v in batch.items()}
+            with hints.use_hints(mesh, par, batch_split=cb):
+                loss, metrics = loss_fn(model, local, cfg)
+                rep = hints.replicas()
+                (loss / rep if rep > 1 else loss).backward()
+                if hints.batch_ranks() > 1:
+                    nll = hints.batch_sum(metrics["nll"].detach())
+                    loss = nll + (loss - metrics["nll"]).detach()
+                    metrics = dict(metrics, nll=nll)
+            grads = {n: t.grad for n, t in leaves.items()}
+        params = dict(model.named_parameters())
+        token_axes = hints.token_axes(mesh, par)
+        with torch.no_grad():
+            for n, p in params.items():
+                g = grads[n]
+                if g is None:
+                    g = torch.zeros_like(p.to_local())
+                spec = spec_of(p.placements, mesh, p.ndim)
+                sharded = {a for e in spec if e is not None
+                           for a in ((e,) if isinstance(e, str) else e)}
+                for a in token_axes:
+                    if a not in sharded:
+                        g = hints.all_reduce(g, a, mesh=mesh)
+                grads[n] = DTensor.from_local(g, mesh, p.placements,
+                                              run_check=False)
+        opt_state, stats = adamw_update(grads, opt_state, params, opt_cfg,
+                                        grad_dtype=cfg.param_torch_dtype())
+        return opt_state, {"loss": loss.detach(),
+                           **{k: v.detach() for k, v in metrics.items()},
+                           **stats}
+    return train_step

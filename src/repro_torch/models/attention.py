@@ -15,6 +15,20 @@ patch embeddings), is non-causal and takes no RoPE; its cache is the
 static ``{"k8", "v8"}`` pair of (B, n_frontend_tokens, G, hd), written
 at every prefill and only read at decode, where the layer projects no
 K/V at all.
+
+Under a mesh (``launch.hints``; the parameters are this rank's shards,
+gathered per layer) the reference's head constraints are tensor
+parallelism when the query heads divide ``model``: ``wq`` (and ``bq``)
+hold this rank's heads, so the projection is a local column product, the
+kernels run on the local heads (heads are independent: these calls are
+bit for bit what the unsharded call computes for those heads), and the
+row-parallel ``wo`` product is all-reduced over ``model`` at the
+reference's output constraint. K/V heads that divide ``model`` are local
+the same way; those that do not stay whole on every rank (as do their
+caches), and each rank reads the K/V heads of its query heads. Where the
+query heads do not divide ``model`` the reference shards the query over
+``seq``; the port gathers the weights and runs the layer whole on every
+rank (the kernels' signatures take no per-rank row offset of a prefill).
 """
 
 from __future__ import annotations
@@ -24,18 +38,21 @@ from torch import nn
 
 from repro_torch import attention as ATT
 from repro_torch.attention.xla import quantize_to_int8
+from repro_torch.launch import hints
 from repro_torch.models.layers import const_param, linear, normal_param, rope
 
 
 def make_spec(cfg, *, mode, causal, window, q_len=None, has_s_out=True,
-              layout="bshd", ragged_q=False) -> ATT.AttentionSpec:
-    """The layer's view of the engine: one spec per (cfg, call site)."""
+              layout="bshd", ragged_q=False,
+              n_heads=None) -> ATT.AttentionSpec:
+    """The layer's view of the engine: one spec per (cfg, call site);
+    ``n_heads``: the call's query heads (default the config's)."""
     return ATT.AttentionSpec(
         mode=mode, impl=cfg.attention_impl, causal=causal, window=window,
         softcap=cfg.attn_softcap, query_scale=cfg.query_scale,
         softmax="paper" if cfg.softmax_impl == "ita_paper" else "adaptive",
         layout=layout, scale_kind="per_tensor", out_dtype="float",
-        has_s_out=has_s_out, q_len=q_len, n_heads=cfg.n_heads,
+        has_s_out=has_s_out, q_len=q_len, n_heads=n_heads or cfg.n_heads,
         ragged_q=ragged_q)
 
 
@@ -84,17 +101,22 @@ class Attention(nn.Module):
         (dead slots write nothing and keep their position). ``q_lens``
         (B,): the mixed chunked-prefill step over a paged pool — row ``b``
         carries ``q_lens[b]`` real tokens of the presented width."""
-        h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        hd = cfg.head_dim
         cross = kind == "cross"
         window = {"global": 0, "cross": 0, "local": cfg.local_window,
                   "swa": cfg.window}[kind]
         causal = not cross and cfg.causal
         dt = x.dtype
+        # tensor parallelism (module docstring): local query heads, and
+        # local K/V heads when they divide too
+        tp_q = hints.tp_dim(self.wq) is not None
+        tp_kv = hints.tp_dim(self.wk) is not None
 
-        q = linear(x, self.wq)
+        q = linear(hints.to_tp(x) if tp_q else x, self.wq)
         if cfg.qkv_bias:
             q = q + self.bq
-        q = q.view(*q.shape[:-1], h, hd)
+        q = q.view(*q.shape[:-1], -1, hd)
+        h = q.shape[-2]
         if cross and cache is not None and mode == "decode":
             k = v = None                        # the static cross cache
         else:
@@ -103,11 +125,13 @@ class Attention(nn.Module):
                 raise ValueError(
                     f"{cfg.name}: a cross-attention layer needs the memory "
                     f"of a frontend (pass frontend=)")
+            if tp_kv:
+                kv_src = hints.to_tp(kv_src)
             k, v = linear(kv_src, self.wk), linear(kv_src, self.wv)
             if cfg.qkv_bias:
                 k, v = k + self.bk, v + self.bv
-            k = k.view(*k.shape[:-1], g, hd)
-            v = v.view(*v.shape[:-1], g, hd)
+            k = k.view(*k.shape[:-1], -1, hd)
+            v = v.view(*v.shape[:-1], -1, hd)
         if positions is not None and not cross and cfg.rope_theta > 0:
             q = rope(q, positions, cfg.rope_theta)
             k = rope(k, positions, cfg.rope_theta)
@@ -118,9 +142,15 @@ class Attention(nn.Module):
         def run(qq, kk, vv, *, mode, q_offset=0, kv_len=None, layout="bshd",
                 page_table=None, q_lens=None):
             q_len = qq.shape[2] if layout == "bhsd_paged" else qq.shape[1]
+            if tp_q and not tp_kv:      # this rank's query heads' K/V heads
+                first = hints.tp_rank() * h
+                group = cfg.n_heads // cfg.n_kv_heads
+                kk = hints.select_heads(kk, first, h, group)
+                vv = hints.select_heads(vv, first, h, group)
             spec = make_spec(cfg, mode=mode, causal=causal, window=window,
                              q_len=q_len, has_s_out=scales.s_out is not None,
-                             layout=layout, ragged_q=q_lens is not None)
+                             layout=layout, ragged_q=q_lens is not None,
+                             n_heads=h)
             # a preference: pinned where capable, dispatch fills the rest
             backend = cfg.attention_backend or None
             if backend is not None \
@@ -177,4 +207,5 @@ class Attention(nn.Module):
                         q_offset=new_cache.q_offset(s_new),
                         kv_len=new_cache.valid_len())
         y = linear(y.reshape(*y.shape[:-2], h * hd), self.wo)
+        y = hints.constrain(y, "batch", "seq", None, partial=tp_q)
         return y, new_cache

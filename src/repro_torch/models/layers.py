@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.cost_hook import counted
+from repro_torch.launch import hints
 
 
 def normal_param(shape, scale, *, dtype, device, generator=None,
@@ -60,8 +61,11 @@ def in_row_blocks(x: torch.Tensor, fn) -> torch.Tensor:
     pad = (-m) % ROW_BLOCK
     if pad:
         rows = torch.cat([rows, rows.new_zeros((pad, k))])
-    out = torch.cat([fn(rows[i:i + ROW_BLOCK])
-                     for i in range(0, m + pad, ROW_BLOCK)])
+    if x.device.type == "meta":         # shapes only: one call, same rows
+        out = fn(rows)
+    else:
+        out = torch.cat([fn(rows[i:i + ROW_BLOCK])
+                         for i in range(0, m + pad, ROW_BLOCK)])
     return out[:m].reshape(*lead, out.shape[-1])
 
 
@@ -194,8 +198,15 @@ class SwiGLU(nn.Module):
         self.w_down = normal_param((f, d), s_out, **kw)
 
     def forward(self, x):
-        return linear(self.act(linear(x, self.w_gate)) * linear(x, self.w_up),
-                      self.w_down)
+        if hints.tp_dim(self.w_down) is None:
+            return linear(self.act(linear(x, self.w_gate))
+                          * linear(x, self.w_up), self.w_down)
+        # tensor parallel: this rank's columns of ff, then the row-parallel
+        # product all-reduced over ``model``
+        x = hints.to_tp(x)
+        h = self.act(linear(x, self.w_gate)) * linear(x, self.w_up)
+        return hints.constrain(linear(h, self.w_down), "batch", "seq", None,
+                               partial=True)
 
 
 class GeGLU(SwiGLU):
@@ -223,16 +234,33 @@ class GeluMLP(nn.Module):
         self.b_down = const_param((d,), 0.0, dtype=dtype, device=device)
 
     def forward(self, x):
-        h = F.gelu(linear(x, self.w_up) + self.b_up, approximate="tanh")
-        return linear(h, self.w_down) + self.b_down
+        tp = hints.tp_dim(self.w_down) is not None
+        h = F.gelu(linear(hints.to_tp(x) if tp else x, self.w_up)
+                   + self.b_up, approximate="tanh")
+        y = linear(h, self.w_down)
+        if tp:
+            y = hints.constrain(y, "batch", "seq", None, partial=True)
+        return y + self.b_down
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return table[ids]
+    if hints.tp_dim(table) is None:
+        return table[ids]
+    # vocabulary parallel: this rank's rows, zeros for the other ids, summed
+    # over ``model`` (one non-zero term: exact)
+    n = table.shape[0]
+    local = ids - hints.tp_rank() * n
+    inside = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return hints.reduce_tp(torch.where(inside[..., None], rows,
+                                       rows.new_zeros(())))
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor, softcap: float = 0.0):
-    """x (..., d) @ w (d, V) -> float32 logits (optionally softcapped)."""
+    """x (..., d) @ w (d, V) -> float32 logits (optionally softcapped);
+    under tensor parallelism of the vocabulary, this rank's columns."""
+    if hints.tp_dim(w) is not None:
+        x = hints.to_tp(x)
     logits = linear(x, w).float()
     if softcap > 0:
         # a tensor divisor: the card divides by a Python scalar as a

@@ -4,16 +4,30 @@ top-8 and Mixtral's 8 experts top-2.
     moe = MoE(cfg, device=dev)
     y = moe(x)                          # x (B, S, d) -> (B, S, d)
 
-Sort-based capacity dispatch in one group, as the JAX package runs it
-without a mesh (its ``hints.num_data_shards()`` is 1 there): the router
-product and softmax in float32, top-k, a stable argsort of the chosen
-experts, each assignment's rank within its expert (``searchsorted``),
-and a keep mask ``rank < cap``. A call of ``t = B·S`` tokens (padding
-rows and dead decode slots included) has ``cap = t·k`` when ``t·k <=
-4096``: nothing drops, so a token's output does not depend on the other
-tokens of its call. Above that ``cap = min(max(int(1.25·t·k/E), 1),
-t·k)`` and the assignments past an expert's capacity drop (combine
-weight 0, GShard semantics).
+GShard-style grouped sort-based capacity dispatch: the call's ``T =
+B·S`` tokens are cut into ``G = hints.num_data_shards()`` groups of
+``t = T / G`` consecutive tokens (one per data shard under a mesh; 1
+without one, or when ``G`` does not divide ``T``), and all routing runs
+inside a group: the router product and softmax in float32, top-k, a
+stable argsort of the chosen experts, each assignment's rank within its
+expert (``searchsorted``), and a keep mask ``rank < cap``. A group of
+``t`` tokens (padding rows and dead decode slots included) has ``cap =
+t·k`` when ``t·k <= 4096``: nothing drops, so a token's output does not
+depend on the other tokens of its call. Above that ``cap =
+min(max(int(1.25·t·k/E), 1), t·k)`` and the assignments past an
+expert's capacity drop (combine weight 0, GShard semantics).
+
+Under a mesh a rank holds its batch chunk, the groups of its own rows,
+and routes them whole on every rank of ``model``; a group larger than
+the chunk (``G`` fell back to 1) is gathered over the data axes, routed
+whole on every rank, and each rank keeps its own rows of the output. With the experts over
+``model`` (expert parallelism, when ``model`` divides E) the capacity
+buffer is cut to this rank's experts (the reference's ``experts``
+constraint) and the experts' outputs are gathered back over ``model``
+before the combine: the group is whole on every rank of ``model``, so
+the reference's group-to-expert exchange is a slice one way and an
+all-gather the other. When ``model`` does not divide E, every expert's
+FFN is split over ``ff`` instead and its product all-reduced.
 
 The bits of a token must not depend on its call either (a served
 request meets its prompt in chunks beside other requests, and its tokens
@@ -44,6 +58,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.cost_hook import counted
+from repro_torch.launch import hints
 from repro_torch.models.layers import ROW_BLOCK, in_row_blocks, normal_param
 
 CAPACITY_FACTOR = 1.25
@@ -163,6 +178,11 @@ def expert_ffn(buf, w_gate, w_up, w_down):
     ``(E, 128, d) @ (E, d, f)`` ``torch.bmm`` shape for every block."""
     dt = buf.dtype
     wg, wu, wd = w_gate.to(dt), w_up.to(dt), w_down.to(dt)
+    if buf.device.type == "meta":       # shapes only: the blocks as one
+        nb, e, r, d = buf.shape
+        blk = buf.transpose(0, 1).reshape(e, nb * r, d)
+        y = torch.bmm(F.silu(torch.bmm(blk, wg)) * torch.bmm(blk, wu), wd)
+        return y.view(e, nb, r, -1).transpose(0, 1)
     out = torch.empty_like(buf)
     for i in range(buf.shape[0]):
         blk = buf[i]
@@ -196,15 +216,49 @@ def combine(y_buf, r: Routing, t: int, dtype) -> torch.Tensor:
     return out
 
 
+def groups(t_local: int) -> tuple:
+    """``(G, t)``: the global group count and tokens per group of a call
+    of ``t_local`` tokens on this rank (its chunk of the batch)."""
+    total = t_local * hints.batch_ranks()
+    g = hints.num_data_shards()
+    if total % g or total // g < 1:
+        g = 1
+    return g, total // g
+
+
+def _experts(buf, w_gate, w_up, w_down):
+    """The expert FFN over ``buf`` under the mesh's layout of the experts
+    (module docstring)."""
+    tp = hints.tp_dim(w_gate)
+    if tp is None:
+        return expert_ffn(buf, w_gate, w_up, w_down)
+    if tp == 0:                         # experts over model
+        local = hints.constrain(buf, None, "experts", None, None)
+        return hints.gather_tp(expert_ffn(local, w_gate, w_up, w_down), 1)
+    return hints.constrain(expert_ffn(hints.to_tp(buf), w_gate, w_up,
+                                      w_down), partial=True)
+
+
 def apply_moe(x, router, w_gate, w_up, w_down, k: int):
     """x (B, S, d) -> (B, S, d) (``repro.models.moe.apply_moe``)."""
     b, s, d = x.shape
     e = router.shape[1]
-    t = b * s
-    x2 = x.reshape(t, d)
-    r = route(router_probs(x2, router), k, capacity(t, k, e))
-    y_buf = expert_ffn(dispatch(x2, r), w_gate, w_up, w_down)
-    return combine(y_buf, r, t, x.dtype).view(b, s, d)
+    x2 = x.reshape(b * s, d)
+    _, t = groups(b * s)
+    whole = t > b * s                   # the group spans the data ranks
+    if whole:
+        x2 = hints.gather_batch(x2)
+    cap = capacity(t, k, e)
+    outs = []
+    for i in range(0, x2.shape[0], t):  # this rank's groups
+        xg = x2[i:i + t]
+        r = route(router_probs(xg, router), k, cap)
+        y_buf = _experts(dispatch(xg, r), w_gate, w_up, w_down)
+        outs.append(combine(y_buf, r, t, x.dtype))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    if whole:
+        out = hints.local_rows(out)
+    return out.view(b, s, d)
 
 
 def moe_aux_loss(x, router, k: int):
@@ -215,5 +269,11 @@ def moe_aux_loss(x, router, k: int):
     probs = torch.softmax(x.reshape(-1, x.shape[-1]).float() @ router,
                           dim=-1)
     _, top_i = top_k(probs, k)
-    frac = F.one_hot(top_i, e).float().mean(dim=(0, 1))
-    return e * torch.sum(frac * probs.mean(0))
+    if hints.batch_ranks() == 1:
+        frac = F.one_hot(top_i, e).float().mean(dim=(0, 1))
+        return e * torch.sum(frac * probs.mean(0))
+    # under a mesh: both means over the global batch
+    n = probs.shape[0] * hints.batch_ranks()
+    frac = hints.batch_sum(F.one_hot(top_i, e).float().sum(dim=(0, 1))) \
+        / (n * k)
+    return e * torch.sum(frac * (hints.batch_sum(probs.sum(0)) / n))

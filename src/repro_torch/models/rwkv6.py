@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cost_hook import counted
 from repro_torch.models.layers import const_param, linear, normal_param
 
 _LORA = 64        # ddlerp low-rank dim
@@ -89,9 +90,35 @@ def _prev(x, state):
     return state["shift"].to(x.dtype)
 
 
+@counted("wkv_scan")
+def meta_wkv(r, s0, passes: int = 1):
+    """The work of a meta call's ``_wkv_scan`` (its ``T`` products ``r_t ·
+    S``), ``passes`` times: ``roofline.op_costs`` counts it by formula.
+    Returns the shapes ``(o, sT)``."""
+    return r.new_empty(r.shape), s0.new_empty(s0.shape)
+
+
+class _MetaWKV(torch.autograd.Function):
+    """``_wkv_scan`` on the meta device (the dry-run): the outputs'
+    shapes, and in the backward the scan's products counted twice."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return meta_wkv(r, s0)
+
+    @staticmethod
+    def backward(ctx, g_o, g_s):
+        saved = ctx.saved_tensors
+        meta_wkv(saved[0], saved[5], passes=2)
+        return tuple(torch.zeros_like(t) for t in saved)
+
+
 def _wkv_scan(r, k, v, w, u, s0):
     """r, k, v, w: (B, T, H, dh); u: (H, dh); s0: (B, H, dh, dh).
     Returns (o (B, T, H, dh), sT)."""
+    if r.device.type == "meta":
+        return _MetaWKV.apply(r, k, v, w, u, s0)
     s, outs = s0, []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]      # (B,H,dh,dh)

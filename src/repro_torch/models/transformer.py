@@ -37,6 +37,16 @@ modules, which is how the tests hold the two to the same weights. Its
 leaves may be float32 or, under ``param_dtype="bfloat16"``,
 ``ml_dtypes.bfloat16``.
 
+Under a mesh (``launch.hints``; the parameters are local shards, see
+``launch.steps.local_params``) each block's parameters are gathered for
+its call (``hints.gathered``; inside the remat function, so the backward
+gathers again), the embedding and unembedding keep their vocabulary
+split over ``model`` (a vocabulary-parallel lookup and cross entropy;
+the logits leave this rank's columns, the reference's ``vocab``
+constraint), and the residual stream stays whole on every rank of
+``model`` (the reference's ``batch``/``seq`` constraints at the block
+boundary and after the final norm move nothing in the port).
+
 ``param_dtype`` is honoured as the JAX package honours it, which casts
 every leaf: projections, biases and embeddings hold ``param_dtype``-
 rounded values in the compute dtype (the reference casts them to it at
@@ -60,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
 from repro_torch.kernels.common import device_tensor
+from repro_torch.launch import hints
 from repro_torch.models.attention import Attention
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
@@ -263,7 +274,15 @@ class Transformer(nn.Module):
                 **kw)
 
     def unembed_weight(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.unembed
+        """The unembedding (d, V) (under a mesh, gathered as
+        ``hints.param`` gathers it: vocabulary-parallel columns)."""
+        if not self.cfg.tie_embeddings:
+            return hints.param(self.unembed)
+        table = hints.param(self.embed)
+        w = table.T
+        if hints.tp_dim(table) is not None:
+            w._tp_dim = 1
+        return w
 
 
 def init_model(cfg, *, seed: int = 0, device="cuda") -> Transformer:
@@ -431,7 +450,7 @@ def _encode(model: Transformer, cfg, frontend):
     dev, dt = model.embed.device, cfg.compute_dtype()
     mem = torch.as_tensor(frontend, device=dev).to(dt)
     if hasattr(model, "frontend_proj"):
-        mem = linear(mem, model.frontend_proj)
+        mem = linear(mem, hints.param(model.frontend_proj))
     if cfg.n_encoder_layers:
         s = mem.shape[1]
         if cfg.sinusoidal_pos:
@@ -441,8 +460,16 @@ def _encode(model: Transformer, cfg, frontend):
         positions = torch.arange(s, dtype=torch.int32, device=dev)
         for blk in model.encoder:
             mem, _ = _train_block(blk, mem, enc_cfg, positions, None)
-        mem = apply_norm(model.encoder_norm, mem)
+        mem = _final_norm(model.encoder_norm, mem)
     return mem
+
+
+def _final_norm(norm, x):
+    """A norm outside the blocks, its parameters gathered under a mesh."""
+    if isinstance(norm, nn.Module):
+        with hints.gathered(norm):
+            return apply_norm(norm, x)
+    return apply_norm(hints.param(norm), x)
 
 
 def _train_block(blk, x, cfg, positions, mem):
@@ -453,8 +480,9 @@ def _train_block(blk, x, cfg, positions, mem):
     changes memory and time, never the gradients."""
     def run(x, mem):
         got = []
-        y, _ = blk(x, cfg=cfg, positions=positions, cache=None,
-                   mode="train", mem=mem, aux=got)
+        with hints.gathered(blk):           # per layer, again under remat
+            y, _ = blk(x, cfg=cfg, positions=positions, cache=None,
+                       mode="train", mem=mem, aux=got)
         return y, (got[0] if got else None)
     if cfg.remat and torch.is_grad_enabled():
         return checkpoint(run, x, mem, use_reentrant=False)
@@ -485,7 +513,7 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
     ``_train_block`` (remat)."""
     dev = model.embed.device
     tokens = torch.as_tensor(tokens, device=dev).long()
-    x = embed(model.embed, tokens)
+    x = embed(hints.param(model.embed), tokens)
     if cfg.embed_scale:
         x = x * embed_scale(cfg, x.dtype, dev)
     s = tokens.shape[1]
@@ -518,31 +546,46 @@ def forward(model: Transformer, tokens, cfg, *, mode="train", caches=None,
                 if a is not None and return_aux:
                     aux = aux + a
                 continue
-            x, nc = blk(x, cfg=cfg, positions=positions,
-                        cache=None if caches is None else caches[i],
-                        mode=mode, mem=mem, lengths=lengths, live=live,
-                        q_lens=q_lens)
+            with hints.gathered(blk):
+                x, nc = blk(x, cfg=cfg, positions=positions,
+                            cache=None if caches is None else caches[i],
+                            mode=mode, mem=mem, lengths=lengths, live=live,
+                            q_lens=q_lens)
             if new_caches is not None:
                 new_caches.append(nc)
         if return_aux:
             aux_total = aux_total + aux
         start = stop
-    x = apply_norm(model.final_norm, x)
+    x = _final_norm(model.final_norm, x)
     out = x if skip_unembed \
         else unembed(model.unembed_weight(), x, cfg.logit_softcap)
     return (out, new_caches, aux_total) if return_aux else (out, new_caches)
 
 
-def _ce(logits, targets):
+def _ce(logits, targets, vocab_parallel=False):
     """Summed cross entropy of float32 ``logits`` (B, S, V) at the int
-    ``targets`` (B, S): ``logsumexp - gold logit``."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ``targets`` (B, S): ``logsumexp - gold logit``. ``vocab_parallel``:
+    the logits are this rank's columns of the vocabulary (``hints``),
+    and the max, the sum of exponentials and the gold logit are reduced
+    over ``model``."""
+    if not vocab_parallel:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+        return (logz - gold).sum()
+    n = logits.shape[-1]
+    with torch.no_grad():
+        top = hints.all_reduce(logits.amax(dim=-1), "model", op="max")
+    logz = torch.log(hints.reduce_tp(
+        torch.exp(logits - top[..., None]).sum(dim=-1))) + top
+    local = targets.long() - hints.tp_rank() * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = hints.reduce_tp(torch.where(inside, gold, gold.new_zeros(())))
     return (logz - gold).sum()
 
 
-def _chunk_ce(w, x, targets, softcap):
-    return _ce(unembed(w, x, softcap), targets)
+def _chunk_ce(w, x, targets, softcap, vocab_parallel):
+    return _ce(unembed(w, x, softcap), targets, vocab_parallel)
 
 
 def loss_fn(model: Transformer, batch, cfg, aux_weight: float = 0.01):
@@ -554,14 +597,21 @@ def loss_fn(model: Transformer, batch, cfg, aux_weight: float = 0.01):
     ``cfg.ce_chunks > 1`` evaluates the unembedding and the cross entropy
     in that many sequence chunks (fewer when the chunks would not divide
     the sequence), each recomputed in the backward, so the (B, S, V)
-    float32 logits never exist whole."""
+    float32 logits never exist whole.
+
+    Under a mesh (``hints``) the batch is this rank's chunk: ``nll`` is
+    its share of the global mean (the shares sum to it), ``aux`` the
+    global value."""
     tokens = torch.as_tensor(batch["tokens"], device=model.embed.device)
     targets = tokens[:, 1:]
+    count = targets.numel() * hints.batch_ranks()
     frontend = batch.get("frontend")
+    vp = hints.tp_size() > 1 and hints.tp_dim(
+        model.embed if cfg.tie_embeddings else model.unembed) is not None
     if cfg.ce_chunks <= 1:
         logits, _, aux = forward(model, tokens[:, :-1], cfg, mode="train",
                                  frontend=frontend, return_aux=True)
-        nll = _ce(logits, targets) / targets.numel()
+        nll = _ce(logits, targets, vp) / count
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
     x, _, aux = forward(model, tokens[:, :-1], cfg, mode="train",
                         frontend=frontend, skip_unembed=True,
@@ -575,10 +625,10 @@ def loss_fn(model: Transformer, batch, cfg, aux_weight: float = 0.01):
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(nc):
         part = (w, x[:, i * c:(i + 1) * c], targets[:, i * c:(i + 1) * c],
-                cfg.logit_softcap)
+                cfg.logit_softcap, vp)
         tot = tot + (checkpoint(_chunk_ce, *part, use_reentrant=False)
                      if torch.is_grad_enabled() else _chunk_ce(*part))
-    nll = tot / targets.numel()
+    nll = tot / count
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 

@@ -24,6 +24,11 @@ is the float32 widening of the bfloat16 cotangent. Its new value is
 rounded to ``grad_dtype`` and then to the storage dtype, the value the
 reference's next step computes with.
 
+Under a mesh the parameters, gradients and state are DTensors placed
+alike (``launch.sharding.opt_state_shardings``): the update runs on each
+rank's local shards, and the global norm sums each leaf's local sum of
+squares over the axes it is sharded on.
+
 A master copy (float32) is kept when any stored leaf is bfloat16, the
 JAX package's rule on its own leaves: such a leaf cannot hold the
 float32 parameter. The clip runs leaf by leaf inside the update loop, so
@@ -107,15 +112,46 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * frac
 
 
+def _local(t):
+    """A DTensor's local shard; any other tensor as is."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def _sharded_axes(t) -> tuple:
+    """``(mesh, axes)``: the mesh axes of size > 1 a DTensor is sharded
+    over (``(None, ())`` for any other tensor)."""
+    if not hasattr(t, "placements"):
+        return None, ()
+    mesh = t.device_mesh
+    axes = tuple(a for a, pl, n in zip(mesh.mesh_dim_names, t.placements,
+                                      mesh.shape, strict=True)
+                 if pl.is_shard() and n > 1)
+    return mesh, axes
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares
-    (the leaves of a dict, in its order; None counts as zeros)."""
+    (the leaves of a dict, in its order; None counts as zeros). A
+    sharded DTensor leaf's local sums are summed over its axes, one
+    all-reduce per set of axes."""
+    from repro_torch.launch import hints
     leaves = [g for g in (grads.values() if isinstance(grads, dict)
                           else grads) if g is not None]
     total = None
+    sharded = {}
     for g in leaves:
-        sq = torch.sum(torch.square(g.float()))
+        mesh, axes = _sharded_axes(g)
+        sq = torch.sum(torch.square(_local(g).float()))
+        if axes:
+            key = (id(mesh), axes)
+            part = sharded.get(key, (mesh, None))[1]
+            sharded[key] = (mesh, sq if part is None else part + sq)
+            continue
         total = sq if total is None else total + sq
+    for (_, axes), (mesh, part) in sharded.items():
+        for a in axes:
+            part = hints.all_reduce(part, a, mesh=mesh)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
@@ -141,29 +177,31 @@ def adamw_update(grads: dict, opt_state: OptState, params: dict,
     {"grad_norm", "lr"})``; ``mu``, ``nu`` and ``master`` are updated in
     place."""
     with torch.no_grad():
-        some = next(iter(params.values()))
+        local = {n: _local(p) for n, p in params.items()}
+        some = next(iter(local.values()))
 
         def grad(n):
             g = grads.get(n)
             if g is None:
-                g = torch.zeros_like(params[n])
+                g = torch.zeros_like(local[n])
             return g if grad_dtype is None else g.to(grad_dtype)
 
         norm = global_norm(grad(n) for n in params)
         scale = _clip_scale(norm, cfg.clip_norm)
-        count = opt_state.count + 1
+        count = _local(opt_state.count) + 1
         lr = lr_schedule(cfg, count)
         cnt = count.float()
         b1c = 1 - torch.pow(_f32(cfg.b1, some), cnt)
         b2c = 1 - torch.pow(_f32(cfg.b2, some), cnt)
-        for n, p in params.items():
-            g = grad(n)
+        for n, p in local.items():
+            g = _local(grad(n))
             g = (g * scale.to(g.dtype)).float()
-            m, v = opt_state.mu[n], opt_state.nu[n]
+            m, v = _local(opt_state.mu[n]), _local(opt_state.nu[n])
             m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
             v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
             del g
-            w32 = None if opt_state.master is None else opt_state.master[n]
+            w32 = None if opt_state.master is None \
+                else _local(opt_state.master[n])
             base = w32 if w32 is not None else p.float()
             # no decay on scalar leaves (quant scales, gates): decaying a
             # calibrated scale toward 0 corrupts the integer serve path

@@ -26,9 +26,21 @@ what one step runs:
   runs, the CUDA kernel or, on the CPU, its plain version: the aten ops
   inside a counted kernel call are not counted again.
 
+- Collectives (``torch.ops._c10d_functional``: all-gather,
+  reduce-scatter, all-reduce, all-to-all, the ops of ``launch.hints``
+  and of DTensor's redistributions) are counted by kind: calls and
+  operand bytes, the reference's collective term.
+
 The kernels and scopes are seen through ``core.cost_hook``: the counter
 is the hook while it counts, and every wrapper and scope is decorated
 with ``counted``, so no call site escapes it.
+
+On the meta device (the dry-run) the masks hold no values: a call's
+work is counted for the cell's full context, every row attending a
+K/V of the call's full length (causal rows at the end of it); and the
+streaming attention's chunk loop and RWKV6's token scan are counted by
+formula (``streaming_work``, ``wkv_work``: their products in float32, as
+the CPU and the card run them).
 
 A CUDA-graph replay runs no Python and records nothing, so the counter
 counts a step run once eagerly; it refuses to run while a graph is
@@ -55,6 +67,11 @@ _MATMULS = {
     _aten.addmm: (1, 2), _aten.baddbmm: (1, 2), _aten.dot: (0, 1),
     _aten.mv: (0, 1), _aten.matmul: (0, 1), _aten.linear: (0, 1),
 }
+_c10d = torch.ops._c10d_functional
+COLLECTIVES = {_c10d.all_gather_into_tensor: "all-gather",
+               _c10d.reduce_scatter_tensor: "reduce-scatter",
+               _c10d.all_reduce: "all-reduce",
+               _c10d.all_to_all_single: "all-to-all"}
 PAGED = ("ita_attention_onepass_paged", "ita_attention_decode_paged")
 # attention wrapper of ``kernels.ita_attention.ops`` -> counted kernel
 _ATTENTION = ("ita_attention_onepass", "ita_attention_decode",
@@ -76,6 +93,8 @@ def visible_work(args, kw):
     from repro_torch.kernels.ita_attention import kernel as K
     q, k = args[:2]
     bh, sq, _ = q.shape
+    if q.device.type == "meta":
+        return _full_context_work(bh, sq, k.shape[1], kw)
     _, _, meta = K.row_operands(*args[:6], kw.get("q_offset", 0),
                                 kw.get("q_len"), kw.get("kv_rep", 1),
                                 kw.get("hq"))
@@ -89,6 +108,23 @@ def visible_work(args, kw):
     rep = kw.get("kv_rep", 1)
     kv_tokens = int(reach.view(-1, rep).amax(1).sum().item())
     return int(valid.sum().item()), kv_tokens, meta
+
+
+def _full_context_work(bh, sq, skv, kw):
+    """``visible_work`` of a meta call: each row's queries the last
+    ``sq`` positions of a full ``skv`` context when causal (window
+    ``kw["window"]``), every key otherwise."""
+    import numpy as np
+    causal, window = kw.get("causal", True), kw.get("window", 0)
+    if causal:
+        pos = skv - sq + np.arange(sq)
+        lo = np.maximum(0, pos - window + 1) if window else 0
+        per_row = int((pos - lo + 1).sum())
+    else:
+        per_row = sq * skv
+    rep = kw.get("kv_rep", 1)
+    return bh * per_row, bh // rep * skv, torch.empty((bh, 3),
+                                                      device="meta")
 
 
 def attention_work(name, args, kw):
@@ -138,8 +174,36 @@ def softmax_work(x, mask):
     the mask is set (a masked element's output is 0 whatever x holds),
     the mask read and the f32 output written at every element; ~10
     integer ops (DA and EN) per unmasked element."""
-    live = int((mask != 0).sum().item())
+    live = mask.numel() if mask.device.type == "meta" \
+        else int((mask != 0).sum().item())
     return live + mask.numel() + x.numel() * 4, 10 * live
+
+
+def streaming_work(q, k, steps, cq, ckv, passes=1):
+    """``(FLOPs, bytes)`` of ``steps`` chunk pairs of the streaming
+    attention, ``passes`` times: per pair a Q·Kᵀ and a weights·V product
+    of ``cq`` queries by ``ckv`` keys over every head, their float32
+    operands and results charged once."""
+    b, _, h, hd = q.shape
+    g = k.shape[2]
+    flops = 4 * b * h * cq * ckv * hd
+    nbytes = 4 * (2 * b * h * cq * hd + 2 * b * g * ckv * hd
+                  + 2 * b * h * cq * ckv)
+    return steps * passes * flops, steps * passes * nbytes
+
+
+def wkv_work(r, s0, passes=1):
+    """``(FLOPs, bytes)`` of RWKV6's WKV scan over ``T`` tokens,
+    ``passes`` times: per token the (1, dh) · (dh, dh) product of every
+    head, its float32 operands and result charged once."""
+    b, t, h, dh = r.shape
+    return (passes * t * 2 * b * h * dh * dh,
+            passes * t * 4 * (2 * b * h * dh + b * h * dh * dh))
+
+
+# a meta call's scope (``core.cost_hook`` name) -> (family, its work)
+_META_WORK = {"streaming_attention": ("attention", streaming_work),
+              "wkv_scan": ("dense", wkv_work)}
 
 
 def matmul_work(m, k, n):
@@ -190,6 +254,8 @@ class Costs:
     kernel_ops: dict = dataclasses.field(default_factory=dict)
     kernel_bytes: dict = dataclasses.field(default_factory=dict)
     kernel_calls: dict = dataclasses.field(default_factory=dict)
+    coll_bytes: dict = dataclasses.field(default_factory=dict)  # kind ->
+    coll_calls: dict = dataclasses.field(default_factory=dict)
 
     @property
     def matmul_flops(self) -> float:
@@ -200,7 +266,8 @@ class Costs:
         return Roofline(
             flops=self.matmul_flops + ops,
             hbm_bytes=self.matmul_bytes + sum(self.kernel_bytes.values()),
-            coll_bytes=0.0, model_flops=model_flops_, chips=chips,
+            coll_bytes=float(sum(self.coll_bytes.values())),
+            model_flops=model_flops_, chips=chips,
             flops_int8=self.flops_by_dtype["int8"] + ops,
             flops_fp32=self.flops_by_dtype["fp32"])
 
@@ -281,9 +348,16 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        c = self.costs
+        kind = COLLECTIVES.get(func.overloadpacket)
+        if kind is not None:
+            x = args[0]
+            c.coll_bytes[kind] = c.coll_bytes.get(kind, 0) \
+                + x.numel() * x.element_size()
+            c.coll_calls[kind] = c.coll_calls.get(kind, 0) + 1
+            return out
         if self.inside_kernel or func.overloadpacket not in _MATMULS:
             return out
-        c = self.costs
         flops = _matmul_flops(func, args, out)
         fam = self.family()
         c.flops[fam] = c.flops.get(fam, 0.0) + flops
@@ -299,6 +373,14 @@ class OpCounter(TorchDispatchMode):
         (computed before the call, with the matmul count off, and the
         aten ops inside the call not counted), or a scope's call run
         inside that scope."""
+        c = self.costs
+        if name in _META_WORK:                       # a meta call
+            family, work = _META_WORK[name]
+            flops, nbytes = work(*args, **kw)
+            c.flops[family] = c.flops.get(family, 0.0) + flops
+            c.flops_by_dtype["fp32"] += flops
+            c.matmul_bytes += nbytes
+            return fn(*args, **kw)
         if name in _SCOPES:
             self.scopes.append(_Scope(*_SCOPES[name]))
             try:
@@ -311,7 +393,6 @@ class OpCounter(TorchDispatchMode):
             out = fn(*args, **kw)
         finally:
             self.inside_kernel -= 1
-        c = self.costs
         for kname, (nbytes, ops) in done:
             c.kernel_ops[kname] = c.kernel_ops.get(kname, 0) + ops
             c.kernel_bytes[kname] = c.kernel_bytes.get(kname, 0) + nbytes

@@ -4,12 +4,15 @@
 A record is one JSON object per path, as ``chip_smoke.py`` prints them
 on its ``{"roofline": [...]}`` line: the path, the config and shape, the
 card (``nvidia-smi``'s name and power limit), ``Roofline.row()`` and the
-measured step with its ``mfu`` and ``share``.
+measured step with its ``mfu`` and ``share``; or one dry-run cell, as
+``launch.dryrun --out`` writes them (``arch``, ``shape``, ``mesh``,
+``status``, ``memory``, ``collectives``, ``roofline``).
 
     python -m repro_torch.roofline.render chip_smoke.log
+    python -m repro_torch.roofline.render dryrun.jsonl
 
-reads every ``{"roofline": ...}`` line of a log (or a file of one record
-a line) and prints the table.
+reads every ``{"roofline": ...}`` line of a log, and every record line
+of a file, and prints the tables.
 """
 
 from __future__ import annotations
@@ -28,9 +31,9 @@ def load(path):
             if not line.startswith("{"):
                 continue
             obj = json.loads(line)
-            if "roofline" in obj:
+            if isinstance(obj.get("roofline"), list):
                 recs.extend(obj["roofline"])
-            elif "path" in obj:
+            elif "path" in obj or "arch" in obj:
                 recs.append(obj)
     return recs
 
@@ -77,13 +80,48 @@ def flops_table(recs):
     return hdr + "\n".join(rows) + "\n"
 
 
+def _gib(n):
+    return f"{n / 2**30:.2f}"
+
+
+def dryrun_table(recs):
+    """One row per dry-run cell: per-device GiB of the arguments, outputs
+    and temporaries, the counted FLOPs and collective bytes per device,
+    the roofline's terms, bottleneck and useful share."""
+    hdr = ("| arch | shape | mesh | status | args GiB | out GiB | temp GiB "
+           "| FLOPs | coll bytes | compute | memory | collective | "
+           "bottleneck | useful |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|\n")
+    rows = []
+    for r in recs:
+        if r["status"] != "ok":
+            rows.append(f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+                        f"fail: {r.get('error', '')[:60]} |" + " |" * 10)
+            continue
+        m, f = r["memory"], r["roofline"]
+        rows.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | ok | "
+            f"{_gib(m['argument_bytes'])} | {_gib(m['output_bytes'])} | "
+            f"{_gib(m['temp_bytes'])} | {f['flops']:.3e} | "
+            f"{f['coll_bytes']:.3e} | {_fmt_s(f['compute_s'])} | "
+            f"{_fmt_s(f['memory_s'])} | {_fmt_s(f['collective_s'])} | "
+            f"**{f['bottleneck']}** | {f['useful_ratio']:.3f} |")
+    return hdr + "\n".join(rows) + "\n"
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     recs = load(argv[0])
-    print("### Roofline\n")
-    print(roofline_table(recs))
-    print("\n### Counted work\n")
-    print(flops_table(recs))
+    cells = [r for r in recs if "arch" in r]
+    paths = [r for r in recs if "arch" not in r]
+    if cells:
+        print("### Dry-run\n")
+        print(dryrun_table(cells))
+    if paths:
+        print("### Roofline\n")
+        print(roofline_table(paths))
+        print("\n### Counted work\n")
+        print(flops_table(paths))
 
 
 if __name__ == "__main__":

@@ -9,7 +9,10 @@ driver with checkpoint/restart, and seeded fault injection for
   OptState}`` with the pipeline's state in ``extra`` (the ``step_%08d``
   family of ``checkpoint.Checkpointer``); ``maybe_restore`` loads the
   newest into the model in place and replays the pipeline to its step,
-  so training continues bit for bit.
+  so training continues bit for bit. Under a mesh the checkpoint holds
+  whole tensors, and ``param_shardings``/``opt_shardings`` place them
+  onto the TrainDriver's mesh, which may differ from the one that saved it
+  (the elastic re-mesh).
 - **Stragglers**: the shared ``runtime.watchdog.StragglerWatchdog``
   (also run by the serve loop over its segments) flags steps slower than
   ``straggler_factor`` times the moving median; a persistent straggler
@@ -168,11 +171,14 @@ class TrainDriver:
     """Runs ``train_step(model, opt_state, batch) -> (opt_state,
     metrics)`` (``launch.steps.make_train_step``) over ``pipeline``,
     checkpointing and restoring as the module docstring says. The model
-    is trained in place; this object holds ``opt_state``."""
+    is trained in place; this object holds ``opt_state``.
+    ``param_shardings``/``opt_shardings`` (``launch.sharding``): where a
+    restore places the parameters and the optimizer state."""
 
     def __init__(self, ft: FTConfig, train_step, model, opt_state,
-                 pipeline):
+                 pipeline, param_shardings=None, opt_shardings=None):
         self.ft = ft
+        self.p_sh, self.o_sh = param_shardings, opt_shardings
         self.step_fn = train_step
         self.model = model
         self.opt_state = opt_state
@@ -196,7 +202,10 @@ class TrainDriver:
         latest = self.ckpt.latest_step()
         if latest is None:
             return False
-        restored, meta = self.ckpt.restore(self._state(), step=latest)
+        shards = ({"params": self.p_sh, "opt": self.o_sh}
+                  if self.p_sh is not None else None)
+        restored, meta = self.ckpt.restore(self._state(), step=latest,
+                                           shardings=shards)
         with torch.no_grad():
             for n, p in self.model.named_parameters():
                 p.copy_(restored["params"][n])
