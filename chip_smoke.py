@@ -270,7 +270,21 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    deterministic version is named); each save's bytes and the caller's
    seconds, in a temporary directory removed afterwards. (d) phi3-smoke's
    train step on the card against the CPU's: ``float`` within 1e-5,
-   ``ita``'s loss within 5e-3 (a flipped ``s_out`` tie).
+   ``ita``'s loss within 5e-3 (a flipped ``s_out`` tie). (e)
+   whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+   layers, 1.55 B parameters; bf16 storage, a float32 master), two
+   AdamW steps at 4 x 448 tokens over a seeded 4 x 1500-frame float32
+   frontend, (i) under its own ``remat_policy="dots"`` and (ii) from seed
+   0 again under ``"full"``: each step's seconds and the peak
+   allocation; gates: losses equal bit for bit, every parameter, master
+   and moment of (ii) equal to (i)'s (``torch.equal`` on the card), and
+   the bytes one ``loss_fn`` forward holds for its backward, dots minus
+   full, within 2% of the kept ``mm`` outputs' bytes from the shapes
+   (``dots_saved_bytes``). The trained weights then served through B2:
+   ``generate()`` pinned to onepass on rings, 4 x 64 prompt tokens, 16
+   new, fused twice and stepwise with equal tokens and launches, layer
+   0's self and cross calls held to plain; the ``whisper_trained``
+   sub-row.
 
 13. The roofline of four paths (``repro_torch.roofline``), each inside
    the frame where its model already lives: qwen2-7b (a)'s chunked
@@ -303,11 +317,13 @@ CUDA toolkit (``nvcc``). Phases, each fatal on failure:
    then the model sharded in place (``shard_model``; no parameter
    copied) and the same greedy runs through ``shard_cell``'s prefill and
    decode steps: tokens and launches (B4 in (a), B2 in (b)) equal to the
-   unsharded runs'. (b) phi3-mini-3.8b at full width cut to 8 layers:
-   two steps of ``shard_train_step`` against ``make_train_step`` from
-   the same seed on the same batch, losses, parameters and AdamW moments
-   bit-identical. (c) ``compressed_psum`` over the NCCL group, equal to
-   its formula. (d) meanwhile, on the CPU in subprocesses,
+   unsharded runs'. (b) phi3-mini-3.8b at full width cut to 8 layers,
+   then whisper-large-v3 at full width cut to 2 encoder and 2 decoder
+   layers under its ``fsdp`` and ``remat_policy="dots"`` (4 x 448
+   tokens, a seeded frontend): two steps of ``shard_train_step`` against
+   ``make_train_step`` from the same seed on the same batch, losses,
+   parameters and AdamW moments bit-identical. (c) ``compressed_psum``
+   over the NCCL group, equal to its formula. (d) meanwhile, on the CPU in subprocesses,
    ``python -m repro_torch.launch.dryrun`` on the (16, 16) mesh's cells
    qwen2-7b decode_32k, mixtral-8x7b train_4k and llama-3.2-vision-90b
    prefill_32k, all ``ok``, each record's per-device bytes and
@@ -2469,8 +2485,10 @@ def profile_run(label, fn):
     """Device time by kernel over one call of ``fn`` (``torch.profiler``,
     device activity only: host op records would cost more than the run),
     the device's busy share of its wall time (the profiler's own host
-    cost inflates the wall time) and the kernels launched. Returns what
-    ``fn`` returned and the busy share."""
+    cost inflates the wall time) and the kernels launched. The device
+    events are summed from the profiler's raw records: ``key_averages()``
+    over a train step's ~200,000 kernels takes ~40 s. Returns what ``fn``
+    returned and the busy share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2479,23 +2497,27 @@ def profile_run(label, fn):
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n = sum(e.count for e in kernels)
+    kernels = {}                         # name -> [device ms, launches]
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name(), [0.0, 0])
+            k[0] += e.duration_ns() / 1e6
+            k[1] += 1
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    n = sum(c for _, c in kernels.values())
     log(f"[profile] {label}: wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({busy_ms / wall_ms:.1%}), {n} kernel launches; "
         f"top kernels by device time:")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.2f} ms "
-            f"{e.count:6d} x  {e.key[:90]}")
+    for name, (ms, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[
+            :10]:
+        log(f"[profile]   {ms:9.2f} ms {c:6d} x  {name[:90]}")
     for kernel in ("onepass_kernel", "decode_kernel"):
-        found = [e for e in kernels if kernel in e.key]
-        ms = sum(e.self_device_time_total for e in found) / 1e3
-        n = sum(e.count for e in found)
-        if n:
-            log(f"[profile] {label}: {kernel} {ms:.2f} ms over {n} "
-                f"launches ({ms / n:.5f} ms each), {ms / busy_ms:.1%} of "
+        found = [v for name, v in kernels.items() if kernel in name]
+        ms = sum(v[0] for v in found)
+        c = sum(v[1] for v in found)
+        if c:
+            log(f"[profile] {label}: {kernel} {ms:.2f} ms over {c} "
+                f"launches ({ms / c:.5f} ms each), {ms / busy_ms:.1%} of "
                 f"device time")
     return out, busy_ms / wall_ms
 
@@ -4179,10 +4201,10 @@ RESUME_STEPS = 6                 # 12c: 6 straight against 3 + restore + 3
 QAT_SCALES = ("s_q", "s_k", "s_v", "s_out")
 
 
-def train_setup(cfg, steps, device=DEV, seed=0):
+def train_setup(cfg, steps, device=DEV, seed=0, seq=TRAIN_SEQ):
     """``cfg``'s model (random weights from ``seed``) with its AdamW state
     and train step (lr ``TRAIN_LR``, warmup 1), and its synthetic batch
-    pipeline at ``TRAIN_B`` x ``TRAIN_SEQ``."""
+    pipeline at ``TRAIN_B`` x ``seq``."""
     from repro_torch.data.pipeline import DataPipeline, SyntheticSource
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import init_model
@@ -4193,7 +4215,7 @@ def train_setup(cfg, steps, device=DEV, seed=0):
     step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                                             total_steps=steps))
     pipe = DataPipeline(SyntheticSource(cfg.vocab_size, seed=seed),
-                        batch=TRAIN_B, seq_len=TRAIN_SEQ, device=device)
+                        batch=TRAIN_B, seq_len=seq, device=device)
     return model, opt_state, step, pipe
 
 
@@ -4444,11 +4466,231 @@ def train_step_card_vs_cpu():
     return out
 
 
+WHISPER_TRAIN_STEPS = 2             # 12e: AdamW steps under each policy
+WHISPER_TRAIN_SEQ = 448             # 12e: whisper's decoder context
+WHISPER_TRAIN_LAYERS = 32           # 12e: encoder and decoder depth (of 32)
+WHISPER_SERVE_PROMPT, WHISPER_SERVE_GEN = 64, 16
+DOTS_TOL = 0.02                     # 12e: kept bytes against the formula
+
+
+def dots_saved_bytes(cfg, batch, seq):
+    """The ``mm`` outputs ``remat_policy="dots"`` keeps from one forward
+    of a whisper-like stack (``enc`` blocks and ``attn_cross`` blocks with
+    the GELU MLP), from the shapes: each ``linear`` of a block computes
+    its rows in whole 128-row blocks, in the compute dtype. Encoder
+    layer: Q, K, V, the output and both MLP projections over the
+    ``batch x n_frontend_tokens`` frames; decoder layer: self Q, K, V and
+    output, cross Q and output, both MLP projections over ``batch x
+    seq`` tokens, and the cross K and V over the frames. Returns bytes
+    by part."""
+    import torch
+
+    from repro_torch.roofline.op_costs import padded_rows
+    kinds = {k for pat, _ in cfg.layer_groups for k in pat}
+    if kinds != {"attn_cross"} or cfg.mlp_type != "gelu":
+        raise ValueError(f"dots_saved_bytes covers whisper's blocks, not "
+                         f"{sorted(kinds)} with {cfg.mlp_type}")
+    size = torch.empty((), dtype=cfg.compute_dtype()).element_size()
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    frames = padded_rows(batch * cfg.n_frontend_tokens)
+    tokens = padded_rows(batch * seq)
+    mlp = ff + d
+    return {"encoder": size * frames * (q + 2 * kv + d + mlp)
+            * cfg.n_encoder_layers,
+            "decoder": size * tokens * (q + 2 * kv + d + q + d + mlp)
+            * cfg.n_layers,
+            "cross_kv": size * frames * 2 * kv * cfg.n_layers}
+
+
+def forward_held_bytes(model, cfg, batch):
+    """Bytes ``loss_fn``'s forward leaves allocated for its backward (read
+    before ``.backward()``, which never runs: the graph is dropped)."""
+    import torch
+
+    from repro_torch.models import loss_fn
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss, _ = loss_fn(model, batch, cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    del loss
+    gc.collect()
+    return held
+
+
+def whisper_train_policy(cfg, frontend, label):
+    """12e (i)/(ii): whisper from seed 0, ``WHISPER_TRAIN_STEPS`` steps of
+    ``make_train_step`` under ``cfg.remat_policy`` on the pipeline's
+    tokens and ``frontend``; every attention call on ``ita_chunked_xla``
+    in train mode, no kernel launched. Returns the model, its AdamW state
+    and the figures (each step's seconds and loss tensor, the last step
+    profiled and its busy share; the peak allocation, printed also above
+    the state resident at the first step; the batches)."""
+    import torch
+    model, opt_state, step, pipe = train_setup(cfg, WHISPER_TRAIN_STEPS,
+                                               seq=WHISPER_TRAIN_SEQ)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses, batches, busy = [], [], [], [0.0]
+
+    def steps():
+        nonlocal opt_state
+        for i in range(WHISPER_TRAIN_STEPS):
+            batch = {"tokens": pipe.next()["tokens"], "frontend": frontend}
+            batches.append(batch)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == WHISPER_TRAIN_STEPS - 1:
+                (opt_state, m), busy[0] = profile_run(
+                    f"12e {label} ({cfg.remat_policy}) train step",
+                    lambda: step(model, opt_state, batch))
+            else:
+                opt_state, m = step(model, opt_state, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(m["loss"].clone())
+            log(f"[phase12] 12e {label} ({cfg.remat_policy}) step {i + 1}: "
+                f"loss {float(m['loss']):.6f}, grad norm "
+                f"{float(m['grad_norm']):.4f}, {secs[-1]:.3f} s")
+    reset_launches()
+    _, seen = served_by(steps)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if set(seen) != {("ita_chunked_xla", "train")}:
+        raise AssertionError(f"12e {label}: attention served by {seen}")
+    if any(launches.values()):
+        raise AssertionError(f"12e {label}: a fused kernel launched: "
+                             f"{launches}")
+    if not all(math.isfinite(float(x)) for x in losses):
+        raise AssertionError(f"12e {label}: non-finite loss {losses}")
+    log(f"[phase12] 12e {label} ({cfg.remat_policy}): step s "
+        f"{', '.join(f'{x:.3f}' for x in secs)} (the last profiled, busy "
+        f"{busy[0]:.1%}); peak allocated "
+        f"{peak / 1e9:.2f} GB, {(peak - resident) / 1e9:.2f} GB above the "
+        f"{resident / 1e9:.2f} GB resident at the first step; "
+        f"{card_line()}")
+    return model, opt_state, {"secs": secs, "losses": losses, "peak": peak,
+                              "busy": busy[0], "batches": batches}
+
+
+def whisper_train_phase(checks):
+    """12e: whisper-large-v3 at full width (``WHISPER_TRAIN_LAYERS`` of its
+    32 encoder and 32 decoder layers; bf16 storage, a float32 master),
+    trained on ``TRAIN_B`` x ``WHISPER_TRAIN_SEQ`` tokens over a seeded
+    1500-frame float32 frontend: (i) under its own ``remat_policy="dots"``
+    and (ii) from seed 0 again under ``"full"``. Gates: losses equal bit
+    for bit, and after the last step every parameter, master, ``mu`` and
+    ``nu`` of (ii) ``torch.equal`` to (i)'s (both states on the card);
+    the bytes one ``loss_fn`` forward holds for its backward, dots minus
+    full, within ``DOTS_TOL`` of ``dots_saved_bytes``. Then the trained
+    weights served through B2 (``cross_generate``: pinned to onepass on
+    rings, fused twice and stepwise, launches counted, layer 0's self and
+    cross calls held to plain). Returns the figures and the B2 sub-row."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    full = get_config("whisper-large-v3", attention_impl="ita")
+    if full.remat_policy != "dots":
+        raise AssertionError(f"12e: whisper's policy {full.remat_policy}")
+    cfg = dataclasses.replace(
+        full, n_encoder_layers=WHISPER_TRAIN_LAYERS,
+        layer_groups=((full.layer_groups[0][0], WHISPER_TRAIN_LAYERS),))
+    frontend = torch.randn((TRAIN_B, cfg.n_frontend_tokens,
+                            cfg.frontend_dim),
+                           generator=torch.Generator().manual_seed(13)
+                           ).to(DEV)
+    runs = {}
+    for label, policy in (("(i)", "dots"), ("(ii)", "full")):
+        runs[policy] = whisper_train_policy(
+            dataclasses.replace(cfg, remat_policy=policy), frontend, label)
+        gc.collect()
+    (m_d, o_d, dots), (model, opt_state, fullr) = runs["dots"], runs["full"]
+    n_params = sum(p.numel() for p in model.parameters())
+    if not all(torch.equal(a, b) for a, b in zip(dots["losses"],
+                                                fullr["losses"])):
+        raise AssertionError(f"12e: losses differ: {dots['losses']} != "
+                             f"{fullr['losses']}")
+    got = dict(m_d.named_parameters())
+    compared = 0
+    for n, p in model.named_parameters():
+        for a, b_ in ((p, got[n]), (opt_state.master[n], o_d.master[n]),
+                      (opt_state.mu[n], o_d.mu[n]),
+                      (opt_state.nu[n], o_d.nu[n])):
+            if not torch.equal(a, b_):
+                raise AssertionError(f"12e: {n} differs between dots and "
+                                     f"full after step "
+                                     f"{WHISPER_TRAIN_STEPS}")
+            compared += 1
+    del m_d, o_d, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("12e train (i) dots, (ii) full")
+    # Gate 2: what one forward keeps for its backward under each policy
+    held = {pol: forward_held_bytes(model, dataclasses.replace(
+        cfg, remat_policy=pol), fullr["batches"][0])
+        for pol in ("dots", "full")}
+    for r in (dots, fullr):
+        del r["batches"]
+    parts = dots_saved_bytes(cfg, TRAIN_B, WHISPER_TRAIN_SEQ)
+    want = sum(parts.values())
+    diff = held["dots"] - held["full"]
+    rel = diff / want - 1
+    log(f"[phase12] 12e one forward holds {held['dots']} B under dots, "
+        f"{held['full']} B under full: {diff} B more against "
+        f"{want} B of kept mm outputs by the formula ("
+        + ", ".join(f"{k} {v}" for k, v in parts.items())
+        + f"), {rel:+.4%}; {card_line()}")
+    if abs(rel) > DOTS_TOL:
+        raise AssertionError(f"12e: dots keeps {diff} B more than full, "
+                             f"the formula {want} B ({rel:+.2%})")
+    lap("12e memory")
+    # serve the trained weights through B2
+    model.requires_grad_(False)
+    del opt_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_cfg = dataclasses.replace(cfg, attention_backend=PIN)
+    prompts = torch.randint(0, cfg.vocab_size, (B, WHISPER_SERVE_PROMPT),
+                            generator=torch.Generator().manual_seed(14))
+    gen = WHISPER_SERVE_GEN
+    res, step_res, seen, n_one, calls = cross_generate(
+        model, serve_cfg, prompts, frontend, "12e trained whisper", gen,
+        checks)
+    n_self, _ = cross_counts(serve_cfg)
+    dec = n_self * (gen - 1)
+    sub = {"ita_attention_onepass": {"whisper_trained": subrow(
+        "ita_attention_onepass", calls["decode"], dec,
+        "12e trained whisper self decode")}}
+    figs = {"params_b": n_params / 1e9, "layers": WHISPER_TRAIN_LAYERS,
+            "dots": dots, "full": fullr, "held": held, "saved": want,
+            "rel": rel, "decode_tok_s": res.decode_tok_s}
+    log(f"[phase12] 12e whisper-large-v3 at {WHISPER_TRAIN_LAYERS}/"
+        f"{WHISPER_TRAIN_LAYERS} layers, full width ({n_params / 1e9:.3f} "
+        f"B parameters): losses {[float(x) for x in fullr['losses']]} "
+        f"bit-identical under dots and full, {compared} tensors (parameters, masters, mu, nu) "
+        f"bit-identical; step s dots "
+        f"{', '.join(f'{x:.3f}' for x in dots['secs'])}, full "
+        f"{', '.join(f'{x:.3f}' for x in fullr['secs'])}; peak allocated "
+        f"dots {dots['peak'] / 1e9:.2f} GB, full {fullr['peak'] / 1e9:.2f} "
+        f"GB; trained serve (onepass pin, {B} x {WHISPER_SERVE_PROMPT}, "
+        f"{gen} tokens): served by {seen}, prefill {res.prefill_s:.3f} s, "
+        f"decode {res.decode_tok_s:.1f} tok/s, stepwise "
+        f"{step_res.decode_tok_s:.1f} tok/s, B2 launches {n_one}, tokens "
+        f"{res.tokens[0, :8].tolist()}; the card's total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B; "
+        f"{card_line()}")
+    return figs, sub
+
+
 def phase12(checks):
     """Phase 12: 12a train phi3-mini-3.8b at full width, 12b serve its
     trained weights (B4), then, after it is freed, 12c the bit-identical
-    resume at one layer and 12d the card against the CPU. Returns a
-    result line and the kernels' sub-rows."""
+    resume at one layer, 12d the card against the CPU and 12e whisper
+    trained under both remat policies and served (B2). Returns a result
+    line and the kernels' sub-rows."""
     import torch
     model, cfg, train = train_full_width(checks)
     lap("12a train")
@@ -4462,6 +4704,13 @@ def phase12(checks):
     torch.cuda.empty_cache()
     lap("12c resume")
     card_cpu = train_step_card_vs_cpu()
+    lap("12d card vs CPU")
+    gc.collect()
+    torch.cuda.empty_cache()
+    w, w_subs = whisper_train_phase(checks)
+    for kernel, rows in w_subs.items():
+        subs.setdefault(kernel, {}).update(rows)
+    lap("12e whisper")
     line = (f"[result] phase 12: {TRAIN_ARCH} train ({train['params_b']:.3f}"
             f" B parameters, state {train['state_gb']:.2f} GB) "
             f"{train['step_s']:.3f} s a step at {TRAIN_B} x {TRAIN_SEQ}, "
@@ -4478,7 +4727,20 @@ def phase12(checks):
                         f"{' blocking' * s['blocking']}"
                         for s in resume["saves"])
             + f", restore {resume['restore_s']:.3f} s; card vs CPU loss rel "
-            f"float {card_cpu['float']:.2e}, ita {card_cpu['ita']:.2e}")
+            f"float {card_cpu['float']:.2e}, ita {card_cpu['ita']:.2e}; "
+            f"12e whisper-large-v3 ({w['layers']} + {w['layers']} layers, "
+            f"{w['params_b']:.3f} B parameters) at {TRAIN_B} x "
+            f"{WHISPER_TRAIN_SEQ}: step s dots "
+            f"{', '.join(f'{x:.3f}' for x in w['dots']['secs'])} (busy "
+            f"{w['dots']['busy']:.1%}), full "
+            f"{', '.join(f'{x:.3f}' for x in w['full']['secs'])} (busy "
+            f"{w['full']['busy']:.1%}), peak dots "
+            f"{w['dots']['peak'] / 1e9:.2f} GB, full "
+            f"{w['full']['peak'] / 1e9:.2f} GB, bit-identical; a forward "
+            f"holds {(w['held']['dots'] - w['held']['full']) / 1e9:.3f} GB "
+            f"more under dots ({w['rel']:+.3%} of the kept mm outputs' "
+            f"{w['saved'] / 1e9:.3f} GB); trained serve decode "
+            f"{w['decode_tok_s']:.1f} tok/s")
     return line, subs, [train["roofline"]]
 
 
@@ -4641,6 +4903,7 @@ def phase14():
 # 15b's depth: 8 of phi3-mini-3.8b's 32 layers, widths unchanged (two
 # models and their AdamW states side by side)
 PHI3_SHARD_LAYERS = 8
+WHISPER_SHARD_LAYERS = 2           # 15b: whisper's depth, each stack
 # 15d: the dry-run's cells on the (16, 16) production mesh, on the CPU
 DRYRUN_CELLS = (("qwen2-7b", "decode_32k"), ("mixtral-8x7b", "train_4k"),
                 ("llama-3.2-vision-90b", "prefill_32k"))
@@ -4778,28 +5041,31 @@ def phase15_qwen2(mesh, card):
     return "15a qwen2-7b sharded tokens equal, " + "; ".join(parts)
 
 
-def phase15_train(mesh, card):
-    """15b: phi3-mini-3.8b at full width cut to ``PHI3_SHARD_LAYERS``
-    layers: two steps of ``make_train_step`` and of ``shard_train_step``
-    on a sharded copy from the same seed, on the same batch. Gate: the
-    losses and every parameter and AdamW moment bit-identical (on one rank
-    the sharded step runs the same kernels on the same tensors)."""
+def phase15_train(mesh, card, cfg, label, seq=TRAIN_SEQ):
+    """15b: ``cfg`` (a full-width model cut in depth): two steps of
+    ``make_train_step`` and of ``shard_train_step`` on a sharded copy
+    from the same seed, on the same batch (``TRAIN_B`` x ``seq`` tokens,
+    and a seeded frontend for a cross stack). Gate: the losses and every
+    parameter and AdamW moment bit-identical (on one rank the sharded
+    step runs the same kernels on the same tensors). Returns the result
+    line's part."""
     import torch
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.launch import sharding as SH
     from repro_torch.launch.steps import shard_train_step
     from repro_torch.models import init_model
     from repro_torch.optim.optimizer import AdamWConfig, init_opt_state
-    cfg = get_config(TRAIN_ARCH, attention_impl="ita",
-                     layer_groups=((("attn",), PHI3_SHARD_LAYERS),))
     torch.cuda.reset_peak_memory_stats()
-    model, opt, step, pipe = train_setup(cfg, 2)
+    model, opt, step, pipe = train_setup(cfg, 2, seq=seq)
     sharded = SH.shard_model(init_model(cfg, seed=0, device=DEV), mesh)
     s_opt = init_opt_state(dict(sharded.named_parameters()))
     s_step = shard_train_step(cfg, mesh, AdamWConfig(
         lr=TRAIN_LR, warmup_steps=1, total_steps=2))
     batch = pipe.next()
+    if cfg.frontend_dim:
+        batch["frontend"] = torch.randn(
+            (TRAIN_B, cfg.n_frontend_tokens, cfg.frontend_dim),
+            generator=torch.Generator().manual_seed(13)).to(DEV)
     s_batch = {k: SH.place(v, SH.Sharding(mesh, SH.batch_spec(
         v.shape, mesh, cfg.parallelism))) for k, v in batch.items()}
     losses, secs = [], []
@@ -4813,29 +5079,54 @@ def phase15_train(mesh, card):
         torch.cuda.synchronize()
         secs.append((t1 - t0, time.perf_counter() - t1))
         if not torch.equal(m["loss"], sm["loss"]):
-            raise AssertionError(f"15b: sharded loss {float(sm['loss'])!r} "
-                                 f"!= {float(m['loss'])!r}")
+            raise AssertionError(f"15b {label}: sharded loss "
+                                 f"{float(sm['loss'])!r} != "
+                                 f"{float(m['loss'])!r}")
         losses.append(float(m["loss"]))
     got = dict(sharded.named_parameters())
     for n, p in model.named_parameters():
         for a, b_ in ((p, got[n]), (opt.mu[n], s_opt.mu[n]),
                       (opt.nu[n], s_opt.nu[n])):
             if not torch.equal(a, b_.to_local()):
-                raise AssertionError(f"15b: {n} differs after the sharded "
-                                     f"step")
+                raise AssertionError(f"15b {label}: {n} differs after the "
+                                     f"sharded step")
     n_params = sum(p.numel() for p in model.parameters())
     peak = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[phase15] 15b {cfg.name} at full width cut to "
-        f"{PHI3_SHARD_LAYERS} of 32 layers ({n_params / 1e9:.3f} B "
-        f"parameters) on (data=1, model=1): 2 steps at {TRAIN_B} x "
-        f"{TRAIN_SEQ + 1}, losses {losses} bit-identical to "
-        f"make_train_step's, every parameter, mu and nu bit-identical; "
-        f"step s unsharded/sharded "
+    log(f"[phase15] 15b {label} ({n_params / 1e9:.3f} B parameters, "
+        f"parallelism {cfg.parallelism}, remat_policy {cfg.remat_policy}) "
+        f"on (data=1, model=1): 2 steps at {TRAIN_B} x {seq + 1}, losses "
+        f"{losses} bit-identical to make_train_step's, every parameter, mu "
+        f"and nu bit-identical; step s unsharded/sharded "
         + ", ".join(f"{a:.3f}/{b_:.3f}" for a, b_ in secs)
         + f"; peak allocated {peak:.2f} GB; {card}")
-    return (f"15b phi3-mini ({PHI3_SHARD_LAYERS} layers) sharded train "
-            f"step bit-identical, step s " + ", ".join(
-                f"{a:.3f}/{b_:.3f}" for a, b_ in secs))
+    return (f"15b {label} sharded train step bit-identical, step s "
+            + ", ".join(f"{a:.3f}/{b_:.3f}" for a, b_ in secs))
+
+
+def phase15_trains(mesh, card):
+    """15b on phi3-mini-3.8b at full width cut to ``PHI3_SHARD_LAYERS``
+    layers, then on whisper-large-v3 at full width cut to
+    ``WHISPER_SHARD_LAYERS`` encoder and decoder layers under its own
+    ``fsdp`` and ``remat_policy="dots"`` (the per-layer gathers recomputed
+    in the backward, the products kept)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    phi3 = get_config(TRAIN_ARCH, attention_impl="ita",
+                      layer_groups=((("attn",), PHI3_SHARD_LAYERS),))
+    parts = [phase15_train(mesh, card, phi3,
+                           f"phi3-mini ({PHI3_SHARD_LAYERS} of 32 layers)")]
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = get_config("whisper-large-v3", attention_impl="ita",
+                         n_encoder_layers=WHISPER_SHARD_LAYERS,
+                         layer_groups=((("attn_cross",),
+                                        WHISPER_SHARD_LAYERS),))
+    parts.append(phase15_train(
+        mesh, card, whisper, f"whisper-large-v3 ({WHISPER_SHARD_LAYERS} + "
+        f"{WHISPER_SHARD_LAYERS} of 32 + 32 layers, dots)",
+        seq=WHISPER_TRAIN_SEQ))
+    return "; ".join(parts)
 
 
 def phase15_psum(mesh, card):
@@ -4888,7 +5179,7 @@ def phase15(card):
                 parts = [phase15_qwen2(mesh, card)]
                 gc.collect()
                 torch.cuda.empty_cache()
-                parts.append(phase15_train(mesh, card))
+                parts.append(phase15_trains(mesh, card))
                 gc.collect()
                 torch.cuda.empty_cache()
                 parts.append(phase15_psum(mesh, card))

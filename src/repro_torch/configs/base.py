@@ -64,7 +64,7 @@ class ModelConfig:
     softmax_impl: str = "ita_adaptive"  # ita_paper|ita_adaptive
     dtype: str = "bfloat16"
     remat: bool = True
-    remat_policy: str = "full"
+    remat_policy: str = "full"        # full | dots (keep the mm outputs)
     ce_chunks: int = 1
     attn_q_chunk: int = 512           # streaming attention block sizes
     attn_kv_chunk: int = 512

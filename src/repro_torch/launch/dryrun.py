@@ -20,12 +20,12 @@ A record (the reference's schema): ``arch``, ``shape``, ``mesh``,
 ``kind``, ``status``, ``step_s`` (host seconds of the meta step),
 ``memory`` (per-device bytes of the arguments and outputs, summed over
 their local shards, and ``temp_bytes``, the peak of the step's live
-intermediate tensors as the dispatcher creates them: views and in-place
-results are not counted), ``cost`` (counted FLOPs, the int8 share, the
-HBM-byte proxy, the kernels' ops), ``collectives`` (operand bytes and
-calls by kind) and ``roofline`` (``Roofline.row()`` at the H100's peaks
-with ``coll_bytes`` over NVLink and ``chips`` the mesh size). The exit
-code is 1 if any cell fails.
+intermediate storages as the dispatcher creates them, each until the
+last tensor holding it is freed), ``cost`` (counted FLOPs, the int8
+share, the HBM-byte proxy, the kernels' ops), ``collectives`` (operand
+bytes and calls by kind) and ``roofline`` (``Roofline.row()`` at the
+H100's peaks with ``coll_bytes`` over NVLink and ``chips`` the mesh
+size). The exit code is 1 if any cell fails.
 """
 
 from __future__ import annotations
@@ -68,28 +68,42 @@ def _storage(t):
 
 
 class LiveBytes(TorchDispatchMode):
-    """The peak bytes of the tensors ops create while it is on (each
-    fresh output counted until it is freed; outputs that share an
-    input's storage — views, detaches, in-place results — are not)."""
+    """The peak bytes of the storages ops create while it is on: each
+    fresh output's storage counted until the last tensor seen holding it
+    is freed (the output, or a view, detach or in-place result of it: a
+    selective checkpoint keeps a detached alias of the products it saves
+    after the product itself is gone). Storages the mode did not see
+    created (parameters, the batch) are not counted."""
 
     def __init__(self):
         super().__init__()
         self.live = 0
         self.peak = 0
+        self.holders = {}           # storage -> [bytes, tensors alive]
 
-    def _free(self, n):
-        self.live -= n
+    def _drop(self, key):
+        held = self.holders[key]
+        held[1] -= 1
+        if held[1] == 0:
+            self.live -= held[0]
+            del self.holders[key]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         seen = {_storage(a) for a in args if torch.is_tensor(a)}
         for t in (out if isinstance(out, (tuple, list)) else (out,)):
-            if not torch.is_tensor(t) or t._base is not None \
-                    or _storage(t) in seen:
+            if not torch.is_tensor(t):
                 continue
-            n = t.numel() * t.element_size()
-            self.live += n
-            weakref.finalize(t, self._free, n)
+            key = _storage(t)
+            held = self.holders.get(key)
+            if held is None:
+                if t._base is not None or key in seen:
+                    continue        # an alias of an uncounted storage
+                held = self.holders[key] = [
+                    t.untyped_storage().nbytes(), 0]
+                self.live += held[0]
+            held[1] += 1
+            weakref.finalize(t, self._drop, key)
         self.peak = max(self.peak, self.live)
         return out
 

@@ -61,11 +61,13 @@ attention paths; ``tanh(gate)``; ``softplus(lam)``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.attention import KVCacheState, PagedKVState
 from repro_torch.device import resolve_device
@@ -472,12 +474,47 @@ def _final_norm(norm, x):
     return apply_norm(hints.param(norm), x)
 
 
+# ``remat_policy="dots"``: the products a block's checkpoint keeps from
+# its forward, the counterpart of JAX's
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``. A matrix
+# product with no batch dimension is an aten ``mm`` or ``addmm`` (the
+# 128-row blocks of ``linear``, the router, the cross layers' K/V
+# projections of the memory); batched products (``bmm``: the QAT
+# attention, the expert FFN), collectives and every other op are
+# recomputed in the backward, as JAX recomputes them.
+DOTS_SAVED = frozenset({torch.ops.aten.mm.default,
+                        torch.ops.aten.addmm.default})
+REMAT_POLICIES = ("full", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat_kwargs(cfg) -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s policy arguments for
+    ``cfg.remat_policy``: ``"full"`` recomputes the whole block,
+    ``"dots"`` keeps the ``DOTS_SAVED`` outputs (selective activation
+    checkpointing). Any other policy raises ``ValueError``."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"expected one of {REMAT_POLICIES}")
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)}
+    return {}
+
+
 def _train_block(blk, x, cfg, positions, mem):
     """One block in train mode: ``(x, its MoE load-balance loss or
-    None)``. With ``cfg.remat`` and autograd on, its activations are
-    recomputed in the backward (``jax.checkpoint`` of the reference's
-    scan body); ``remat_policy="dots"`` runs as this full remat, which
-    changes memory and time, never the gradients."""
+    None)``. With ``cfg.remat`` and autograd on, the block runs under
+    ``torch.utils.checkpoint`` (``jax.checkpoint`` of the reference's
+    scan body) with ``remat_kwargs(cfg)``: ``"full"`` recomputes all of
+    its forward in the backward, ``"dots"`` all of it but the products
+    ``DOTS_SAVED`` names, whose outputs it keeps. Either changes memory
+    and time, never the gradients: a kept output has the bits its
+    recompute would have."""
     def run(x, mem):
         got = []
         with hints.gathered(blk):           # per layer, again under remat
@@ -485,7 +522,8 @@ def _train_block(blk, x, cfg, positions, mem):
                        mode="train", mem=mem, aux=got)
         return y, (got[0] if got else None)
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(run, x, mem, use_reentrant=False)
+        return checkpoint(run, x, mem, use_reentrant=False,
+                          **remat_kwargs(cfg))
     return run(x, mem)
 
 

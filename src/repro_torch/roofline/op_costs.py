@@ -446,10 +446,14 @@ def expected_flops(cfg, shape) -> dict:
     forward over ``t`` tokens computes ``padded_rows(t)`` rows (the
     backward of a train step takes all rows in one product); (3) the MoE
     expert FFN runs every expert over a capacity buffer of whole 128-row
-    blocks (``models.moe.dispatch``); with ``cfg.remat`` a train step
-    recomputes every block's forward in its backward. Decoders of
-    ``attn``, ``local`` and ``swa`` blocks; a train step of a dense one
-    with one cross-entropy chunk."""
+    blocks (``models.moe.dispatch``); with ``cfg.remat`` under
+    ``remat_policy="full"`` a train step recomputes every block's forward
+    in its backward, under ``"dots"`` it keeps the forward's ``mm``
+    outputs (``models.transformer.DOTS_SAVED``) and recomputes none of
+    these products: only the attention and the elementwise work are
+    redone, and a product served from the checkpoint's cache never
+    reaches the counter. Decoders of ``attn``, ``local`` and ``swa``
+    blocks; a train step of a dense one with one cross-entropy chunk."""
     from repro_torch.models.moe import capacity
     from repro_torch.roofline.analysis import param_counts
     kinds = {k for p, _ in cfg.layer_groups for k in p}
@@ -468,9 +472,9 @@ def expected_flops(cfg, shape) -> dict:
         dense = rest * pad
     else:
         # the forward at padded rows, the backward's two products over
-        # the t rows, and with remat every block's forward once more
+        # the t rows, and with full remat every block's forward once more
         dense = rest / 3 * (pad + 2)
-        if cfg.remat:
+        if cfg.remat and cfg.remat_policy == "full":
             dense += 2 * param_counts(cfg)["backbone_active"] \
                 * padded_rows(t)
     if experts:

@@ -1188,6 +1188,49 @@ def test_cuda_train_step_matches_cpu(impl):
     print(describe(impl, train_step_card_vs_cpu("phi3-mini-3.8b", impl)))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "olmoe-1b-7b"])
+def test_cuda_dots_remat_train_steps_equal_full(arch):
+    """``remat_policy="dots"`` against ``"full"`` on the card at smoke
+    width (bf16 storage, a float32 master): two ``make_train_step`` steps
+    from seed 0 on the same batches, losses, parameters, masters and
+    AdamW moments bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataPipeline, SyntheticSource
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_model
+    from repro_torch.optim.optimizer import (AdamWConfig, init_opt_state,
+                                             train_params)
+    runs = {}
+    for policy in ("dots", "full"):
+        cfg = get_config(arch, smoke=True, attention_impl="ita",
+                         dtype="bfloat16", param_dtype="bfloat16",
+                         remat_policy=policy)
+        model = init_model(cfg, seed=0, device="cuda")
+        opt = init_opt_state(train_params(model))
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=2))
+        pipe = DataPipeline(
+            SyntheticSource(cfg.vocab_size, seed=0), batch=2, seq_len=64,
+            device="cuda", frontend_shape=(
+                (cfg.n_frontend_tokens, cfg.frontend_dim)
+                if cfg.frontend_dim else None))
+        losses = []
+        for _ in range(2):
+            opt, m = step(model, opt, pipe.next())
+            losses.append(m["loss"])
+        runs[policy] = (losses, dict(model.named_parameters()), opt)
+    (dl, dp, do), (fl, fp, fo) = runs["dots"], runs["full"]
+    assert all(torch.equal(a, b) for a, b in zip(dl, fl)), (dl, fl)
+    assert do.master is not None
+    for n, p in dp.items():
+        for a, b in ((p, fp[n]), (do.master[n], fo.master[n]),
+                     (do.mu[n], fo.mu[n]), (do.nu[n], fo.nu[n])):
+            assert torch.equal(a, b), n
+
+
 # ---------------------------------------------------------------------------
 # The range certificates, the loop lints and the roofline's counter on the
 # card (repro_torch.analysis, repro_torch.roofline)
